@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port of the realign stage on one GPU.
+"""Smoke run of the PyTorch + CUDA port on one GPU.
 
     python3 chip_smoke.py          # from the repository root; one GPU
 
-Phases (each raises on failure, so any failure exits non-zero):
+Phases (each raises on failure, or when jax was imported, so any
+failure exits non-zero):
 
   1. card and build: the card's name and power limit, torch / CUDA
      versions, and the nvcc build of both kernels from csrc/;
@@ -22,7 +23,22 @@ Phases (each raises on failure, so any failure exits non-zero):
   5. kernels vs plain versions on the main path's own blocks: the fill
      inputs of the first block step at each slack (widen 12 first)
      recorded during phase 4, replayed through both kernels and their
-     plain versions, bit-equal.
+     plain versions, bit-equal;
+  6. the whole pipeline: the port's CLI `pipeline -c 40 -n 24 -d 1 -l
+     4000 -t Tree --seed 11 -b 1000 -B 64 --device cuda` (615 MSA rows,
+     so the MaxCorrs device scan's >= 512-row gate routes it to the
+     card), with every resolver product sent to the card
+     (RR_DEVICE_MM_MIN=0). The edit DP of cut and align, kernels A and
+     B, the MaxCorrs scan and the resolver products must each have run
+     on the card; cut and align must write the host native route's
+     files byte for byte, MaxCorrs must make the host fast scan's
+     decisions (within its tolerances), and one window's subdivisions
+     must equal, byte for byte, a rerun with every product on the host.
+     Prints each stage's seconds and the assessment;
+  7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
+     of 13,833 rows x 131,072 columns from seed 0, a band of seed tiles
+     scanned on the card and by the native host scan, same decisions
+     within the same tolerances, with both times.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. With no GPU, or without the
@@ -54,10 +70,13 @@ KERNELS = {
 
 @contextlib.contextmanager
 def phase(name):
-    """Print a phase's header and, when it succeeds, its seconds."""
+    """Print a phase's header and, when it succeeds, its seconds. A phase
+    fails if it imported jax: the port must run without it."""
     t0 = time.perf_counter()
     print(f"== {name}", flush=True)
     yield
+    if "jax" in sys.modules:
+        raise AssertionError(f"phase {name} imported jax")
     print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
@@ -153,7 +172,8 @@ def build_dataset(work):
     template = os.path.join(work, name + "_Template.fasta")
     cli.main(["simulate", "-c", "25", "-n", "8", "-d", "1", "-l", "4000",
               "-t", "Tree", "--seed", "11", "--outdir", work])
-    cli.main(["cut", template, os.path.join(work, name + ".fasta")])
+    cli.main(["cut", template, os.path.join(work, name + ".fasta"),
+              "--device", "cpu"])
     d = rio.derived_paths(template)
     ia = initial_aligner.build_initial_msa(
         rio.read_template(template).astype(np.int16),
@@ -161,6 +181,266 @@ def build_dataset(work):
         InitialAlignerConfig(band=3000))
     initial_aligner.write_outputs(ia, d["msa"], d["seqclass"])
     return d["msa"]
+
+
+class TimedLines(io.TextIOBase):
+    """A stdout stand-in that keeps each printed line with the host
+    time at which it was completed."""
+
+    def __init__(self):
+        self.lines: list[tuple[float, str]] = []
+        self._part = ""
+
+    def write(self, s):
+        self._part += s
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+
+PIPE_ARGS = ["-c", "40", "-n", "24", "-d", "1", "-l", "4000", "-t", "Tree",
+             "--seed", "11"]
+PIPE_NAME = "Tree_1perc_4000kb"
+
+
+def pipeline_phase(card, dev):
+    """Phase 6; returns the kernels' launches in the pipeline run."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch import cli
+    from repeatresolver_tpu_torch.config import (MaxCorrConfig,
+                                                 ResolverConfig,
+                                                 WindowConfig)
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.models import resolver as pres
+    from repeatresolver_tpu_torch.models.window import window_boundaries
+    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
+    from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    from repeatresolver_tpu_torch.ops import devmm
+    from repeatresolver_tpu_torch.ops import editdp
+    from repeatresolver_tpu_torch.utils import io as rio
+
+    pdir = os.path.join(WORK, "pipeline")
+    hdir = os.path.join(WORK, "pipeline_host")
+    os.makedirs(hdir)
+    counters = [(cr.staircase_fill, "launches"),
+                (cb.backtrack_moves, "launches"),
+                (editdp.last_rows, "calls"), (editdp.align_on_device, "calls"),
+                (pmc.compute_maxcorrs_device, "calls"),
+                (devmm.matmul_t, "device_calls")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    # every resolver product to the card: at 615 rows no product reaches
+    # the JAX package's 3e9-op gate
+    os.environ["RR_DEVICE_MM_MIN"] = "0"
+    out = TimedLines()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            cli.main(["pipeline"] + PIPE_ARGS + [
+                "-b", "1000", "-B", "64", "-w", pdir, "--device", dev.type])
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["RR_DEVICE_MM_MIN"]
+    fired = {f"{fn.__module__.split('.')[-1]}.{fn.__name__}":
+             getattr(fn, attr) for fn, attr in counters}
+    stage_s: dict = {}
+    t_prev = t0
+    for t, line in out.lines:
+        print(f"  {line}")
+        if line.startswith("["):
+            stage = line[1:].split("]")[0].split()[0]
+            stage_s[stage] = stage_s.get(stage, 0.0) + t - t_prev
+            t_prev = t
+    print(f"device routes fired in the pipeline run: {fired}")
+    print("stage seconds (host clock, on " + card + "): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
+          + f"; total {t_prev - t0:.2f}")
+    if min(fired.values()) <= 0:
+        raise AssertionError(f"a device route never ran: {fired}")
+    real_path = os.path.join(pdir, PIPE_NAME + "_MSAreal")
+    real = rio.read_msa(real_path)
+    print(f"MSAreal {real.shape}")
+    if real.shape[0] < 512:
+        raise AssertionError(f"{real.shape[0]} MSA rows: below the "
+                             "MaxCorrs device gate of 512")
+
+    # cut and align: the host native route on the same reads
+    for suffix in ("_Template.fasta", ".fasta"):
+        shutil.copy(os.path.join(pdir, PIPE_NAME + suffix), hdir)
+    tpl = os.path.join(hdir, PIPE_NAME + "_Template.fasta")
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["cut", tpl, os.path.join(hdir, PIPE_NAME + ".fasta"),
+                  "--device", "cpu"])
+        cli.main(["align", tpl, os.path.join(hdir, PIPE_NAME + "_Seq.fasta"),
+                  "--device", "cpu"])
+    for suffix in ("_Seq.fasta", "_ReadSeqInfo", "_MSA", "_SeqClass"):
+        with open(os.path.join(pdir, PIPE_NAME + suffix), "rb") as f1, \
+                open(os.path.join(hdir, PIPE_NAME + suffix), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{suffix}: device route != host "
+                                     "native route")
+    print(f"cut + align byte-equal to the host native route (band 0; "
+          f"host route {time.perf_counter() - t1:.1f} s)")
+
+    # MaxCorrs: the device scan again (it is deterministic: the same
+    # file), against the host fast scan on the same MSAreal
+    cfg = MaxCorrConfig()
+    t1 = time.perf_counter()
+    mc_d = pmc.compute_maxcorrs_device(real, cfg, device=dev)
+    t_dev = time.perf_counter() - t1
+    mc_file = os.path.join(hdir, "MaxCorrs_device")
+    rio.write_maxcorrs(mc_file, mc_d)
+    with open(mc_file, "rb") as f1, open(os.path.join(
+            pdir, "MaxCorrsOf_" + PIPE_NAME + "_MSAreal"), "rb") as f2:
+        if f1.read() != f2.read():
+            raise AssertionError("device scan not reproducible")
+    t1 = time.perf_counter()
+    mc_h = pmc.compute_maxcorrs(real, cfg, fast=True,
+                                threads=os.cpu_count() or 1)
+    t_host = time.perf_counter() - t1
+    cutoff = cfg.resolved_cutoff(real.shape[1])
+    sig = mc_h > cutoff
+    if not np.array_equal(mc_d > cutoff, sig):
+        raise AssertionError(f"MaxCorrs decisions differ at cutoff "
+                             f"{cutoff}: {int(((mc_d > cutoff) != sig).sum())}")
+    np.testing.assert_allclose(mc_d[sig], mc_h[sig], rtol=2e-3, atol=5e-3)
+    dz = np.abs(mc_d - mc_h)
+    print(f"MaxCorrs: {int(sig.sum())} significant of {len(mc_h)} at "
+          f"cutoff {cutoff:.4f}, decisions identical; max|dZ| "
+          f"{dz[sig].max() if sig.any() else 0.0:.3g} significant, "
+          f"{dz.max():.3g} overall; device scan {t_dev:.2f} s, host fast "
+          f"scan {t_host:.2f} s ({os.cpu_count()} threads) on {card}")
+
+    # one window's subdivisions with every product on the host; the
+    # window again with every product on the card, for its time
+    von, bis = window_boundaries(real, WindowConfig())[:2]
+    t1 = time.perf_counter()
+    os.environ["RR_RESOLVER_DEVICE"] = "0"
+    calls = devmm.matmul_t.device_calls
+    try:
+        res = pres.resolve_window(real, mc_d, von, bis, ResolverConfig(),
+                                  dev)
+    finally:
+        del os.environ["RR_RESOLVER_DEVICE"]
+    t_host = time.perf_counter() - t1
+    if devmm.matmul_t.device_calls != calls:
+        raise AssertionError("RR_RESOLVER_DEVICE=0 still used the card")
+    os.environ["RR_DEVICE_MM_MIN"] = "0"
+    t1 = time.perf_counter()
+    try:
+        pres.resolve_window(real, mc_d, von, bis, ResolverConfig(), dev)
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["RR_DEVICE_MM_MIN"]
+    print(f"window {von}-{bis} resolve: {t_host:.2f} s with host "
+          f"products, {time.perf_counter() - t1:.2f} s with "
+          f"{devmm.matmul_t.device_calls - calls} products on {card}")
+    for kind, u in res.items():
+        name = rio.subdivision_path(kind, von, bis, PIPE_NAME + "_MSAreal")
+        rio.write_subdivision(os.path.join(hdir, name), u)
+        with open(os.path.join(pdir, name), "rb") as f1, \
+                open(os.path.join(hdir, name), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{name}: device products != host")
+    print(f"window {von}-{bis}: subdivisions byte-identical between "
+          "RR_DEVICE_MM_MIN=0 and RR_RESOLVER_DEVICE=0")
+    for _, line in out.lines:
+        if line.startswith(("[realign]", "[assess")):
+            print(f"{line}  ({card})")
+    return {"staircase_fill": fired["cuda_realign.staircase_fill"],
+            "walk_backtrack": fired["cuda_backtrack.backtrack_moves"]}
+
+
+PAPER_ROWS, PAPER_COLS = 13833, 131072
+PAPER_BAND_TILES = 8
+
+
+def synthetic_msa(rows, cols, seed=0):
+    """A MaxCorrs input at the paper run's size: 100 copy groups, 1% of
+    columns planted SNPs (a block of copies carries a random other
+    base), 2% noise and 3% gaps; each row covers one interval of
+    20,000-60,000 columns (coverage gap 5 outside)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    copies = 100
+    consensus = rng.integers(0, 4, cols).astype(np.int8)
+    msa = np.empty((rows, cols), np.int8)
+    msa[:] = consensus
+    copy = rng.integers(0, copies, rows)
+    for cc in rng.choice(cols, cols // 100, replace=False):
+        first, size = rng.integers(0, copies), rng.integers(1, copies // 2)
+        carriers = (copy - first) % copies < size
+        msa[carriers, cc] = (consensus[cc] + rng.integers(1, 4)) % 4
+    flat = msa.reshape(-1)
+    pos = rng.integers(0, msa.size, msa.size // 50)
+    flat[pos] = rng.integers(0, 4, pos.size).astype(np.int8)
+    pos = rng.integers(0, msa.size, msa.size * 3 // 100)
+    flat[pos] = 4
+    del pos
+    lens = rng.integers(20000, 60001, rows)
+    starts = rng.integers(0, cols - lens + 1)
+    for r in range(rows):
+        msa[r, :starts[r]] = 5
+        msa[r, starts[r] + lens[r]:] = 5
+    return msa
+
+
+def paper_scan_phase(card, dev):
+    """Phase 7."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch.config import MaxCorrConfig
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    msa = synthetic_msa(PAPER_ROWS, PAPER_COLS)
+    print(f"synthetic MSA {msa.shape} in {time.perf_counter() - t0:.1f} s")
+    cfg = MaxCorrConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sc = pmc.MaxCorrScan(msa, cfg, 256, dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    k0 = sc.nt // 2 - PAPER_BAND_TILES // 2
+    band = range(k0, k0 + PAPER_BAND_TILES)
+    t0 = time.perf_counter()
+    acc = sc.scan(band)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    mc_d = acc[:PAPER_COLS * 5].cpu().numpy().astype(np.float64)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    i0, i1 = band.start * 256, band.stop * 256
+    t0 = time.perf_counter()
+    bits = native.MaxCorrBitsets(msa)
+    t_bits = time.perf_counter() - t0
+    mc_h = np.zeros(PAPER_COLS * 5, np.float64)
+    t0 = time.perf_counter()
+    bits.scan(mc_h, i0, i1, cfg.mincov, cfg.min_col_gap, PAPER_ROWS,
+              cfg.majority_filter, True, os.cpu_count() or 1)
+    t_host = time.perf_counter() - t0
+    cutoff = cfg.resolved_cutoff(PAPER_COLS)
+    sig = mc_h > cutoff
+    if not np.array_equal(mc_d > cutoff, sig):
+        raise AssertionError(f"decisions differ: "
+                             f"{int(((mc_d > cutoff) != sig).sum())}")
+    np.testing.assert_allclose(mc_d[sig], mc_h[sig], rtol=2e-3, atol=5e-3)
+    dz = np.abs(mc_d - mc_h)
+    print(f"seed columns [{i0}, {i1}) ({PAPER_BAND_TILES} tiles of 256): "
+          f"{sc.tile_pairs} tile pairs, {int(sig.sum())} significant, "
+          f"decisions identical, max|dZ| {dz[sig].max() if sig.any() else 0:.3g}"
+          f" significant, {dz.max():.3g} overall")
+    print(f"device: one-hot build {t_build:.2f} s, band {t_dev:.2f} s, "
+          f"{t_dev / max(sc.tile_pairs, 1) * 1e3:.3f} ms per tile pair, "
+          f"peak {peak:.2f} GiB; host native scan {t_host:.2f} s "
+          f"({os.cpu_count()} threads; bitsets {t_bits:.1f} s) on {card}")
+    if sig.sum() == 0:
+        raise AssertionError("no significant MaxCorrs in the band")
 
 
 def main() -> int:
@@ -184,6 +464,10 @@ def main() -> int:
     def to_dev(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
     with phase("1 card and build"):
+        # phase 7's scan runs the native library: build it (g++) now
+        from repeatresolver_tpu_torch.utils import native
+        if native.get_lib() is None:
+            raise RuntimeError("native host library did not build")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -316,8 +600,6 @@ def main() -> int:
                 raise AssertionError(f"row {k} lost or changed bases")
         if min(launches.values()) <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
-        if "jax" in sys.modules:
-            raise AssertionError("jax was imported")
 
     with phase("5 kernels vs plain on the main path's own blocks"):
         for widen, (args, ncols, kw) in blocks.items():
@@ -335,9 +617,17 @@ def main() -> int:
             raise AssertionError(f"no block step at widen {DEFAULT_WIDEN}"
                                  f" recorded: {sorted(blocks)}")
 
+    with phase("6 main path: CLI pipeline on the card"):
+        pipe_launches = pipeline_phase(card, dev)
+
+    with phase("7 MaxCorrs scan at paper width"):
+        paper_scan_phase(card, dev)
+
     report = [dict(name=name, route="cuda", **KERNELS[name],
-                   launches=launches[name], max_abs_err=errs[name],
-                   ms=times[name][0], plain_ms=times[name][1])
+                   launches=launches[name],
+                   pipeline_launches=pipe_launches[name],
+                   max_abs_err=errs[name], ms=times[name][0],
+                   plain_ms=times[name][1])
               for name in KERNELS]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,36 @@
 """Template-anchored initial MSA.
 
-Counterpart of repeatresolver_tpu/models/initial_aligner.py, host native
-path only: the glocal alignments come from the native C++ kernels
-(repeatresolver_tpu/utils/native.initial_align, full DP, and
-initial_align_banded, the anchored band); Building_MSA
-(InitialAligner.c:553-663) is reproduced exactly, including its two
-load-bearing quirks (Gapcount over every sequence, class 'l' included;
-the leading-run spill that makes a row ragged). The device leg (the
-wavefront edit DP, ops/editdp.py) is not ported yet; without the native
-library this module raises.
+Counterpart of repeatresolver_tpu/models/initial_aligner.py. The glocal
+alignments come from one of two routes, as in the JAX package: the
+native C++ kernels on the host (repeatresolver_tpu/utils/native.
+initial_align, full DP, and initial_align_banded, the anchored band; it
+raises without the native library), or the full edit DP with its
+backtrack as torch ops on a device (ops/editdp.align_on_device, the
+route the JAX package takes on an accelerator, which has no band).
+Building_MSA (InitialAligner.c:553-663) is reproduced exactly, including
+its two load-bearing quirks (Gapcount over every sequence, class 'l'
+included; the leading-run spill that makes a row ragged).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repeatresolver_tpu.config import InitialAlignerConfig
 
+from ..device import resolve_device
+from ..ops import editdp
+
 GAP = 4
 _KMER = 15
+# the device route's batch rows and bound on the move codes [Lq, B, Lt]
+# int8 (the JAX package's are 16 rows and 1 GiB). Rows are independent,
+# so neither changes a result; on an 80 GB card the per-position Python
+# loop, not the arithmetic, sets the time, so fewer, wider batches win.
+DEVICE_BATCH = 256
+CODES_BUDGET = 1 << 34
 
 
 class TemplateIndex:
@@ -105,11 +116,25 @@ class InitialMSAResult:
 
 
 def align_all(template: np.ndarray, seqs: list[np.ndarray],
-              band: int = 0) -> tuple[list[np.ndarray], np.ndarray]:
-    """IntoAligner over all seqs through the native kernels: alignments
-    and error rates. band > 0 aligns anchored pieces (and long
-    anchor-less ones, on the length-scaled diagonal) in a band around
-    their centre path; short anchor-less pieces get the exact full DP."""
+              band: int = 0, device="cpu", use_native: bool | None = None
+              ) -> tuple[list[np.ndarray], np.ndarray]:
+    """IntoAligner over all seqs: alignments and error rates.
+
+    use_native=None takes the native kernels for device "cpu" and the
+    device edit DP on `device` otherwise; False forces the device route
+    (also on "cpu"). On the native route, band > 0 aligns anchored
+    pieces (and long anchor-less ones, on the length-scaled diagonal) in
+    a band around their centre path, short anchor-less pieces with the
+    exact full DP; the device route ignores band."""
+    dev = resolve_device(device)
+    if use_native is None:
+        use_native = dev.type == "cpu"
+    if use_native:
+        return _align_native(template, seqs, band)
+    return _align_device(template, seqs, dev)
+
+
+def _align_native(template, seqs, band):
     from repeatresolver_tpu.utils import native as nat
     if nat.get_lib() is None:
         raise RuntimeError("native host library unavailable: align needs "
@@ -150,6 +175,65 @@ def align_all(template: np.ndarray, seqs: list[np.ndarray],
         for i in range(len(chunk)):
             alignments[lo + i] = aligned[i, :lens[i]].copy()
             errors[lo + i] = errs[i]
+    return alignments, errors
+
+
+def _bucket(x: int) -> int:
+    """Length bucket: powers of two from 256, the JAX package's batch
+    groups (there, one compiled shape each)."""
+    b = 256
+    while b < x:
+        b *= 2
+    return b
+
+
+def _align_device(template, seqs, dev):
+    """Length-sorted batches through editdp.align_on_device (the backtrack
+    stays on the device; only alignments and final rows come back)."""
+    tlen = len(template)
+    n = len(seqs)
+    errors = np.full(n, np.nan)
+    alignments: list[np.ndarray] = [np.empty(0, np.int32)] * n
+    order = np.argsort([len(s) for s in seqs], kind="stable")
+    # long uncut pieces (reads with no first/last template-part hit stay
+    # whole, ReadCutter.c:600-601) push Lq to read length: the batch
+    # shrinks with Lq*Lt to bound the move codes
+    buckets = np.array([_bucket(max(1, len(seqs[i]))) for i in order])
+    starts = []
+    pos = 0
+    while pos < n:
+        lq = int(buckets[pos])
+        b_eff = int(max(1, min(DEVICE_BATCH,
+                               CODES_BUDGET // (lq * max(tlen, 1)))))
+        end = pos
+        while end < n and end - pos < b_eff and buckets[end] == lq:
+            end += 1
+        starts.append((pos, end, lq))
+        pos = end
+    target = torch.from_numpy(template.astype(np.int16)).to(dev)
+    for lo, hi, lq in starts:
+        idxs = order[lo:hi]
+        lens_real = np.array([len(seqs[i]) for i in idxs], np.int32)
+        # a batch runs to its longest piece, not to the bucket: DP rows
+        # past every piece's end reach no output
+        q = np.full((len(idxs), max(1, int(lens_real.max()))), 100,
+                    np.int16)                           # query pad 100
+        for r, i in enumerate(idxs):
+            q[r, :lens_real[r]] = seqs[i]
+        aligned, fr = editdp.align_on_device(
+            torch.from_numpy(q).to(dev),
+            torch.from_numpy(lens_real).to(dev), target)
+        aligned = aligned.cpu().numpy()
+        fr = fr.cpu().numpy()
+        for r, i in enumerate(idxs):
+            nl = int(lens_real[r])
+            if nl == 0:
+                errors[i] = np.nan
+                alignments[i] = np.empty(0, np.int32)
+            else:
+                entry = editdp.entry_column(fr[r])
+                errors[i] = fr[r, entry] / nl
+                alignments[i] = aligned[r, :nl].copy()
     return alignments, errors
 
 
@@ -226,9 +310,12 @@ def emit_row(seq: np.ndarray, a: np.ndarray, gapcount: np.ndarray,
 
 
 def build_initial_msa(template: np.ndarray, seqs: list[np.ndarray],
-                      cfg: InitialAlignerConfig) -> InitialMSAResult:
+                      cfg: InitialAlignerConfig, device="cpu",
+                      use_native: bool | None = None) -> InitialMSAResult:
+    """Building_MSA over the alignments of align_all (its routes)."""
     tlen = len(template)
-    alignments, errors = align_all(template, seqs, band=cfg.band)
+    alignments, errors = align_all(template, seqs, band=cfg.band,
+                                   device=device, use_native=use_native)
     gapcount = compute_gapcount([a for a in alignments if len(a)], tlen)
     rows: list[np.ndarray] = []
     seqclass: list[str] = []

@@ -1,21 +1,26 @@
 """Cut reads into repeat/flank instances against the template.
 
-Counterpart of repeatresolver_tpu/models/read_cutter.py, host native
-path only: the last DP rows of the two mapped template parts come from
-the native C++ kernel (repeatresolver_tpu/utils/native.occurrence_rows);
-the occurrence-region scan, the candidate loops and the greedy cut chain
-are the reference's (quirky) host logic, reproduced exactly (ReadCutter.c
-:489-742, quirks documented in the JAX module). The device leg (the
-wavefront edit DP, ops/editdp.py) is not ported yet; without the native
-library this module raises.
+Counterpart of repeatresolver_tpu/models/read_cutter.py. The last DP
+rows of the two mapped template parts come from one of two routes, as in
+the JAX package: the native C++ kernel on the host (repeatresolver_tpu/
+utils/native.occurrence_rows; it raises without the native library) or
+the edit DP as torch ops on a device (ops/editdp.last_rows, the route
+the JAX package takes on an accelerator). The occurrence-region scan,
+the candidate loops and the greedy cut chain are the reference's
+(quirky) host logic, reproduced exactly (ReadCutter.c:489-742, quirks
+documented in the JAX module).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from repeatresolver_tpu.config import ReadCutterConfig
+
+from ..device import resolve_device
+from ..ops import editdp
 
 
 def occurrence_positions(final_row: np.ndarray, readlen: int,
@@ -117,12 +122,14 @@ class CutResult:
 
 
 def cut_reads(template: np.ndarray, reads: list[np.ndarray],
-              cfg: ReadCutterConfig) -> CutResult:
-    """Full ReadCutter behaviour over a read set (native host DP)."""
-    from repeatresolver_tpu.utils import native as nat
-    if nat.get_lib() is None:
-        raise RuntimeError("native host library unavailable: cut needs "
-                           "native/libhostops.so (built with g++)")
+              cfg: ReadCutterConfig, device="cpu",
+              use_native: bool | None = None) -> CutResult:
+    """Full ReadCutter behaviour over a read set. use_native=None takes
+    the native host kernel for device "cpu" and the device edit DP on
+    `device` otherwise; False forces the device route (also on "cpu")."""
+    dev = resolve_device(device)
+    if use_native is None:
+        use_native = dev.type == "cpu"
     parts = cfg.parts
     steps = len(template) // parts
     plen = steps + cfg.overlap
@@ -138,12 +145,37 @@ def cut_reads(template: np.ndarray, reads: list[np.ndarray],
     readlens = np.array([len(r) for r in reads], np.int32)
     lt = max(1, int(readlens.max()))
     n = len(reads)
-    padded = np.full((n, lt), 99, np.int8)
-    for j in range(n):
-        padded[j, :readlens[j]] = reads[j]
-    rows0, rows_last = (nat.occurrence_rows(part.astype(np.int8), padded,
-                                            readlens)
-                        for part in (part_first, part_last))
+    if use_native:
+        from repeatresolver_tpu.utils import native as nat
+        if nat.get_lib() is None:
+            raise RuntimeError("native host library unavailable: cut "
+                               "needs native/libhostops.so (built with "
+                               "g++)")
+        padded = np.full((n, lt), 99, np.int8)
+        for j in range(n):
+            padded[j, :readlens[j]] = reads[j]
+        rows0, rows_last = (nat.occurrence_rows(part.astype(np.int8),
+                                                padded, readlens)
+                            for part in (part_first, part_last))
+    else:
+        # query = template part, target = read (pad sentinel 200), in
+        # the JAX package's batches of 64 reads
+        batch_size = 64
+        rows0 = np.empty((n, lt), np.int32)
+        rows_last = np.empty((n, lt), np.int32)
+        qlens = torch.full((batch_size,), plen, dtype=torch.int32,
+                           device=dev)
+        queries = [torch.from_numpy(part).to(dev)[None, :].expand(
+            batch_size, plen) for part in (part_first, part_last)]
+        for lo in range(0, n, batch_size):
+            hi = min(n, lo + batch_size)
+            tgt = np.full((batch_size, lt), 200, np.int16)
+            for j in range(lo, hi):
+                tgt[j - lo, :readlens[j]] = reads[j]
+            tgt_d = torch.from_numpy(tgt).to(dev)
+            for q, dst in zip(queries, (rows0, rows_last)):
+                dst[lo:hi] = editdp.last_rows(q, qlens, tgt_d).cpu(
+                ).numpy()[:hi - lo]
 
     cutting_points: list[list[int]] = []
     for j in range(n):

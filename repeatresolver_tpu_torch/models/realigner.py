@@ -368,6 +368,7 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
                     block_rows: int | None = None,
                     checkpoint_path: str | None = None,
                     resume: bool = False,
+                    stats: dict | None = None,
                     validate: bool = False,
                     kernel: str = "auto",
                     device: str = "cuda") -> np.ndarray:
@@ -389,7 +390,11 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     The anneal: the first non-improving round at block B restores the
     best MSA (when the stalled round left it worse) and continues at
     B//4, ending when a block-1 round (the reference's serial
-    semantics) fails to improve."""
+    semantics) fails to improve.
+
+    stats, when given, receives the JAX package's keys: rounds, wall_s
+    (host clock from after EntAlGapper to the return), dp_cells (bases x
+    band per sweep) and cells_per_s."""
     from repeatresolver_tpu.utils import checkpoint as ckpt
     from repeatresolver_tpu.utils import io as rio
 
@@ -424,6 +429,10 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     eng.ent_al_gapper()
     best_msa = None
     rounds = start_round
+    # row base counts are realignment-invariant: the DP cells of a sweep
+    bases = int((np.asarray(msa) < 4).sum())
+    cells = 0
+    t0 = time.perf_counter()
     writer: list = [None]         # in-flight best-MSA write thread
     write_stale = [False]         # best_msa newer than the last write
 
@@ -477,6 +486,7 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
             msa=eng.msa, round=0, best_mille=best[0], best_uno=best[1],
             bandwidth=cfg.bandwidth).save(checkpoint_path)
     while rounds < cfg.max_rounds:
+        cells += bases * cfg.bandwidth
         eng.sweep()
         rounds += 1
         if validate:
@@ -500,5 +510,9 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
             and (out_path is not None or checkpoint_path is not None):
         # the initial best was never superseded: write it
         _write_best(best_msa, best, rounds, _eng_state())
+    if stats is not None:
+        dt = time.perf_counter() - t0
+        stats.update(rounds=rounds, wall_s=dt, dp_cells=cells,
+                     cells_per_s=cells / dt if dt > 0 else 0.0)
     return (np.asarray(best_msa) if best_msa is not None
             else eng.msa)

@@ -135,23 +135,43 @@ def test_device_is_explicit(monkeypatch, tmp_path):
 
 
 def test_port_run_does_not_import_jax(tmp_path):
-    """Simulate, cut, align and realign through the port's CLI in a
-    fresh interpreter (the test process has jax loaded by conftest)."""
+    """Every module of the port imports, and simulate, cut, align (the
+    native and the device route), realign, window, maxcorr and resolve
+    run through the port's CLI, in a fresh interpreter (the test process
+    has jax loaded by conftest)."""
     code = f"""
-import sys
+import importlib, pkgutil, sys
 sys.path.insert(0, {REPO!r})
 import torch
 torch.set_num_threads(1)
+import repeatresolver_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+assert "repeatresolver_tpu_torch.pipeline" in mods, mods
 from repeatresolver_tpu_torch import cli
+from repeatresolver_tpu_torch.models import read_cutter
 d = {str(tmp_path)!r}
 cli.main(["simulate", "-c", "4", "-n", "2", "-l", "1500", "--seed", "3",
           "--outdir", d])
 name = "Tree_1perc_1500kb"
-cli.main(["cut", f"{{d}}/{{name}}_Template.fasta", f"{{d}}/{{name}}.fasta"])
-cli.main(["align", f"{{d}}/{{name}}_Template.fasta",
-          f"{{d}}/{{name}}_Seq.fasta"])
+tpl = f"{{d}}/{{name}}_Template.fasta"
+cli.main(["cut", tpl, f"{{d}}/{{name}}.fasta", "--device", "cpu"])
+cli.main(["align", tpl, f"{{d}}/{{name}}_Seq.fasta", "--device", "cpu"])
 cli.main(["realign", f"{{d}}/{{name}}_MSA", "-o", f"{{d}}/{{name}}_MSAreal",
           "-b", "64", "-B", "4", "--device", "cpu"])
+import os
+os.chdir(d)                  # MaxCorrsOf_ is a prefix on the path string
+real = f"{{name}}_MSAreal"
+cli.main(["window", real])
+cli.main(["maxcorr", real, "-c", "4"])
+cli.main(["resolve", real, "-f", "100", "300", "-c", "4", "--device", "cpu"])
+from repeatresolver_tpu_torch.config import ReadCutterConfig
+from repeatresolver_tpu_torch.utils import io as rio
+read_cutter.cut_reads(rio.read_template(tpl).astype("int16"),
+                      [r.astype("int16") for r in rio.read_fasta(
+                          f"{{d}}/{{name}}.fasta")][:2],
+                      ReadCutterConfig(), device="cpu", use_native=False)
 assert "jax" not in sys.modules, "jax was imported"
 print("NOJAX-OK")
 """
