@@ -3,17 +3,21 @@
 
     python3 chip_smoke.py          # from the repository root; one GPU
 
-Phases (each raises on failure, or when jax was imported, so any
-failure exits non-zero):
+Phases (each raises on failure, or when jax or any module of the JAX
+package repeatresolver_tpu was imported, so any failure exits non-zero):
 
-  1. card and build: the card's name and power limit, torch / CUDA
-     versions, and the nvcc build of both kernels from csrc/;
+  1. card and build: the card's name, power limit and SM clock, torch /
+     CUDA versions, the nvcc build of both kernels from csrc/ (started
+     together) and the g++ build of the port's host library;
   2. kernels vs plain versions, small random blocks (gap-dense paths,
      rows of length 0 and 1), on the GPU: bit-equal codes, band, moves
      and (rows, best, iy, ib, inn);
   3. the same at the production dispatch shape (64 rows x 32,768 bases,
      band 1000, chunk 128, widen 6, MSA width 139,264), with the times
-     and cells/s of each kernel and of its plain version;
+     and cells/s of each kernel and of its plain version, each kernel's
+     bound (the larger of bytes over the memory rate and int32
+     operations over the card's integer rate), and kernel A's time at
+     widen 1, 8, 10, 12 and 16 (W2 1,128 to 3,048);
   4. the main path: the runs/tpu_converge dataset (Tree, c=25, n=8,
      d=1%, l=4000, seed 11) built with the port's host stages, then the
      port's CLI `realign -b 1000 -B 64 --device cuda`. Its OverallScore
@@ -38,7 +42,20 @@ failure exits non-zero):
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
      of 13,833 rows x 131,072 columns from seed 0, a band of seed tiles
      scanned on the card and by the native host scan, same decisions
-     within the same tolerances, with both times.
+     within the same tolerances, with both times;
+  8. the realign main path at the paper's repeat length: a Tree dataset
+     with -l 30000 -d 1 (coverage 12, 8 copies: an MSA of 328 rows,
+     more than three blocks of 64) built with the port's host stages,
+     then `realign_batched` on the card, band 1000, block 64, capped at
+     8 rounds so that only resident rounds run. Prints rows x columns,
+     rounds, launches, the seconds in resident sweeps and, from CUDA
+     events around both kernels' launches, the seconds inside kernel A,
+     inside kernel B and in the rest of the sweeps (torch ops and the
+     per-block host read). The score after every round must equal the
+     same capped run at the same block size through the host native
+     engine (exact band, independent of both kernels; RR_FLUSH_CAP high
+     so that both flush once a sweep), and the first block's recorded
+     inputs go through both kernels and their plain versions, bit-equal.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. With no GPU, or without the
@@ -71,12 +88,15 @@ KERNELS = {
 @contextlib.contextmanager
 def phase(name):
     """Print a phase's header and, when it succeeds, its seconds. A phase
-    fails if it imported jax: the port must run without it."""
+    fails if it imported jax or anything of the JAX package: the port
+    must run without either."""
     t0 = time.perf_counter()
     print(f"== {name}", flush=True)
     yield
-    if "jax" in sys.modules:
-        raise AssertionError(f"phase {name} imported jax")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "repeatresolver_tpu"))
+    if foreign:
+        raise AssertionError(f"phase {name} imported {foreign}")
     print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
@@ -97,7 +117,8 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
     """Kernels A and B against their plain versions on one block of
     GPU tensors (counts, rows, seqs, ways, lengths), chained as a block
     step chains them; cpad is the width of the rewritten rows. Returns
-    (max abs difference per kernel, times in ms or None)."""
+    (max abs difference per kernel, times in ms or None: kernel A, its
+    plain version (one run), kernel B, its plain version)."""
     import torch
 
     from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
@@ -110,9 +131,12 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
     w2 = w + widen * t
 
     def timed_call(fn, reps):
-        out = fn()
+        """reps > 1: a warm-up, then the mean of reps launches; reps ==
+        1 (the plain versions, tens of seconds each): the one run."""
         if not timed:
-            return out, None
+            return fn(), None
+        if reps > 1:
+            fn()
         torch.cuda.synchronize()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
@@ -132,7 +156,6 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
     err_a = max(int((ck.long() - cp.long()).abs().max()),
                 int((bk.long() - bp.long()).abs().max()),
                 int((ak.long() - ap.long()).abs().max()))
-
     anf_full = sr.staircase_anf(ways, w, t)
     last_way = ways[torch.arange(b, device=dev),
                     (lengths - 1).clamp(min=0)]
@@ -178,7 +201,7 @@ def build_dataset(work):
     ia = initial_aligner.build_initial_msa(
         rio.read_template(template).astype(np.int16),
         [s.astype(np.int16) for s in rio.read_fasta(d["seq_fasta"])],
-        InitialAlignerConfig(band=3000))
+        InitialAlignerConfig(band=3000), device="cpu")
     initial_aligner.write_outputs(ia, d["msa"], d["seqclass"])
     return d["msa"]
 
@@ -443,6 +466,216 @@ def paper_scan_phase(card, dev):
         raise AssertionError("no significant MaxCorrs in the band")
 
 
+# the card's rates for the bounds: memory rate and int32 lanes per SM
+# and cycle from NVIDIA's H100 SXM data sheet; the SM count and the SM
+# clock are read from the card
+HBM_BYTES_PER_S = 3.35e12
+INT32_LANES_PER_SM = 64
+# int32 operations that one band cell needs, in the cheapest formulation
+# known (the reduced band of csrc/staircase_fill.cu, a warp inside the
+# reference band): diagonal add, its reduced form for the code test,
+# insert add, min of the two, reduction add, running min, min with the
+# lower lanes' prefix, gap compare, diagonal compare + select, gap
+# select, funnel shift of the code word. Per-thread and per-step work
+# (the warp scan, the hand-off) is left out: a bound counts only what
+# every design must do.
+FILL_OPS_PER_CELL = 11
+# beside it, not in the bound: the plain version's count for one cell
+# (ops/staircase_realign.py: band test 3, cost plane select 1, diagonal
+# 1, insert candidate 3, band/valid mask 2, prefix-min 3, gap test 6,
+# diagonal test 3, pack 2, band update 1)
+PLAIN_FILL_OPS_PER_CELL = 25
+# dependent int32 operations of one step of the walk in kernel B (mask
+# shift, and, count-leading-zeros, two shifts for the insert bit, add)
+WALK_CHAIN_OPS = 6
+
+
+def kernel_bounds(b, l, c, w, t, widen, lengths, sm_count, sm_hz):
+    """The least time the card could take for each kernel's work on this
+    block, in ms: {name: (bound_ms, bound_by, detail)}. Bytes: each input
+    read once and each output written once (for the walk, which reads
+    only where it goes, one 32-byte sector of codes per word-row it
+    walks); operations over the card's int32 rate."""
+    w2 = w + widen * t
+    nc = -(-l // t)
+    lpad = nc * t
+    nw = lpad // 16
+    int_rate = sm_count * INT32_LANES_PER_SM * sm_hz
+    cells = b * lpad * w2
+    bytes_a = (c * 6 * 4 + b * c + b * l + b * l * 4 + b * 4
+               + nw * b * w2 * 4 + b * w2 * 4 + b * 4)
+    ops_a = FILL_OPS_PER_CELL * cells
+    ta_ops, ta_bytes = ops_a / int_rate * 1e3, bytes_a / HBM_BYTES_PER_S * 1e3
+    steps = int(sum(int(x) for x in lengths))
+    rows_walked = int(sum(-(-int(x) // 16) for x in lengths))
+    bytes_b = rows_walked * 32 + b * (4 + 4 + nc * 4) + nw * b * 16 * 4
+    ops_b = WALK_CHAIN_OPS * steps
+    tb_ops, tb_bytes = ops_b / int_rate * 1e3, bytes_b / HBM_BYTES_PER_S * 1e3
+    # what no design of the walk can beat: a row's steps are a chain
+    chain_ms = max(int(x) for x in lengths) * WALK_CHAIN_OPS / sm_hz * 1e3
+    return {
+        "staircase_fill": (
+            max(ta_ops, ta_bytes),
+            "operations" if ta_ops >= ta_bytes else "bytes",
+            f"{cells:.4g} band cells x {FILL_OPS_PER_CELL} int32 operations"
+            f" over {sm_count} SMs x {INT32_LANES_PER_SM} lanes x "
+            f"{sm_hz / 1e6:.0f} MHz = {ta_ops:.3f} ms (the plain version's "
+            f"{PLAIN_FILL_OPS_PER_CELL} operations a cell would be "
+            f"{ta_ops * PLAIN_FILL_OPS_PER_CELL / FILL_OPS_PER_CELL:.3f} "
+            f"ms); {bytes_a / 1e6:.1f} MB over 3.35 TB/s = "
+            f"{ta_bytes:.3f} ms"),
+        "walk_backtrack": (
+            max(tb_ops, tb_bytes),
+            "operations" if tb_ops >= tb_bytes else "bytes",
+            f"{rows_walked} word-rows walked x 32 B + records out = "
+            f"{bytes_b / 1e6:.1f} MB over 3.35 TB/s = {tb_bytes:.4f} ms; "
+            f"{steps} steps x {WALK_CHAIN_OPS} operations = {tb_ops:.5f} ms;"
+            f" serial-chain floor (not the bound): {max(lengths)} dependent"
+            f" steps x {WALK_CHAIN_OPS} operations at one a cycle = "
+            f"{chain_ms:.3f} ms"),
+    }
+
+
+PAPER_SIM = ["-c", "12", "-n", "8", "-d", "1", "-l", "30000", "-t", "Tree",
+             "--seed", "11"]
+PAPER_NAME = "Tree_1perc_30000kb"
+PAPER_ROUNDS = 8
+PAPER_MIN_ROWS = 192                    # three blocks of 64
+
+
+def paper_realign_phase(card, dev, errs):
+    """Phase 8; returns the kernels' launches in the capped run."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch import cli
+    from repeatresolver_tpu_torch.config import (InitialAlignerConfig,
+                                                 RealignerConfig)
+    from repeatresolver_tpu_torch.models import initial_aligner
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.models import realigner_device as prd
+    from repeatresolver_tpu_torch.ops import _build
+    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
+    from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    from repeatresolver_tpu_torch.utils import io as rio
+
+    work = os.path.join(WORK, "paper_width")
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    template = os.path.join(work, PAPER_NAME + "_Template.fasta")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["simulate"] + PAPER_SIM + ["--outdir", work])
+        cli.main(["cut", template, os.path.join(work, PAPER_NAME + ".fasta"),
+                  "--device", "cpu"])
+    d = rio.derived_paths(template)
+    ia = initial_aligner.build_initial_msa(
+        rio.read_template(template).astype(np.int16),
+        [s.astype(np.int16) for s in rio.read_fasta(d["seq_fasta"])],
+        InitialAlignerConfig(band=3000), device="cpu")
+    initial_aligner.write_outputs(ia, d["msa"], d["seqclass"])
+    msa = rio.read_msa(d["msa"])
+    bases = int((msa < 4).sum())
+    print(f"host stages (simulate, cut, align): "
+          f"{time.perf_counter() - t0:.1f} s, MSA {msa.shape[0]} rows x "
+          f"{msa.shape[1]} columns, {bases} bases, longest row "
+          f"{int((msa < 4).sum(axis=1).max())}")
+    if msa.shape[0] < PAPER_MIN_ROWS:
+        raise AssertionError(f"{msa.shape[0]} rows: fewer than "
+                             f"{PAPER_MIN_ROWS} (three blocks of 64)")
+
+    cfg = RealignerConfig(bandwidth=1000, block_rows=64,
+                          max_rounds=PAPER_ROUNDS)
+    os.environ["RR_FLUSH_CAP"] = str(1 << 30)
+    try:
+        cr.staircase_fill.launches = 0
+        cb.backtrack_moves.launches = 0
+        prt.BatchedRealigner.host_sweeps = 0
+        prd.DeviceResidentRealigner.exact_blocks_run = 0
+        prd.DeviceResidentRealigner.resident_sweep_s = 0.0
+        first = {}
+
+        def recording_fill(*args, **kw):
+            if not first:
+                first["block"] = ([a.clone() for a in args[:5]], args[5], kw)
+            return cr.staircase_fill(*args, **kw)
+
+        prd.cr = types.SimpleNamespace(staircase_fill=recording_fill)
+        _build.kernel_events = {}
+        log_d: list = []
+        t0 = time.perf_counter()
+        try:
+            prt.realign_batched(msa, cfg, score_log=log_d, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            prd.cr = cr
+            events, _build.kernel_events = _build.kernel_events, None
+        wall = time.perf_counter() - t0
+        launches = {"staircase_fill": cr.staircase_fill.launches,
+                    "walk_backtrack": cb.backtrack_moves.launches}
+        in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
+                     for k, v in events.items()}
+        res_s = prd.DeviceResidentRealigner.resident_sweep_s
+        if prt.BatchedRealigner.host_sweeps:
+            raise AssertionError(
+                f"{prt.BatchedRealigner.host_sweeps} rounds left the "
+                "resident engine: the cap must hold the run at block 64")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a kernel never launched: {launches}")
+        sa = in_kernel.get("staircase_fill", 0.0)
+        sb = in_kernel.get("walk_backtrack", 0.0)
+        print(f"realign_batched on {card}: {PAPER_ROUNDS} rounds at block "
+              f"64, wall {wall:.2f} s, "
+              f"{PAPER_ROUNDS * bases * 1000 / wall:.4g} cells/s; launches "
+              f"{launches}, exact-fallback blocks "
+              f"{prd.DeviceResidentRealigner.exact_blocks_run}")
+        print(f"resident sweeps {res_s:.3f} s: inside kernel A {sa:.3f} s "
+              f"({sa / launches['staircase_fill'] * 1e3:.3f} ms a launch), "
+              f"inside kernel B {sb:.3f} s "
+              f"({sb / launches['walk_backtrack'] * 1e3:.3f} ms a launch), "
+              f"rest (torch ops, per-block host read) "
+              f"{res_s - sa - sb:.3f} s")
+
+        # the same capped run through the host native engine
+        t0 = time.perf_counter()
+        eng = prt.BatchedRealigner(msa, bandwidth=1000, block_rows=64)
+        eng.ent_al_gapper()
+        log_h = [eng.overall_pair()]
+        for _ in range(PAPER_ROUNDS):
+            eng.sweep()
+            log_h.append(eng.overall_pair())
+        print(f"host native engine, same run: "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        del os.environ["RR_FLUSH_CAP"]
+    lines_d = [f"OverallScore: {m}{u:06d}" for m, u in
+               log_d[:PAPER_ROUNDS + 1]]
+    lines_h = [f"OverallScore: {m}{u:06d}" for m, u in log_h]
+    for ln in lines_d:
+        print(f"  {ln}")
+    if lines_d != lines_h:
+        raise AssertionError(f"trajectory on the card {lines_d} != host "
+                             f"native engine {lines_h}")
+    # the anneal shrinks the block after a round that did not improve,
+    # so every round but the last must have improved
+    if any(b >= a for a, b in zip(log_d, log_d[1:PAPER_ROUNDS])):
+        raise AssertionError("a round before the last did not improve: "
+                             "the anneal would have left block 64")
+    print(f"{len(lines_d)} OverallScore lines equal to the host native "
+          "engine's, line for line")
+
+    args, ncols, kw = first["block"]
+    (ea, eb), _ = compare_block(args, ncols, kw["bandwidth"], kw["chunk"],
+                                kw["widen"], args[1].shape[1])
+    errs["staircase_fill"] = max(errs["staircase_fill"], ea)
+    errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
+    b, lpad = args[2].shape
+    print(f"first block bit-equal to the plain versions: {b} rows x {lpad} "
+          f"bases, MSA width {ncols} of {args[1].shape[1]}, band "
+          f"{kw['bandwidth']}, chunk {kw['chunk']}, widen {kw['widen']} "
+          f"(W2 {kw['bandwidth'] + kw['widen'] * kw['chunk']})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -464,16 +697,27 @@ def main() -> int:
     def to_dev(arrays):
         return [torch.from_numpy(a).to(dev) for a in arrays]
     with phase("1 card and build"):
-        # phase 7's scan runs the native library: build it (g++) now
+        # the kernels (one nvcc each, started together) and the port's
+        # host library (g++; get_lib raises if it cannot build)
+        t0 = time.perf_counter()
+        _build.prebuild(list(KERNELS))
         from repeatresolver_tpu_torch.utils import native
-        if native.get_lib() is None:
-            raise RuntimeError("native host library did not build")
+        print(f"host library {os.path.relpath(native.get_lib()._name, REPO)}"
+              f"; builds took {time.perf_counter() - t0:.1f} s")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60, check=True)
         card = smi.stdout.strip().splitlines()[0]
         print(card)
+        clk = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True)
+        sm_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
+        sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"{sm_count} SMs, SM clock (clocks.max.sm) "
+              f"{sm_hz / 1e6:.0f} MHz")
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]} "
               f"device {torch.cuda.get_device_name(0)}")
@@ -482,6 +726,8 @@ def main() -> int:
             secs, log = _build.build_info.get(name, (0.0, "cached"))
             print(f"built {name} in {secs:.1f} s")
             for line in log.splitlines():
+                if "Compiling entry" in line:
+                    print(f"  {line.split('Compiling entry function')[-1].strip()[:100]}")
                 if "registers" in line or "spill" in line:
                     print(f"  {line.strip()}")
 
@@ -511,19 +757,41 @@ def main() -> int:
         ways = np.broadcast_to(np.linspace(0, c - 1, l).astype(np.int32),
                                (b, l)).copy()
         lengths = np.full(b, l, np.int32)
+        block = to_dev((counts, msa, seqs, ways, lengths))
         (ea, eb), (ms_a, plain_a, ms_b, plain_b) = compare_block(
-            to_dev((counts, msa, seqs, ways, lengths)), c, w, t, widen,
-            c + 64, timed=True)
+            block, c, w, t, widen, c + 64, timed=True)
         errs["staircase_fill"] = max(errs["staircase_fill"], ea)
         errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
         cells = b * l * w
         times = {"staircase_fill": (ms_a, plain_a),
                  "walk_backtrack": (ms_b, plain_b)}
+        bounds = kernel_bounds(b, l, c, w, t, widen, lengths, sm_count,
+                               sm_hz)
         for name, (ms, pms) in times.items():
+            bms, by, detail = bounds[name]
             print(f"{name}: kernel {ms:.3f} ms ({cells / ms * 1e3:.4g} "
                   f"cells/s), plain {pms:.3f} ms "
                   f"({cells / pms * 1e3:.4g} cells/s) on {card}")
+            print(f"  bound {bms:.4f} ms by {by} ({bms / ms:.1%} of the "
+                  f"kernel's time): {detail}; library call: none (no "
+                  "single PyTorch call computes this function)")
         print("bit-equal at 64 x 32768, band 1000, chunk 128, widen 6")
+        # kernel A's time at the other window widths of the drift ladder
+        # (its bits there are held by the plain versions on the main
+        # path's own blocks, phases 5 and 8)
+        by_w2 = {}
+        for wd in (1, 8, 10, 12, 16):
+            kw = dict(bandwidth=w, chunk=t, widen=wd)
+            cr.staircase_fill(*block, c, **kw)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(3):
+                cr.staircase_fill(*block, c, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            by_w2[w + wd * t] = ev[0].elapsed_time(ev[1]) / 3
+        print("kernel A by window width W2: "
+              + ", ".join(f"{k} {m:.3f} ms" for k, m in by_w2.items()))
 
     with phase("4 main path: CLI realign on the tpu_converge dataset"):
         from repeatresolver_tpu_torch import cli
@@ -623,11 +891,21 @@ def main() -> int:
     with phase("7 MaxCorrs scan at paper width"):
         paper_scan_phase(card, dev)
 
+    with phase("8 main path: realign at paper width"):
+        paper_launches = paper_realign_phase(card, dev, errs)
+
+    # `launches` is phase 4's count, as in every earlier report; the
+    # counts of all three main paths stand in `launches_by_path`
+    by_path = {name: {"realign_tpu_converge": launches[name],
+                      "pipeline_615": pipe_launches[name],
+                      "realign_paper_width": paper_launches[name]}
+               for name in KERNELS}
     report = [dict(name=name, route="cuda", **KERNELS[name],
-                   launches=launches[name],
-                   pipeline_launches=pipe_launches[name],
+                   launches=by_path[name]["realign_tpu_converge"],
+                   launches_by_path=by_path[name],
                    max_abs_err=errs[name], ms=times[name][0],
-                   plain_ms=times[name][1])
+                   plain_ms=times[name][1], bound_ms=bounds[name][0],
+                   bound_by=bounds[name][1], library_ms=None)
               for name in KERNELS]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -122,7 +122,7 @@ def main(argv=None):
     from .utils import io as rio
 
     if args.cmd == "simulate":
-        from repeatresolver_tpu.models.simulator import simulate
+        from .models.simulator import simulate
         cfg = SimulatorConfig(coverage=args.c, copynumber=args.n,
                               difference=args.d / 100.0,
                               repeatlength=args.l, structure=args.t,

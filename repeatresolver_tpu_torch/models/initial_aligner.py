@@ -2,9 +2,9 @@
 
 Counterpart of repeatresolver_tpu/models/initial_aligner.py. The glocal
 alignments come from one of two routes, as in the JAX package: the
-native C++ kernels on the host (repeatresolver_tpu/utils/native.
-initial_align, full DP, and initial_align_banded, the anchored band; it
-raises without the native library), or the full edit DP with its
+native C++ kernels on the host (utils/native.initial_align, full DP,
+and initial_align_banded, the anchored band; it raises when the native
+library cannot be built), or the full edit DP with its
 backtrack as torch ops on a device (ops/editdp.align_on_device, the
 route the JAX package takes on an accelerator, which has no band).
 Building_MSA (InitialAligner.c:553-663) is reproduced exactly, including
@@ -18,10 +18,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repeatresolver_tpu.config import InitialAlignerConfig
-
+from ..config import InitialAlignerConfig
 from ..device import resolve_device
 from ..ops import editdp
+from ..utils import io as rio
+from ..utils import native as nat
 
 GAP = 4
 _KMER = 15
@@ -116,7 +117,7 @@ class InitialMSAResult:
 
 
 def align_all(template: np.ndarray, seqs: list[np.ndarray],
-              band: int = 0, device="cpu", use_native: bool | None = None
+              band: int = 0, device="cuda", use_native: bool | None = None
               ) -> tuple[list[np.ndarray], np.ndarray]:
     """IntoAligner over all seqs: alignments and error rates.
 
@@ -135,10 +136,7 @@ def align_all(template: np.ndarray, seqs: list[np.ndarray],
 
 
 def _align_native(template, seqs, band):
-    from repeatresolver_tpu.utils import native as nat
-    if nat.get_lib() is None:
-        raise RuntimeError("native host library unavailable: align needs "
-                           "native/libhostops.so (built with g++)")
+    nat.get_lib()           # builds at first use; raises if it cannot
     tlen = len(template)
     n = len(seqs)
     errors = np.full(n, np.nan)
@@ -310,7 +308,7 @@ def emit_row(seq: np.ndarray, a: np.ndarray, gapcount: np.ndarray,
 
 
 def build_initial_msa(template: np.ndarray, seqs: list[np.ndarray],
-                      cfg: InitialAlignerConfig, device="cpu",
+                      cfg: InitialAlignerConfig, device="cuda",
                       use_native: bool | None = None) -> InitialMSAResult:
     """Building_MSA over the alignments of align_all (its routes)."""
     tlen = len(template)
@@ -334,7 +332,6 @@ def build_initial_msa(template: np.ndarray, seqs: list[np.ndarray],
 
 
 def write_outputs(res: InitialMSAResult, msa_path, seqclass_path) -> None:
-    from repeatresolver_tpu.utils import io as rio
     with open(msa_path, "wb") as f:
         for row in res.rows:
             f.write(rio.CODE2BASE[row].tobytes() + b"\n")

@@ -2,8 +2,10 @@
 
 Counterpart of repeatresolver_tpu/models/maxcorr.py. The host paths,
 the exact numpy tile scan `compute_maxcorrs` and the banded-bitset C++
-scan `compute_maxcorrs_native`, are the JAX module's (its top level
-imports no jax) and are re-exported. This module ports the device scan.
+scan `compute_maxcorrs_native` (with `group_matrices` and `run`), are
+copied from that module, same arithmetic; where the native library
+cannot be built they raise instead of taking the numpy path. The
+device scan is ported to torch.
 
 `compute_maxcorrs_device` keeps the MSA's one-hot groups [C*5, R] and
 coverage [C, R] as int8 on the device and runs the reference's threaded
@@ -17,23 +19,235 @@ are float32 (~1e-5 where significant).
 """
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
-from repeatresolver_tpu.config import MaxCorrConfig
-from repeatresolver_tpu.models.maxcorr import (compute_maxcorrs,
-                                               compute_maxcorrs_native,
-                                               group_matrices, run)
-
+from ..config import MaxCorrConfig
 from ..device import resolve_device
+from ..ops import hypergeom as hg
 from ..ops.devmm import int_matmul_t
 from ..ops.hypergeom_device import (log_factorial_table,
                                     positive_significance_f32)
+from ..utils import io as rio
+from ..utils import native as nat
+from ..utils.checkpoint import _atomic_write
 
 __all__ = ["MaxCorrConfig", "MaxCorrScan", "compute_maxcorrs",
            "compute_maxcorrs_device", "compute_maxcorrs_native",
            "group_matrices", "run"]
 
+
+# ---- copied from repeatresolver_tpu/models/maxcorr.py: the host scans
+
+def group_matrices(msa: np.ndarray):
+    """One-hot views: groups [C*5, R] float32, coverage [C, R] float32,
+    sizes [C, 5], covcount [C]."""
+    msa = np.asarray(msa)
+    r, c = msa.shape
+    groups = np.zeros((c, 5, r), np.float32)
+    for s in range(5):
+        groups[:, s, :] = (msa.T == s)
+    coverage = (msa.T < 5).astype(np.float32)      # [C, R]
+    sizes = groups.sum(axis=2).astype(np.int64)    # [C, 5]
+    covcount = coverage.sum(axis=1).astype(np.int64)
+    return groups.reshape(c * 5, r), coverage, sizes, covcount
+
+
+_FORK_STATE: dict = {}
+
+
+def _scan_seed_tiles(i0_list):
+    """Worker: scan the given seed-tile rows, return a local maxcorrs.
+    The reference's threaded variant stripes seed columns the same way
+    and merges with elementwise max (MaxCorrelation.c:796, 881-891).
+    BLAS is pinned to one thread per worker — the serial path already
+    saturates cores through multithreaded matmuls, so workers must not
+    multiply that."""
+    s = _FORK_STATE
+    try:
+        from threadpoolctl import threadpool_limits
+        with threadpool_limits(limits=1):
+            return _tile_scan(i0_list, s["groups"], s["coverage"],
+                              s["sizes_flat"], s["seed_ok"],
+                              s["partner_ok"], s["c"], s["mincov"],
+                              s["gap"], s["tile"], s["matmul"],
+                              s["fast"])
+    except ImportError:
+        return _tile_scan(i0_list, s["groups"], s["coverage"],
+                          s["sizes_flat"], s["seed_ok"],
+                          s["partner_ok"], s["c"], s["mincov"],
+                          s["gap"], s["tile"], s["matmul"], s["fast"])
+
+
+def compute_maxcorrs(msa: np.ndarray, cfg: MaxCorrConfig,
+                     tile: int = 256,
+                     matmul=np.matmul, fast: bool = False,
+                     threads: int = 0, native: str = "auto",
+                     checkpoint_path: str | None = None) -> np.ndarray:
+    """MaxCorrs for a full MSA -> float64 [C*5].
+
+    fast=True uses the mode-gated fixed-term significance
+    (hypergeom.positive_significance_fast): identical cutoff decisions,
+    far cheaper; fast=False is the exact golden-parity path.
+    threads>1 forks workers striped over seed tiles and merges with
+    elementwise max — value-identical to the serial scan.
+    native="auto" routes large fast scans through the banded-bitset
+    C++ kernel (compute_maxcorrs_native, value-equal within fp
+    tolerance); "never" forces the numpy path, "always" forces native."""
+    msa = np.asarray(msa)
+    if native != "never" and (native == "always" or
+                              (fast and msa.size >= 1 << 22)):
+        return compute_maxcorrs_native(
+            msa, cfg, fast=fast, threads=max(threads, 1),
+            checkpoint_path=checkpoint_path)
+    r, c = msa.shape
+    signumber = r
+    mincov = cfg.mincov
+    maxgroup = signumber
+    groups, coverage, sizes, covcount = group_matrices(msa)
+    sizes_flat = sizes.reshape(-1)
+
+    baseno = sizes[:, 0:4].sum(axis=1)
+    size_ok = (sizes_flat > mincov // 4) & (sizes_flat < maxgroup)
+    seed_ok = size_ok.reshape(c, 5).copy()
+    if cfg.majority_filter:
+        seed_ok &= (baseno > covcount // 2)[:, None]
+    partner_ok = size_ok.reshape(c, 5)
+    gap = cfg.min_col_gap
+
+    i0s = list(range(0, c, tile))
+    if threads > 1 and len(i0s) > threads:
+        import multiprocessing as mp
+        _FORK_STATE.update(groups=groups, coverage=coverage,
+                           sizes_flat=sizes_flat, seed_ok=seed_ok,
+                           partner_ok=partner_ok, c=c, mincov=mincov,
+                           gap=gap, tile=tile, matmul=matmul, fast=fast)
+        try:
+            ctx = mp.get_context("fork")
+            with ctx.Pool(threads) as pool:
+                parts = pool.map(_scan_seed_tiles,
+                                 [i0s[w::threads]
+                                  for w in range(threads)])
+            return np.maximum.reduce(parts)
+        finally:
+            _FORK_STATE.clear()
+    return _tile_scan(i0s, groups, coverage, sizes_flat, seed_ok,
+                      partner_ok, c, mincov, gap, tile, matmul, fast)
+
+
+def _tile_scan(i0_list, groups, coverage, sizes_flat, seed_ok,
+               partner_ok, c, mincov, gap, tile, matmul,
+               fast) -> np.ndarray:
+    maxcorrs = np.zeros(c * 5, np.float64)
+    for i0 in i0_list:
+        i1 = min(c, i0 + tile)
+        ti = i1 - i0
+        seed_cols = seed_ok[i0:i1].any(axis=1)
+        alive = seed_cols.copy()      # not yet hit the coverage break
+        if not seed_cols.any():
+            continue
+        gi = groups[i0 * 5:i1 * 5]                  # [ti*5, R]
+        ci = coverage[i0:i1]                        # [ti, R]
+        for j0 in range(i0, c, tile):
+            if not alive.any():
+                break
+            j1 = min(c, j0 + tile)
+            tj = j1 - j0
+            cj = coverage[j0:j1]
+            # counts are small ints: f32 matmul results are exact;
+            # full-tile astype copies are the single biggest cost.
+            shared = matmul(ci, cj.T)                    # [ti, tj] f32
+            ii = np.arange(i0, i1)[:, None]
+            jj = np.arange(j0, j1)[None, :]
+            valid = jj >= ii + gap
+            fail = valid & (shared < mincov)
+            cumfail = np.logical_or.accumulate(fail, axis=1)
+            allowed = valid & alive[:, None] & ~cumfail
+            alive &= ~cumfail[:, -1]
+            if not allowed.any():
+                continue
+            gj = groups[j0 * 5:j1 * 5]
+            schnitt = matmul(gi, gj.T)                   # [ti*5, tj*5]
+            gr1 = matmul(gi, cj.T)                       # [ti*5, tj]
+            gr2 = matmul(ci, gj.T)                       # [ti, tj*5]
+
+            pair_ok = (allowed[:, None, :, None]
+                       & seed_ok[i0:i1][:, :, None, None]
+                       & partner_ok[j0:j1][None, None, :, :])
+            pi, pk, pj, pkk = np.nonzero(pair_ok)
+            if pi.size == 0:
+                continue
+            s_ = schnitt[pi * 5 + pk, pj * 5 + pkk].astype(np.int64)
+            g1 = gr1[pi * 5 + pk, pj].astype(np.int64)
+            g2 = gr2[pi, pj * 5 + pkk].astype(np.int64)
+            cv = shared[pi, pj].astype(np.int64)
+            sz1 = sizes_flat[(pi + i0) * 5 + pk]
+            sz2 = sizes_flat[(pj + j0) * 5 + pkk]
+            if fast:
+                z = hg.positive_significance_fast(s_, g1, g2, cv, sz1,
+                                                  sz2)
+            else:
+                z = hg.positive_significance(s_, g1, g2, cv, sz1, sz2)
+            # dense-tile max reduction (ufunc.at scatter is too slow)
+            zt = np.zeros((ti * 5, tj * 5), np.float32)
+            zt[pi * 5 + pk, pj * 5 + pkk] = z
+            np.maximum(maxcorrs[i0 * 5:i1 * 5], zt.max(axis=1),
+                       out=maxcorrs[i0 * 5:i1 * 5])
+            np.maximum(maxcorrs[j0 * 5:j1 * 5], zt.max(axis=0),
+                       out=maxcorrs[j0 * 5:j1 * 5])
+    return maxcorrs
+
+
+def compute_maxcorrs_native(msa: np.ndarray, cfg: MaxCorrConfig,
+                            fast: bool = True, threads: int = 4,
+                            chunk: int = 4096,
+                            checkpoint_path: str | None = None,
+                            progress: bool = True) -> np.ndarray:
+    """Banded-bitset C++ scan (csrc/host_ops.cpp maxcorr_scan).
+
+    Same gate/break/value semantics as compute_maxcorrs (threaded-
+    variant contract, MaxCorrelation.c:744-908): value-equal within fp
+    tolerance (~1e-9; libm vs scipy lgamma). Seed columns are scanned
+    in chunks; with checkpoint_path, the accumulated maxes and the
+    next chunk index are written atomically after each chunk, and an
+    interrupted scan resumes from the last completed chunk (the
+    reference's own MaxCorrs-on-disk caching, MaxCorrelation.c:1014,
+    made restartable mid-computation)."""
+    msa = np.asarray(msa)
+    r, c = msa.shape
+    bits = nat.MaxCorrBitsets(msa)     # raises if the lib cannot build
+    maxcorrs = np.zeros(c * 5, np.float64)
+    start = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path) as z:
+            if (int(z["c"]) == c and int(z["r"]) == r
+                    and bool(z["fast"]) == fast):
+                maxcorrs = z["maxcorrs"].copy()
+                start = int(z["next"])
+    t0 = time.perf_counter()
+    for i0 in range(start, c, chunk):
+        i1 = min(c, i0 + chunk)
+        bits.scan(maxcorrs, i0, i1, cfg.mincov, cfg.min_col_gap,
+                  r, cfg.majority_filter, fast, threads)
+        if checkpoint_path:
+            def w(f, i1=i1):
+                np.savez(f, maxcorrs=maxcorrs, next=i1, c=c, r=r,
+                         fast=fast)
+            _atomic_write(checkpoint_path, w)
+        if progress:
+            dt = time.perf_counter() - t0
+            done = i1 - start
+            eta = dt / done * (c - i1) if done else 0.0
+            print(f"  maxcorr scan {i1}/{c} cols "
+                  f"({dt:.0f}s, eta {eta:.0f}s)", flush=True)
+    return maxcorrs
+
+
+
+# ---- the device scan
 
 def _row_sums(m: torch.Tensor, chunk: int = 1 << 14) -> torch.Tensor:
     """int32 row sums of an int8 matrix, in row chunks: a sum to int32
@@ -169,3 +383,14 @@ def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
 
 
 compute_maxcorrs_device.calls = 0
+
+
+def run(msa_path: str, cfg: MaxCorrConfig, out_path: str | None = None,
+        **kw) -> np.ndarray:
+    """CLI-equivalent: MSA file in, MaxCorrsOf_<path> out."""
+    msa = rio.read_msa(msa_path)
+    mc = compute_maxcorrs(msa, cfg, **kw)
+    if out_path is None:
+        out_path = rio.maxcorrs_path(msa_path)
+    rio.write_maxcorrs(out_path, mc)
+    return mc

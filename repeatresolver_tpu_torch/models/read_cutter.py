@@ -2,8 +2,8 @@
 
 Counterpart of repeatresolver_tpu/models/read_cutter.py. The last DP
 rows of the two mapped template parts come from one of two routes, as in
-the JAX package: the native C++ kernel on the host (repeatresolver_tpu/
-utils/native.occurrence_rows; it raises without the native library) or
+the JAX package: the native C++ kernel on the host (utils/native.
+occurrence_rows; it raises when the native library cannot be built) or
 the edit DP as torch ops on a device (ops/editdp.last_rows, the route
 the JAX package takes on an accelerator). The occurrence-region scan,
 the candidate loops and the greedy cut chain are the reference's
@@ -17,10 +17,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repeatresolver_tpu.config import ReadCutterConfig
-
+from ..config import ReadCutterConfig
 from ..device import resolve_device
 from ..ops import editdp
+from ..utils import native as nat
 
 
 def occurrence_positions(final_row: np.ndarray, readlen: int,
@@ -122,7 +122,7 @@ class CutResult:
 
 
 def cut_reads(template: np.ndarray, reads: list[np.ndarray],
-              cfg: ReadCutterConfig, device="cpu",
+              cfg: ReadCutterConfig, device="cuda",
               use_native: bool | None = None) -> CutResult:
     """Full ReadCutter behaviour over a read set. use_native=None takes
     the native host kernel for device "cpu" and the device edit DP on
@@ -146,11 +146,7 @@ def cut_reads(template: np.ndarray, reads: list[np.ndarray],
     lt = max(1, int(readlens.max()))
     n = len(reads)
     if use_native:
-        from repeatresolver_tpu.utils import native as nat
-        if nat.get_lib() is None:
-            raise RuntimeError("native host library unavailable: cut "
-                               "needs native/libhostops.so (built with "
-                               "g++)")
+        nat.get_lib()       # builds at first use; raises if it cannot
         padded = np.full((n, lt), 99, np.int8)
         for j in range(n):
             padded[j, :readlens[j]] = reads[j]

@@ -4,8 +4,7 @@ Counterpart of repeatresolver_tpu/models/realigner.py. Two pieces live
 here:
 
   * `BatchedRealigner`, the host native engine: the exact band through
-    the native C++ block DP (repeatresolver_tpu/utils/native.
-    realign_block), block-Jacobi over length-sorted blocks with the
+    the native C++ block DP (utils/native.realign_block), block-Jacobi over length-sorted blocks with the
     inserts of a sweep spliced at its end; block_rows=1 is the
     reference's serial Gauss-Seidel sweep. It runs the anneal's tail
     (block sizes below the resident engine's threshold) and the
@@ -19,24 +18,25 @@ so the two engines are interchangeable mid-run (the anneal hands the
 resident engine's MSA to this one).
 
 The dense-array bookkeeping (histogram, score pair, EntAlGapper, column
-splices) is imported from the JAX package's module, which is jax-free
-at its top; its engine classes are not used, because their sweeps reach
-the JAX kernels.
+splices) is copied from the JAX package's module
+(repeatresolver_tpu/models/realigner.py: `symbol_counts`,
+`overall_score_pair`, `RealignEngine`'s maintenance half,
+`_splice_cols`, `_splice_rows`, `validate_counts`), same arithmetic.
 """
 from __future__ import annotations
 
 import os
 import threading
 import time
+from dataclasses import dataclass, field
 
 import numpy as np
 
-from repeatresolver_tpu.config import RealignerConfig
-from repeatresolver_tpu.models.realigner import (RealignEngine,
-                                                 _splice_cols, _splice_rows,
-                                                 overall_score_pair,
-                                                 symbol_counts,
-                                                 validate_counts)
+from ..config import RealignerConfig
+from ..utils import checkpoint as ckpt
+from ..utils import io as rio
+from ..utils import native as nat
+from ..utils.hostmem import tune_allocator
 
 __all__ = ["BatchedRealigner", "realign_batched", "overall_score_pair",
            "symbol_counts", "validate_counts"]
@@ -47,15 +47,162 @@ __all__ = ["BatchedRealigner", "realign_batched", "overall_score_pair",
 FLUSH_CAP = 16384
 
 
+# ---- copied from repeatresolver_tpu/models/realigner.py: the host
+# bookkeeping (histogram, score pair, EntAlGapper, column splices)
+
+def symbol_counts(msa: np.ndarray) -> np.ndarray:
+    """int64[cols, 6] histogram of symbols per column.
+
+    Chunked over rows: full-MSA boolean temporaries are multi-GB at
+    paper scale; small reused temporaries avoid faulting them in
+    (utils/hostmem.py)."""
+    r, c = msa.shape
+    counts = np.zeros((c, 6), np.int64)
+    step = max(1, (1 << 24) // max(c, 1))
+    for k0 in range(0, r, step):
+        m = msa[k0:k0 + step]
+        for s in range(6):
+            counts[:, s] += (m == s).sum(axis=0)
+    return counts
+
+
+def overall_score_pair(counts: np.ndarray) -> tuple[int, int]:
+    """The (scoreMille, scoreUno) pair of OverallScorePrint
+    (PW_ReAligner.c:933-963), including its '>1000000' carry quirk.
+
+    Row scores are accumulated per row: sum over nonspace cells of
+    Score(col, sym). Equivalently per column: sum_b counts[b] *
+    (nonspace - counts[b]) for b in 0..4 — but the carry loop runs per
+    ROW, so we reproduce the row accumulation.
+    """
+    ns = counts[:, 0:5].sum(axis=1)
+    # per-column total over all rows
+    col_total = (counts[:, 0:5] * (ns[:, None] - counts[:, 0:5])).sum()
+    return _carry_pair(int(col_total))
+
+
+def _carry_pair(total: int) -> tuple[int, int]:
+    return total // 1000000, total % 1000000
+
+
+@dataclass
+class RealignEngine:
+    """The dense-array bookkeeping of the reference-exact serial
+    realigner: EntAlGapper, empty-column removal and the score pair.
+    (The JAX package's class also holds a serial numpy row DP, which
+    the port does not reach: its block-1 sweeps run the native row
+    DP.)"""
+    msa: np.ndarray                  # int8 [R, C], mutated in place-ish
+    bandwidth: int = 1000
+    counts: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        tune_allocator()   # column splices need warm-page reuse
+        self.msa = np.ascontiguousarray(self.msa, dtype=np.int8)
+        self.counts = symbol_counts(self.msa)
+
+    def ent_al_gapper(self) -> int:
+        """EntAlGapper: leading/trailing '-' -> ' ' per row, then drop
+        zero-base columns. Returns number of converted cells.
+
+        Chunked over rows: the boolean temporaries are multi-GB at
+        paper scale; small reused temporaries avoid faulting them in
+        (utils/hostmem.py)."""
+        msa = self.msa
+        r, c = msa.shape
+        cols = np.arange(c)[None, :]
+        convcnt = np.zeros(c, np.int64)
+        total = 0
+        step = max(1, (1 << 24) // max(c, 1))
+        for k0 in range(0, r, step):
+            m = msa[k0:k0 + step]
+            base = m < 4
+            any_base = base.any(axis=1)
+            first = np.where(any_base, base.argmax(axis=1), c)
+            # argmax on a negative-stride view hits a slow path; flip
+            # into a contiguous buffer first
+            rev = np.ascontiguousarray(base[:, ::-1])
+            last = np.where(any_base, c - 1 - rev.argmax(axis=1), -1)
+            outside = (cols < first[:, None]) | (cols > last[:, None])
+            conv = outside & (m == 4)
+            m[conv] = 5
+            convcnt += conv.sum(axis=0)
+            total += int(conv.sum())
+        self.counts[:, 4] -= convcnt.astype(self.counts.dtype)
+        self.counts[:, 5] += convcnt.astype(self.counts.dtype)
+        self._drop_empty_columns()
+        return total
+
+    def _drop_empty_columns(self) -> None:
+        # counts are maintained incrementally at every call site
+        # (validate_counts checks the invariant), so emptiness reads
+        # from counts in O(C) instead of scanning the MSA
+        keep = self.counts[:, 0:4].sum(axis=1) > 0
+        if not keep.all():
+            idx = np.flatnonzero(keep)
+            self.msa = np.ascontiguousarray(
+                np.take(self.msa, idx, axis=1))
+            self.counts = np.ascontiguousarray(
+                np.take(self.counts, idx, axis=0))
+
+    def overall_pair(self) -> tuple[int, int]:
+        self._drop_empty_columns()
+        return overall_score_pair(self.counts)
+
+
+def _splice_cols(arr: np.ndarray, positions, cols) -> np.ndarray:
+    """np.insert(arr, positions, cols, axis=1) for ascending positions
+    at memcpy speed. numpy's multi-insert goes through a fancy-index
+    assignment over every element; this splices contiguous column
+    segments instead. positions are pre-insertion
+    indices into arr (np.insert semantics; ties keep given order);
+    cols[i] is the inserted column [R].
+
+    Large batches route through the native one-pass row merge: the
+    per-segment slice copy touches one cache line per ~8 useful bytes
+    when thousands of inserts land in one flush."""
+    r, c = arr.shape
+    n = len(positions)
+    if n > 64 and arr.dtype == np.int8:
+        return nat.splice_cols(arr, positions, cols)
+    out = np.empty((r, c + n), arr.dtype)
+    prev = 0
+    for i, p in enumerate(positions):
+        out[:, prev + i:p + i] = arr[:, prev:p]
+        out[:, p + i] = cols[i]
+        prev = p
+    out[:, prev + n:] = arr[:, prev:]
+    return out
+
+
+def _splice_rows(arr: np.ndarray, positions, rows) -> np.ndarray:
+    """np.insert(arr, positions, rows, axis=0) for ascending positions
+    at memcpy speed (see _splice_cols)."""
+    c = arr.shape[0]
+    n = len(positions)
+    out = np.empty((c + n,) + arr.shape[1:], arr.dtype)
+    prev = 0
+    for i, p in enumerate(positions):
+        out[prev + i:p + i] = arr[prev:p]
+        out[p + i] = rows[i]
+        prev = p
+    out[prev + n:] = arr[prev:]
+    return out
+
+
+def validate_counts(msa: np.ndarray, counts: np.ndarray) -> None:
+    """The W_Con_Checker invariant (PW_ReAligner.c:765-859): the
+    incremental histogram must equal a from-scratch recount."""
+    fresh = symbol_counts(msa)
+    if not np.array_equal(fresh, counts):
+        bad = np.nonzero((fresh != counts).any(axis=1))[0]
+        raise AssertionError(
+            f"count invariant violated at columns {bad[:10].tolist()}")
+
+
 def _native():
     """The native host library; the port has no other exact engine."""
-    from repeatresolver_tpu.utils import native as nat
-    lib = nat.get_lib()
-    if lib is None or not hasattr(lib, "realign_block_native"):
-        raise RuntimeError(
-            "native host library unavailable (native/libhostops.so could "
-            "not be loaded or built with g++); the exact realign path "
-            "needs it")
+    nat.get_lib()           # builds at first use; raises if it cannot
     return nat
 
 
@@ -67,8 +214,6 @@ def realign_block_native(nat, counts, rows_old, seqs, ways, lengths,
     while True:
         res = nat.realign_block(counts, rows_old, seqs, ways, lengths,
                                 bandwidth, ins_cap=cap)
-        if res is None:
-            raise RuntimeError("native realign_block unavailable")
         if not (res[4] >= cap).any():
             return res
         cap = max(cap * 2, int(res[4].max()) + 1)
@@ -111,14 +256,15 @@ class BatchedRealigner:
 
     def __init__(self, msa: np.ndarray, bandwidth: int = 1000,
                  block_rows: int = 8):
-        from repeatresolver_tpu.utils.hostmem import tune_allocator
         tune_allocator()   # big-MSA splices need warm-page reuse
         self.msa = np.ascontiguousarray(msa, dtype=np.int8)
         self.counts = symbol_counts(self.msa)
         self.bandwidth = bandwidth
         self.block_rows = block_rows
         self._pending: list | None = None   # sweep-deferred inserts
-        self._flush_cap = FLUSH_CAP
+        # RR_FLUSH_CAP (the JAX package's knob) raises the cap, so that
+        # two engines compared at one block size both flush once a sweep
+        self._flush_cap = int(os.environ.get("RR_FLUSH_CAP", FLUSH_CAP))
         self._len_order = None
 
     def ent_al_gapper(self):
@@ -395,9 +541,6 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     stats, when given, receives the JAX package's keys: rounds, wall_s
     (host clock from after EntAlGapper to the return), dp_cells (bases x
     band per sweep) and cells_per_s."""
-    from repeatresolver_tpu.utils import checkpoint as ckpt
-    from repeatresolver_tpu.utils import io as rio
-
     from .realigner_device import DeviceResidentRealigner
 
     start_round = 0

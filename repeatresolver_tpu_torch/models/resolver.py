@@ -6,37 +6,287 @@ relative_vars, _grmatch_matrix, kmeans, kmeans_subdivision,
 resolve_window, run) are ported here and route those products through
 the port's ops/devmm on the caller's `device`; every other piece of
 the clustering (window extraction, the DropOff / RelativeDropoff
-subdivisions, the clique bookkeeping) is the JAX module's, whose top
-level imports no jax. The JAX module's own versions of the seven must
-not be called: its devmm gate imports jax.
+subdivisions, the clique bookkeeping) is copied from that module, same
+arithmetic.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 
-from repeatresolver_tpu.config import ResolverConfig
-from repeatresolver_tpu.models.resolver import (GroupData, Refinement,
-                                                _cliquer_from_stats,
-                                                _cutoff_sizes, clique_group,
-                                                clique_coverage, dropoff_cutoff,
-                                                dropoff_subdivision,
-                                                extract_window, komplettierung,
-                                                komprimierung,
-                                                membership_counts,
-                                                relative_dropoff_subdivision,
-                                                sizes_trunc)
-from repeatresolver_tpu.ops import hypergeom as hg
-
+from ..config import ResolverConfig
+from ..device import resolve_device
 from ..ops import devmm
+from ..ops import hypergeom as hg
+from ..utils import io as rio
+from ..utils import native
 
 __all__ = ["group_refinement", "kmeans", "kmeans_subdivision",
            "relative_vars", "resolve_window", "run"]
 
 
+# ---- copied from repeatresolver_tpu/models/resolver.py: the host pieces
+# of the clustering that reach no matrix product
+
+@dataclass
+class Window:
+    signatures: np.ndarray        # int8 [n, w] rows with full coverage
+    ausgelassen: np.ndarray       # int8 [realsigno] 1 kept / -1 dropped
+    von: int
+    bis: int                      # inclusive, clamped
+
+    @property
+    def signumber(self) -> int:
+        return self.signatures.shape[0]
+
+    @property
+    def siglength(self) -> int:
+        return self.signatures.shape[1]
+
+
+def extract_window(msa: np.ndarray, von: int, bis: int) -> Window:
+    """Einlesen: keep rows with a non-space at BOTH window ends."""
+    c = msa.shape[1]
+    bis = min(bis, c - 1)
+    keep = (msa[:, von] != 5) & (msa[:, bis] != 5)
+    ausgelassen = np.where(keep, 1, -1).astype(np.int8)
+    return Window(np.ascontiguousarray(msa[keep, von:bis + 1]),
+                  ausgelassen, von, bis)
+
+
+@dataclass
+class GroupData:
+    """One-hot group/coverage matrices for a window."""
+    groups: np.ndarray            # bool [w*5, n]
+    coverage: np.ndarray          # bool [w, n]
+    sizes: np.ndarray             # int64 [w*5]
+    covcount: np.ndarray          # int64 [w]
+
+    @classmethod
+    def from_window(cls, win: Window) -> "GroupData":
+        sig = win.signatures
+        n, w = sig.shape
+        groups = np.zeros((w, 5, n), bool)
+        for s in range(5):
+            groups[:, s, :] = (sig.T == s)
+        groups = groups.reshape(w * 5, n)
+        coverage = (sig.T < 5)
+        return cls(groups, coverage,
+                   groups.sum(axis=1).astype(np.int64),
+                   coverage.sum(axis=1).astype(np.int64))
+
+
+def clique_len(clique: list[int]) -> int:
+    """CliqueGroup's length scan: first negative entry (:982-989)."""
+    for jj, v in enumerate(clique):
+        if v < 0:
+            return jj
+    return len(clique)
+
+
+def sizes_trunc(clique: list[int]) -> int:
+    """The `>0` count of Group_Refinement (:1650)."""
+    s = 0
+    while s < len(clique) and clique[s] > 0:
+        s += 1
+    return s
+
+
+def membership_counts(gd: GroupData, clique: list[int],
+                      upto: int) -> np.ndarray:
+    """Per row: in how many of clique[0:upto] groups it appears."""
+    if upto == 0:
+        return np.zeros(gd.groups.shape[1], np.int64)
+    idx = np.array(clique[:upto], np.int64)
+    return gd.groups[idx].sum(axis=0).astype(np.int64)
+
+
+def _cutoff_sizes(m: np.ndarray, s_trunc: int,
+                  mask: np.ndarray | None = None) -> np.ndarray:
+    """sizes[t] = #rows (within mask) with membership m > t, for
+    t in [0, s_trunc) — one bincount + suffix sum instead of s_trunc
+    full-row scans (values of m are bounded by s_trunc)."""
+    mv = m if mask is None else m[mask]
+    cnt = np.bincount(mv, minlength=s_trunc + 1)
+    return (mv.size - np.cumsum(cnt[:s_trunc])).astype(np.float64)
+
+
+def clique_group(gd: GroupData, clique: list[int], c: int) -> np.ndarray:
+    """CliqueGroup: rows in more than c of the clique's groups."""
+    m = membership_counts(gd, clique, clique_len(clique))
+    return m > c
+
+
+def clique_coverage(gd: GroupData, clique: list[int],
+                    c: int) -> np.ndarray:
+    """CliqueCoverage (:1064-1096)."""
+    upto = clique_len(clique)
+    if upto == 0:
+        return np.zeros(gd.coverage.shape[1], bool)
+    cols = np.array(clique[:upto], np.int64) // 5
+    m = gd.coverage[cols].sum(axis=0)
+    return m > c
+
+
+def dropoff_cutoff(sizes: np.ndarray, signumber: int,
+                   c: int) -> tuple[int, float]:
+    """Dropoff_Cutoff (:1460-1522) on precomputed cutoff-group sizes
+    (len == Sizes[c_i]). Returns (drop_c, min_drop). Vectorized; the
+    reference's strict running < keeps the FIRST minimum = argmin."""
+    t0 = max(1, c)
+    n = len(sizes) - 1
+    if t0 >= n:
+        return t0, 1000000.0
+    sz = np.asarray(sizes, np.float64)[t0:n]
+    lim = np.minimum(float(signumber) - sz, sz)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        drop = np.where(lim > 0,
+                        (sizes[t0 - 1:n - 1] - sizes[t0 + 1:n + 1])
+                        / np.where(lim > 0, lim, 1.0), np.inf)
+    i = int(np.argmin(drop))
+    if drop[i] < 1000000.0:
+        return t0 + i, float(drop[i])
+    return t0, 1000000.0
+
+
+@dataclass
+class Refinement:
+    maxcorrs: np.ndarray                 # possibly zeroed entries
+    cliques: dict[int, list[int]] = field(default_factory=dict)
+    sizes: dict[int, int] = field(default_factory=dict)
+    cutoffs: dict[int, int] = field(default_factory=dict)
+    dropoff: dict[int, float] = field(default_factory=dict)
+    c_groups: dict[int, np.ndarray] = field(default_factory=dict)
+    c_coverage: dict[int, np.ndarray] = field(default_factory=dict)
+
+
+def _cliquer_from_stats(cand, z, seed, maxclique, greedy):
+    """TheBestUpdater given precomputed candidate stats — identical to
+    cliquer()'s tail. The sequential sorted-insert with strict
+    comparison and arrival order (RepeatResolver.c:1156-1176) is
+    exactly a stable descending sort truncated to maxclique-1 (ties
+    keep arrival = candidate-index order; an arrival tied with the
+    table bottom is dropped, as the sort places it after)."""
+    keep = z > greedy
+    if not keep.any():
+        return [seed] + [-1] * (maxclique if cand.size else 1)
+    ck = cand[keep]
+    zk = z[keep]
+    order = np.argsort(-zk, kind="stable")[:maxclique - 1]
+    chosen = [int(v) for v in ck[order]]
+    return ([seed] + chosen
+            + [-1] * (maxclique - len(chosen)))
+
+
+def komprimierung(u: np.ndarray) -> int:
+    """Unterteilungskomprimierung (:1823-1843): renumber by first
+    occurrence, -1 preserved; returns cluster count. In place."""
+    nxt = 0
+    seen: dict[int, int] = {}
+    for i in range(len(u)):
+        v = int(u[i])
+        if v > -1:
+            if v not in seen:
+                seen[v] = nxt
+                nxt += 1
+            u[i] = seen[v]
+    return nxt
+
+
+def _sorted_significant(ref: Refinement, cutoff: float,
+                        sizecutoff: int) -> list[int]:
+    """Index list + the (Drop_Off asc, Sizes desc, MaxCorrs desc) sort
+    of DropOff_Subdivision (:3186-3213); full ties keep index order."""
+    idx = [i for i in range(len(ref.maxcorrs))
+           if ref.maxcorrs[i] > cutoff and
+           ref.sizes.get(i, 0) > sizecutoff]
+    return sorted(idx, key=lambda i: (ref.dropoff.get(i, 1000.0),
+                                      -ref.sizes.get(i, 0),
+                                      -ref.maxcorrs[i]))
+
+
+def dropoff_subdivision(ref: Refinement, cutoff: float,
+                        dropoffcutoff: float, sizecutoff: int,
+                        mingroup: int, signumber: int) -> np.ndarray:
+    """DropOff_Subdivision (:3180-3271)."""
+    order = _sorted_significant(ref, cutoff, sizecutoff)
+    u = np.zeros(signumber, np.int64)
+    number = 1
+    number2 = 1
+    for i in order:
+        if ref.dropoff.get(i, 1000.0) < dropoffcutoff:
+            cg = ref.c_groups[i]
+            for k in range(number):
+                mask = u == k
+                drinne = int((cg & mask).sum())
+                draus = int((~cg & mask).sum())
+                if drinne > mingroup and draus > mingroup:
+                    u[mask & cg] = number2
+                    u[mask & ~cg] = number2 + 1
+                    number2 += 2
+            number = number2
+            number = komprimierung(u)
+    return u
+
+
+def relative_dropoff_subdivision(gd: GroupData, ref: Refinement,
+                                 u: np.ndarray, cutoff: float,
+                                 dropoffcutoff: float, sizecutoff: int,
+                                 mingroup: int) -> None:
+    """RelativeDropoff_Subdivision (:3274-3378). Mutates u and
+    ref.dropoff (both, like the reference)."""
+    signumber = len(u)
+    idx = [i for i in range(len(ref.maxcorrs))
+           if ref.maxcorrs[i] > cutoff
+           and ref.sizes.get(i, 0) > sizecutoff]
+    number = komprimierung(u)
+    # membership depends only on the clique — hoist across the
+    # (cluster k, var i) double loop; cg is pure, so it is only built
+    # when the split test can actually use it.
+    mtrunc: dict[int, np.ndarray] = {}
+    mfull: dict[int, np.ndarray] = {}
+    for k in range(number):
+        ink = u == k
+        if int(ink.sum()) > mingroup * 2:
+            for i in idx:
+                m = mtrunc.get(i)
+                if m is None:
+                    m = mtrunc[i] = membership_counts(
+                        gd, ref.cliques[i], ref.sizes[i])
+                c, min_drop = dropoff_cutoff(
+                    _cutoff_sizes(m, ref.sizes[i], ink), signumber, 0)
+                ref.dropoff[i] = min_drop       # global mutation kept
+                if min_drop < dropoffcutoff:
+                    mf = mfull.get(i)
+                    if mf is None:
+                        mf = mfull[i] = membership_counts(
+                            gd, ref.cliques[i],
+                            clique_len(ref.cliques[i]))
+                    cg = mf > c
+                    drinne = int((cg & ink).sum())
+                    draus = int((~cg & ink).sum())
+                    if drinne > mingroup and draus > mingroup:
+                        u[ink & cg] = number + 1 + k * 2
+                        u[ink & ~cg] = number + 2 + k * 2
+                        ink = u == k            # split: now empty
+    komprimierung(u)
+
+
+def komplettierung(u: np.ndarray, ausgelassen: np.ndarray) -> np.ndarray:
+    """UnterteilungsKomplettierung (:1845-1865)."""
+    out = np.full(len(ausgelassen), -1, np.int64)
+    out[ausgelassen == 1] = u
+    return out
+
+
+# ---- the functions that reach the exact products, on `device`
+
+
 def group_refinement(gd: GroupData, maxcorrs: np.ndarray, cutoff: float,
                      mincov: int, maxclique: int, greedy: float,
                      min_clique_size: int = 5, seed_chunk: int = 128,
-                     device="cpu") -> Refinement:
+                     device="cuda") -> Refinement:
     """Group_Refinement (RepeatResolver.c:1634-1690) on a copy of
     maxcorrs: per-seed candidate statistics as chunked products over all
     significant seeds, then the greedy TheBestUpdater tail per seed."""
@@ -129,7 +379,7 @@ def group_refinement(gd: GroupData, maxcorrs: np.ndarray, cutoff: float,
 
 def relative_vars(gd: GroupData, u: np.ndarray, u_no: int,
                   maxcorrs: np.ndarray, cutoff: float, mingroup: int,
-                  device="cpu") -> list[int]:
+                  device="cuda") -> list[int]:
     """Relative_Vars (RepeatResolver.c:2424-2493)."""
     sel = maxcorrs > cutoff
     u_group = (u == u_no)
@@ -165,7 +415,7 @@ def relative_vars(gd: GroupData, u: np.ndarray, u_no: int,
 
 
 def _grmatch_matrix(a: np.ndarray, b: np.ndarray, sc: int,
-                    device="cpu") -> np.ndarray:
+                    device="cuda") -> np.ndarray:
     """GrMatch over bit-vectors: sc*64 - hamming (RepeatResolver.c:
     141-153), the intersections as one exact product."""
     if a.shape[1] == 0:
@@ -178,12 +428,10 @@ def _grmatch_matrix(a: np.ndarray, b: np.ndarray, sc: int,
 
 
 def kmeans(gd: GroupData, u: np.ndarray, u_no: int, vars_: list[int],
-           mingroup: int, use_native: bool = True, device="cpu") -> int:
+           mingroup: int, use_native: bool = True, device="cuda") -> int:
     """Kmeans (RepeatResolver.c:2604-2821), a literal simulation (the
-    native C++ helpers when available, with the same order-dependent
-    semantics). Mutates u."""
-    from repeatresolver_tpu.utils import native
-
+    native C++ helpers, or with use_native=False the same
+    order-dependent loops in Python). Mutates u."""
     varzahl = len(vars_)
     members = np.nonzero(u == u_no)[0]
     anzahl = len(members)
@@ -200,10 +448,8 @@ def kmeans(gd: GroupData, u: np.ndarray, u_no: int, vars_: list[int],
     # top-5 slot machine per row (:2656-2703)
     centroids = None
     if use_native:
-        cent = native.kmeans_top5_centroids(score_m,
-                                            varsigs.astype(np.uint8))
-        if cent is not None:
-            centroids = cent.astype(bool)
+        centroids = native.kmeans_top5_centroids(
+            score_m, varsigs.astype(np.uint8)).astype(bool)
     if centroids is None:
         centroids = np.zeros((anzahl, varzahl), bool)
         for i in range(anzahl):
@@ -227,9 +473,8 @@ def kmeans(gd: GroupData, u: np.ndarray, u_no: int, vars_: list[int],
 
     clusternumber = None
     if use_native:
-        cn = native.kmeans_assign_dissolve(cent_scores, mingroup)
-        if cn is not None:
-            clusternumber = cn.astype(np.int64)
+        clusternumber = native.kmeans_assign_dissolve(
+            cent_scores, mingroup).astype(np.int64)
     if clusternumber is None:
         clusternumber = np.zeros(anzahl, np.int64)
         clustersize = np.zeros(anzahl, np.int64)
@@ -267,7 +512,7 @@ def kmeans(gd: GroupData, u: np.ndarray, u_no: int, vars_: list[int],
 
 def kmeans_subdivision(gd: GroupData, ref: Refinement, u: np.ndarray,
                        cutoff: float, mingroup: int,
-                       device="cpu") -> None:
+                       device="cuda") -> None:
     """Kmeans_Subdivision (RepeatResolver.c:3382-3403). Mutates u."""
     number = komprimierung(u)
     for k in range(number):
@@ -280,10 +525,11 @@ def kmeans_subdivision(gd: GroupData, ref: Refinement, u: np.ndarray,
 
 def resolve_window(msa: np.ndarray, maxcorrs_full: np.ndarray,
                    von: int, bis: int, cfg: ResolverConfig,
-                   device="cpu") -> dict[str, np.ndarray]:
+                   device="cuda") -> dict[str, np.ndarray]:
     """The reference main (RepeatResolver.c:3863-4084): the three
     clusterings expanded to all MSA rows. `device` is where the exact
-    products above the devmm gate run."""
+    products above the devmm gate run ("cuda" raises without a GPU)."""
+    device = resolve_device(device)
     win = extract_window(msa, von, bis)
     gd = GroupData.from_window(win)
     w = win.siglength
@@ -313,10 +559,9 @@ def resolve_window(msa: np.ndarray, maxcorrs_full: np.ndarray,
 
 def run(msa_path: str, von: int, bis: int, cfg: ResolverConfig,
         maxcorrs_path: str | None = None,
-        device="cpu") -> dict[str, np.ndarray]:
+        device="cuda") -> dict[str, np.ndarray]:
     """CLI equivalent: reads the MSA and MaxCorrsOf_<msa>, writes the
     three subdivision files under the reference's names."""
-    from repeatresolver_tpu.utils import io as rio
     msa = rio.read_msa(msa_path)
     if maxcorrs_path is None:
         maxcorrs_path = rio.maxcorrs_path(msa_path)

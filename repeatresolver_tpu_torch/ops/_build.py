@@ -51,29 +51,56 @@ def _nvcc() -> str:
                        "PATH to build the CUDA kernels")
 
 
+def _paths(name: str) -> tuple[str, str]:
+    """(source, library) of a kernel; the library's name carries the
+    hash of the source and the flags."""
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha1(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def _start_build(name: str):
+    """Start nvcc on csrc/<name>.cu unless its library is there; returns
+    (process or None, temporary output, library, start time)."""
+    src, so = _paths(name)
+    if os.path.exists(so):
+        return None, None, so, 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, so, time.perf_counter()
+
+
+def _finish_build(name: str, proc, tmp, so, t0) -> str:
+    if proc is not None:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
+        os.replace(tmp, so)
+        build_info[name] = (time.perf_counter() - t0, out.strip())
+    return so
+
+
+def prebuild(names) -> None:
+    """Compile several kernels at once: one nvcc per source, all started
+    together."""
+    with _lock:
+        started = [(n, *_start_build(n)) for n in names if n not in _libs]
+        for n, proc, tmp, so, t0 in started:
+            _finish_build(n, proc, tmp, so, t0)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The compiled library of csrc/<name>.cu, built on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        src = os.path.join(CSRC, name + ".cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-        if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.tmp{os.getpid()}"
-            t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src}:\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, so)
-            build_info[name] = (time.perf_counter() - t0,
-                                (res.stdout + res.stderr).strip())
+        so = _finish_build(name, *_start_build(name))
         lib = ctypes.CDLL(so)
         launch = getattr(lib, name + "_launch")
         launch.argtypes = _SIGNATURES[name]
@@ -83,6 +110,25 @@ def load(name: str) -> ctypes.CDLL:
         err_str.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+# Set to a dict to time kernel launches: each wrapper then records a
+# pair of CUDA events around its launch under its kernel's name. The
+# events are read by whoever set the dict, after a sync of their own, so
+# the wrappers never wait. None (the default) records nothing.
+kernel_events: dict | None = None
+
+
+def launch_events(name: str):
+    """(start, end) CUDA events to record around a launch of `name`, or
+    None when launches are not being timed."""
+    if kernel_events is None:
+        return None
+    import torch
+    pair = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    kernel_events.setdefault(name, []).append(pair)
+    return pair
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -77,9 +77,14 @@ def backtrack_moves(codes, wayin, aint, lengths, *, chunk: int):
     lib = _build.load("walk_backtrack")
     moves = torch.empty((nw, b, 16), dtype=torch.int32, device=dev)
     p = _build.ptr
+    ev = _build.launch_events("walk_backtrack")
+    if ev:
+        ev[0].record()
     err = lib.walk_backtrack_launch(
         p(codes), p(wayin), p(aint), p(lengths), p(moves), b, w2, chunk,
         nw, aint.shape[1], _build.stream_ptr(dev))
+    if ev:
+        ev[1].record()
     _build.check(lib, "walk_backtrack", err)
     backtrack_moves.launches += 1
     return moves

@@ -17,7 +17,8 @@ import torch
 from . import _build
 from .staircase_realign import staircase_fill as staircase_fill_plain
 
-MAX_W2 = 4096          # 512 threads x 8 lanes per thread (the kernel's CTA)
+# window lanes a row's two CTAs can hold: 512 threads of 4 lanes each
+MAX_W2 = 4096
 
 
 def _check(name, t, dtype, ndim, device):
@@ -67,12 +68,19 @@ def staircase_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
     codes = torch.empty((nc * chunk // 16, b, w2), dtype=torch.int32,
                         device=dev)
     band = torch.empty((b, w2), dtype=torch.int32, device=dev)
-    gbuf = torch.empty((b, c + 1), dtype=torch.int32, device=dev)
+    # the kernel's scratch for the gap-cost prefix: one row per CTA
+    gbuf = torch.empty((b * lib.staircase_fill_ctas_per_row(), c + 1),
+                       dtype=torch.int32, device=dev)
     p = _build.ptr
+    ev = _build.launch_events("staircase_fill")
+    if ev:
+        ev[0].record()
     err = lib.staircase_fill_launch(
         p(counts), p(rows_old), p(seqs), p(ways), p(lengths), p(gbuf),
         p(codes), p(band), b, c, l, int(ncols), bandwidth, chunk, w2,
         _build.stream_ptr(dev))
+    if ev:
+        ev[1].record()
     _build.check(lib, "staircase_fill", err)
     staircase_fill.launches += 1
     final_a = (ways[:, (nc - 1) * chunk] - bandwidth // 2).clamp(min=0)

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import native
+
 BIG = np.int32(1 << 29)
 # backtrack steps between host reads of the "any walk alive" flag
 CHECK_EVERY = 64
@@ -182,8 +184,8 @@ def entry_column(final_row: np.ndarray) -> int:
 def backtrack_batch(codes: np.ndarray, qlens: np.ndarray,
                     entries: np.ndarray,
                     use_native: bool = True) -> np.ndarray:
-    """Host backtracking for a batch (the native C++ per-row walk when
-    available; a lockstep numpy walk otherwise).
+    """Host backtracking for a batch (the native C++ per-row walk, or
+    with use_native=False a lockstep numpy walk).
 
     codes [B, Lq, Lt] int8 (align_with_codes, on the host), qlens [B],
     entries [B]. Returns alignments [B, Lq] int32: the target column of
@@ -191,11 +193,8 @@ def backtrack_batch(codes: np.ndarray, qlens: np.ndarray,
     are all -1."""
     codes = np.asarray(codes)
     if use_native:
-        from repeatresolver_tpu.utils import native
-        out = native.editdp_backtrack(codes, np.asarray(qlens),
-                                      np.asarray(entries))
-        if out is not None:
-            return out
+        return native.editdp_backtrack(codes, np.asarray(qlens),
+                                       np.asarray(entries))
     b, lq, lt = codes.shape
     x = np.asarray(qlens, np.int64) - 1
     y = np.asarray(entries, np.int64).copy()

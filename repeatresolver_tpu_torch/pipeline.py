@@ -24,13 +24,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from repeatresolver_tpu.config import PipelineConfig
-from repeatresolver_tpu.models import simulator
-
+from .config import PipelineConfig
 from .device import resolve_device
 from .models import (assessment, initial_aligner, maxcorr, read_cutter,
-                     realigner, resolver, window)
+                     realigner, resolver, simulator, window)
 from .utils import io as rio
+from .utils.hostmem import tune_allocator
 
 
 @dataclass
@@ -67,7 +66,6 @@ def run_pipeline(cfg: PipelineConfig, workdir: str, progress=print,
     """profile_dir: when set, a torch.profiler trace of the realign
     phase is written there as realign_trace.json (Chrome trace
     format)."""
-    from repeatresolver_tpu.utils.hostmem import tune_allocator
     if cfg.realigner.mesh_devices > 1:
         raise NotImplementedError("realigner.mesh_devices > 1 is not "
                                   "ported yet")

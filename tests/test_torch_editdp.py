@@ -118,7 +118,7 @@ def test_device_route_cut_and_align_match_jax(tiny_dataset, tmp_path,
     from repeatresolver_tpu.utils import native as nat
     from repeatresolver_tpu_torch.models import initial_aligner as pia
     from repeatresolver_tpu_torch.models import read_cutter as prc
-    _cut_and_align(prc, pia, tiny_dataset, tmp_path / "native")
+    _cut_and_align(prc, pia, tiny_dataset, tmp_path / "native", device="cpu")
     lib = nat.get_lib
     monkeypatch.setattr(nat, "get_lib", lambda: None)
     cut_j, res_j = _cut_and_align(jrc, jia, tiny_dataset, tmp_path / "jax")

@@ -172,7 +172,9 @@ read_cutter.cut_reads(rio.read_template(tpl).astype("int16"),
                       [r.astype("int16") for r in rio.read_fasta(
                           f"{{d}}/{{name}}.fasta")][:2],
                       ReadCutterConfig(), device="cpu", use_native=False)
-assert "jax" not in sys.modules, "jax was imported"
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "repeatresolver_tpu")]
+assert not bad, f"imported {{bad}}"
 print("NOJAX-OK")
 """
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}

@@ -71,12 +71,14 @@ def test_kmeans_python_fallback_matches_native(window_case):
     gd = GroupData.from_window(extract_window(msa, 0, msa.shape[1] - 1))
     u0 = np.zeros(msa.shape[0], np.int64)
     cutoff = C.ResolverConfig(cov=cov).resolved_cutoff(msa.shape[1])
-    vars_ = pres.relative_vars(gd, u0, 0, mc, cutoff, cov // 2)
+    vars_ = pres.relative_vars(gd, u0, 0, mc, cutoff, cov // 2,
+                               device="cpu")
     assert vars_
     labels = []
     for native in (True, False):
         u = u0.copy()
-        n = pres.kmeans(gd, u, 0, vars_, cov // 2, use_native=native)
+        n = pres.kmeans(gd, u, 0, vars_, cov // 2, use_native=native,
+                        device="cpu")
         labels.append((n, u))
     assert labels[0][0] == labels[1][0]
     np.testing.assert_array_equal(labels[0][1], labels[1][1])
