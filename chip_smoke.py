@@ -55,7 +55,40 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      same capped run at the same block size through the host native
      engine (exact band, independent of both kernels; RR_FLUSH_CAP high
      so that both flush once a sweep), and the first block's recorded
-     inputs go through both kernels and their plain versions, bit-equal.
+     inputs go through both kernels and their plain versions, bit-equal;
+  9. the exact band on the card: phase 8's first block (64 rows, band
+     1000) through the torch exact band (ops/banded_realign:
+     banded_fill + entry_and_backtrack) on CUDA tensors; rows, best and
+     insert lists bit-equal to the kernels' result for the same block
+     and to the host native engine's, with the seconds of each. Then
+     the resident engine on phase 4's MSA with the host library made
+     unavailable to its exact blocks and every block forced onto the
+     exact route (an insert fetch of one slot): the torch route must
+     have run, counted apart from the native one, and the score after
+     each sweep must equal the native route's;
+ 10. the mesh path: two processes sharing the card, joined over gloo
+     (collectives staged through pinned host memory). Each runs
+     `realign_batched(mesh=..., mode="staircase", kernel="cuda")` on
+     phase 8's MSA at block 64 for a few rounds: kernels A and B
+     launched in both ranks (half a block's rows a launch), every
+     OverallScore line equal to the single-process non-resident run
+     and to phase 8's, with each rank's seconds inside kernel A, inside
+     kernel B, in collectives and in the rest; each rank's launch
+     counts are set to 0 just before the run and must be equal, and
+     each rank replays its first shard (32 rows at the non-resident
+     engine's padding) through both kernels and their plain versions,
+     bit-equal. Then the MaxCorrs scan
+     of phase 6's MSAreal striped over the two ranks: equal to phase
+     6's single scan, tolerance 0;
+ 11. `cli resolve-windows` on phase 6's files, two processes joined
+     over gloo (`--coordinator 127.0.0.1:<port> --procs 2 --proc-id i
+     --device cuda`): subdivision files byte-identical to a
+     single-process run and to the pipeline's; then `python -m
+     repeatresolver_tpu_torch.graft_entry --ranks 2`.
+
+Every process a phase starts gets a time limit and is stopped when it
+passes it; a rank that fails or hangs fails the phase, and so does a
+rank that imported jax or the JAX package.
 
 The second-to-last stdout line is a JSON object describing each kernel;
 the last is {"ok": true, "device": {...}}. With no GPU, or without the
@@ -72,6 +105,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -180,6 +214,20 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
     return (err_a, err_b), (ms_a, plain_a, ms_b, plain_b)
 
 
+def exact_blocks():
+    """The resident engine's exact blocks so far, by route: (through the
+    host library, through the torch exact band)."""
+    from repeatresolver_tpu_torch.models.realigner_device import \
+        DeviceResidentRealigner as eng
+    return eng.exact_blocks_run, eng.exact_blocks_run_torch
+
+
+def reset_exact_blocks():
+    from repeatresolver_tpu_torch.models.realigner_device import \
+        DeviceResidentRealigner as eng
+    eng.exact_blocks_run = eng.exact_blocks_run_torch = 0
+
+
 def build_dataset(work):
     """runs/tpu_converge's dataset through the port's CLI (simulate,
     cut) and its initial aligner at align band 3000 (a setting the CLI
@@ -255,6 +303,7 @@ def pipeline_phase(card, dev):
                 (devmm.matmul_t, "device_calls")]
     for fn, attr in counters:
         setattr(fn, attr, 0)
+    reset_exact_blocks()
     # every resolver product to the card: at 615 rows no product reaches
     # the JAX package's 3e9-op gate
     os.environ["RR_DEVICE_MM_MIN"] = "0"
@@ -277,7 +326,9 @@ def pipeline_phase(card, dev):
             stage = line[1:].split("]")[0].split()[0]
             stage_s[stage] = stage_s.get(stage, 0.0) + t - t_prev
             t_prev = t
-    print(f"device routes fired in the pipeline run: {fired}")
+    print(f"device routes fired in the pipeline run: {fired}; "
+          f"exact-fallback blocks (host library, torch exact band) "
+          f"{exact_blocks()}")
     print("stage seconds (host clock, on " + card + "): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
           + f"; total {t_prev - t0:.2f}")
@@ -317,6 +368,7 @@ def pipeline_phase(card, dev):
     t_dev = time.perf_counter() - t1
     mc_file = os.path.join(hdir, "MaxCorrs_device")
     rio.write_maxcorrs(mc_file, mc_d)
+    np.save(os.path.join(hdir, "maxcorrs_device.npy"), mc_d)  # phase 10
     with open(mc_file, "rb") as f1, open(os.path.join(
             pdir, "MaxCorrsOf_" + PIPE_NAME + "_MSAreal"), "rb") as f2:
         if f1.read() != f2.read():
@@ -544,7 +596,9 @@ PAPER_MIN_ROWS = 192                    # three blocks of 64
 
 
 def paper_realign_phase(card, dev, errs):
-    """Phase 8; returns the kernels' launches in the capped run."""
+    """Phase 8; returns the kernels' launches in the capped run, the
+    MSA's path, the score lines and the first block's recorded fill
+    inputs (for phases 9 and 10)."""
     import numpy as np
     import torch
 
@@ -590,7 +644,7 @@ def paper_realign_phase(card, dev, errs):
         cr.staircase_fill.launches = 0
         cb.backtrack_moves.launches = 0
         prt.BatchedRealigner.host_sweeps = 0
-        prd.DeviceResidentRealigner.exact_blocks_run = 0
+        reset_exact_blocks()
         prd.DeviceResidentRealigner.resident_sweep_s = 0.0
         first = {}
 
@@ -626,8 +680,8 @@ def paper_realign_phase(card, dev, errs):
         print(f"realign_batched on {card}: {PAPER_ROUNDS} rounds at block "
               f"64, wall {wall:.2f} s, "
               f"{PAPER_ROUNDS * bases * 1000 / wall:.4g} cells/s; launches "
-              f"{launches}, exact-fallback blocks "
-              f"{prd.DeviceResidentRealigner.exact_blocks_run}")
+              f"{launches}, exact-fallback blocks (host library, torch "
+              f"exact band) {exact_blocks()}")
         print(f"resident sweeps {res_s:.3f} s: inside kernel A {sa:.3f} s "
               f"({sa / launches['staircase_fill'] * 1e3:.3f} ms a launch), "
               f"inside kernel B {sb:.3f} s "
@@ -673,7 +727,452 @@ def paper_realign_phase(card, dev, errs):
           f"bases, MSA width {ncols} of {args[1].shape[1]}, band "
           f"{kw['bandwidth']}, chunk {kw['chunk']}, widen {kw['widen']} "
           f"(W2 {kw['bandwidth'] + kw['widen'] * kw['chunk']})")
-    return launches
+    return launches, d["msa"], lines_d, first["block"]
+
+
+def _same_block_result(what, got, ref, ncols):
+    """(rows, best, iy, ib, inn) of one block equal between two routes
+    (numpy): rows over the real columns, insert slots up to inn a row."""
+    import numpy as np
+    rows_g, best_g, iy_g, ib_g, inn_g = got
+    rows_r, best_r, iy_r, ib_r, inn_r = ref
+    ok = (np.array_equal(rows_g[:, :ncols], rows_r[:, :ncols])
+          and np.array_equal(best_g, best_r)
+          and np.array_equal(inn_g, inn_r)
+          and all(np.array_equal(iy_g[i, :n], iy_r[i, :n])
+                  and np.array_equal(ib_g[i, :n], ib_r[i, :n])
+                  for i, n in enumerate(inn_r)))
+    if not ok:
+        raise AssertionError(f"{what}: block results differ")
+
+
+MESH_ROUNDS = 3
+RANK_TIMEOUT_S = 420.0
+
+
+def exact_band_phase(card, dev, block, converge_msa_path):
+    """Phase 9."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.models import realigner_device as prd
+    from repeatresolver_tpu_torch.ops import banded_realign as br
+    from repeatresolver_tpu_torch.utils import io as rio
+    from repeatresolver_tpu_torch.utils import native
+
+    args, ncols, kw = block
+    counts, rows_old, seqs, ways, lengths = args
+    w, t, widen = kw["bandwidth"], kw["chunk"], kw["widen"]
+    ways_h, len_h = ways.cpu().numpy(), lengths.cpu().numpy()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def starts(stair):
+        return [torch.from_numpy(a).to(dev) for a in prt.band_starts(
+            ways_h, len_h, w, t, stair)]
+
+    common = dict(bandwidth=w, chunk=t, widen=widen)
+    prt.block_dp(*args, *starts(True), ncols, staircase=True, kernel="cuda",
+                 **common)               # warm-up
+    out_k, s_k = timed(lambda: prt.block_dp(
+        *args, *starts(True), ncols, staircase=True, kernel="cuda",
+        **common))
+    anf, eb = starts(False)
+    torch.cuda.reset_peak_memory_stats()
+    fill, s_fill = timed(lambda: br.banded_fill(*args, ncols, bandwidth=w))
+    out_t, s_bt = timed(lambda: br.entry_and_backtrack(
+        *fill, seqs, anf, eb, lengths, ncols, cpad=rows_old.shape[1],
+        bandwidth=w))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del fill
+    t0 = time.perf_counter()
+    out_n = prt.realign_block_native(
+        native, counts[:ncols].cpu().numpy(),
+        np.ascontiguousarray(rows_old[:, :ncols].cpu().numpy()),
+        seqs.cpu().numpy(), ways_h, len_h, w)
+    s_n = time.perf_counter() - t0
+    out_k = [x.cpu().numpy() for x in out_k]
+    out_t = [x.cpu().numpy() for x in out_t]
+    _same_block_result("torch exact band vs kernels A + B", out_t, out_k,
+                       ncols)
+    _same_block_result("torch exact band vs host native engine", out_t,
+                       out_n, ncols)
+    b, lpad = seqs.shape
+    print(f"block of {b} rows x {lpad} bases (longest {int(len_h.max())}), "
+          f"band {w}, MSA width {ncols}: rows, best and "
+          f"{int(out_t[4].sum())} inserts bit-equal between the torch exact "
+          f"band, kernels A + B and the host native engine")
+    print(f"seconds for the block on {card}: torch exact band "
+          f"{s_fill + s_bt:.2f} (banded_fill {s_fill:.2f}, "
+          f"entry_and_backtrack {s_bt:.2f}; peak {peak:.2f} GiB), kernels "
+          f"A + B with their torch ops {s_k:.4f}, host native engine "
+          f"{s_n:.2f} ({os.cpu_count()} threads)")
+
+    # the resident engine's exact blocks without the host library
+    msa = rio.read_msa(converge_msa_path)
+    cls = prd.DeviceResidentRealigner
+
+    def resident_run():
+        eng = cls(msa, bandwidth=1000, block_rows=64, device=dev)
+        eng._maxf = 1                    # every insert list overflows
+        eng.ent_al_gapper()
+        log = [eng.overall_pair()]
+        for _ in range(2):
+            eng.sweep()
+            log.append(eng.overall_pair())
+        return log, eng._overflow_events
+
+    cls.exact_blocks_run = cls.exact_blocks_run_torch = 0
+    (log_n, overflows), s_native = timed(resident_run)
+    native_blocks = (cls.exact_blocks_run, cls.exact_blocks_run_torch)
+
+    def no_library():
+        raise native.NativeBuildError(
+            "native host library: made unavailable")
+
+    prd._native = no_library
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (log_t, _), s_torch = timed(resident_run)
+    finally:
+        prd._native = prt._native
+    said = [str(c.message) for c in caught
+            if "torch exact band" in str(c.message)]
+    if len(said) != 1:
+        raise AssertionError("the degrade route must warn once an engine: "
+                             f"{said}")
+    print(f"  warning of the degrade route: {said[0]}")
+    torch_blocks = (cls.exact_blocks_run - native_blocks[0],
+                    cls.exact_blocks_run_torch)
+    print(f"resident engine, 2 sweeps at block 64 on MSA {msa.shape}, "
+          f"{overflows} insert-fetch overflows: exact blocks (native, "
+          f"torch) {native_blocks} in {s_native:.2f} s with the host "
+          f"library, {torch_blocks} in {s_torch:.2f} s without it, on "
+          f"{card}")
+    for m, u in log_t:
+        print(f"  OverallScore: {m}{u:06d}")
+    if native_blocks[0] <= 0 or native_blocks[1] != 0 \
+            or torch_blocks != (0, native_blocks[0]):
+        raise AssertionError("the exact route's two implementations were "
+                             f"not counted apart: {native_blocks}, "
+                             f"{torch_blocks}")
+    if log_t != log_n:
+        raise AssertionError(f"torch exact route {log_t} != native exact "
+                             f"route {log_n}")
+
+
+def _no_foreign_modules():
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "repeatresolver_tpu"))
+    if foreign:
+        raise AssertionError(f"a rank imported {foreign}")
+
+
+def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
+    """One rank of phase 10 (a process of its own on cuda:0; the device
+    is an argument so that the rank can be rehearsed on the CPU)."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch.config import (MaxCorrConfig,
+                                                 RealignerConfig)
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.ops import _build
+    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
+    from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    from repeatresolver_tpu_torch.parallel import sharded
+    from repeatresolver_tpu_torch.utils import io as rio
+
+    mesh = sharded.make_mesh(n, backend="gloo", device=device)
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" \
+        else (lambda: None)
+    coll = {"s": 0.0, "calls": 0}
+    for name in ("all_reduce", "all_gather"):
+        def timed(*a, _fn=getattr(mesh, name), **k):
+            sync()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            coll["s"] += time.perf_counter() - t0
+            coll["calls"] += 1
+            return out
+        setattr(mesh, name, timed)
+    msa = rio.read_msa(msa_path)
+    os.environ["RR_FLUSH_CAP"] = str(1 << 30)
+    _build.kernel_events = {}
+    log: list = []
+    # what the block halving would read here (the engine takes the
+    # least over the ranks at its first block above 8 rows)
+    budget = prt.device_memory_budget(mesh.device)
+    # this rank's first shard, as its block step hands it to kernel A
+    # (the step reaches the fill through this stand-in module)
+    first = {}
+
+    def recording_fill(*args, **kw):
+        if not first:
+            first["block"] = ([a.clone() for a in args[:5]], args[5], kw)
+        return cr.staircase_fill(*args, **kw)
+
+    prt.cr = types.SimpleNamespace(staircase_fill=recording_fill,
+                                   MAX_W2=cr.MAX_W2)
+    cr.staircase_fill.launches = 0
+    cb.backtrack_moves.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    try:
+        prt.realign_batched(
+            msa, RealignerConfig(bandwidth=1000, block_rows=64,
+                                 max_rounds=MESH_ROUNDS),
+            score_log=log, mesh=mesh, mode="staircase", kernel="cuda")
+        sync()
+    finally:
+        prt.cr = cr
+    wall = time.perf_counter() - t0
+    launches = {"staircase_fill": cr.staircase_fill.launches,
+                "walk_backtrack": cb.backtrack_moves.launches}
+    events, _build.kernel_events = _build.kernel_events, None
+    in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
+                 for k, v in events.items()}
+    report = dict(
+        rank=rank, log=log, wall_s=wall, budget_bytes=budget,
+        sweep_s=prt.BatchedRealigner.host_sweep_s,
+        sweeps=prt.BatchedRealigner.host_sweeps,
+        launches=launches, kernel_s=in_kernel, collective_s=coll["s"],
+        collectives=coll["calls"], staged=mesh.staged,
+        built_here=sorted(_build.build_info))
+    # kernels A and B against their plain versions on that shard (after
+    # the launches were read: these do not count)
+    args, ncols, kw = first["block"]
+    t0 = time.perf_counter()
+    err_a, err_b = compare_block(args, ncols, kw["bandwidth"], kw["chunk"],
+                                 kw["widen"], args[1].shape[1])[0]
+    report["first_shard"] = dict(
+        err={"staircase_fill": err_a, "walk_backtrack": err_b},
+        rows=args[2].shape[0], bases=args[2].shape[1], ncols=ncols,
+        cpad=args[1].shape[1], bandwidth=kw["bandwidth"],
+        chunk=kw["chunk"], widen=kw["widen"],
+        seconds=time.perf_counter() - t0)
+    coll["s"], coll["calls"] = 0.0, 0
+    real = rio.read_msa(real_path)
+    t0 = time.perf_counter()
+    mc = pmc.compute_maxcorrs_device(real, MaxCorrConfig(), mesh=mesh)
+    report["maxcorr_s"] = time.perf_counter() - t0
+    report["maxcorr_collective_s"] = coll["s"]
+    np.save(os.path.join(outdir, f"maxcorrs_rank{rank}.npy"), mc)
+    _no_foreign_modules()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def mesh_phase(card, dev, msa_path, paper_lines, errs):
+    """Phase 10; returns a rank's launches of each kernel (every rank
+    must count the same)."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch.config import RealignerConfig
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.parallel import sharded
+    from repeatresolver_tpu_torch.utils import io as rio
+
+    outdir = os.path.join(WORK, "mesh")
+    os.makedirs(outdir)
+    real_path = os.path.join(WORK, "pipeline", PIPE_NAME + "_MSAreal")
+    torch.cuda.empty_cache()             # the ranks share this card
+    t0 = time.perf_counter()
+    sharded.spawn(mesh_rank, 2, (msa_path, real_path, outdir),
+                  backend="gloo", timeout=RANK_TIMEOUT_S)
+    print(f"two ranks on cuda:0 over gloo: {time.perf_counter() - t0:.1f} s"
+          " from spawn to exit")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+
+    # the same rounds in this process, MSA on the host (non-resident)
+    os.environ["RR_FLUSH_CAP"] = str(1 << 30)
+    os.environ["RR_RESIDENT"] = "0"
+    try:
+        log_s: list = []
+        t0 = time.perf_counter()
+        prt.realign_batched(
+            rio.read_msa(msa_path),
+            RealignerConfig(bandwidth=1000, block_rows=64,
+                            max_rounds=MESH_ROUNDS),
+            score_log=log_s, mode="staircase", kernel="cuda", device=dev)
+        torch.cuda.synchronize()
+        s_single = time.perf_counter() - t0
+    finally:
+        del os.environ["RR_FLUSH_CAP"], os.environ["RR_RESIDENT"]
+    lines_s = [f"OverallScore: {m}{u:06d}" for m, u in log_s]
+    for rep in reports:
+        lines = [f"OverallScore: {m}{u:06d}" for m, u in rep["log"]]
+        if lines != lines_s:
+            raise AssertionError(f"rank {rep['rank']} {lines} != "
+                                 f"single-process non-resident {lines_s}")
+        if min(rep["launches"].values()) <= 0:
+            raise AssertionError(f"rank {rep['rank']}: a kernel never "
+                                 f"launched: {rep['launches']}")
+        if rep["built_here"]:
+            raise AssertionError(f"rank {rep['rank']} ran nvcc again: "
+                                 f"{rep['built_here']}")
+        ka = rep["kernel_s"].get("staircase_fill", 0.0)
+        kb = rep["kernel_s"].get("walk_backtrack", 0.0)
+        print(f"rank {rep['rank']} on {card}: {MESH_ROUNDS} rounds, wall "
+              f"{rep['wall_s']:.2f} s, {rep['sweeps']} sweeps "
+              f"{rep['sweep_s']:.2f} s = inside kernel A {ka:.3f} s + "
+              f"inside kernel B {kb:.3f} s (CUDA events) + "
+              f"{rep['collectives']} collectives {rep['collective_s']:.3f} s"
+              f" ({rep['staged']} staged through pinned host memory: gloo"
+              f" takes host tensors) + rest "
+              f"{rep['sweep_s'] - ka - kb - rep['collective_s']:.3f} s "
+              f"(host clock); launches {rep['launches']}")
+        fs = rep["first_shard"]
+        for name, e in fs["err"].items():
+            errs[name] = max(errs[name], e)
+        print(f"rank {rep['rank']}'s first shard bit-equal to the plain "
+              f"versions: {fs['rows']} rows x {fs['bases']} bases, MSA "
+              f"width {fs['ncols']} of {fs['cpad']}, band "
+              f"{fs['bandwidth']}, chunk {fs['chunk']}, widen {fs['widen']}"
+              f" (W2 {fs['bandwidth'] + fs['widen'] * fs['chunk']}); "
+              f"{fs['seconds']:.1f} s")
+    if reports[0]["launches"] != reports[1]["launches"]:
+        raise AssertionError("the ranks counted different launches: "
+                             f"{[r['launches'] for r in reports]}")
+    # the halving test of BatchedRealigner._realign_block for a rank's
+    # half of a 64-row block at the ladder's top rung (W2 = 1000 + 16 x
+    # 128): half a byte a code with headroom
+    budget = min(r["budget_bytes"] for r in reports)
+    need = 0.5 * 32768 * 32 * (1000 + 16 * 128)
+    if reports[0]["budget_bytes"] != reports[1]["budget_bytes"]:
+        raise AssertionError("the ranks read different memory budgets")
+    print(f"memory budget of the block halving (a quarter of the card's "
+          f"total memory, the same in every rank): {budget / 2**30:.2f} "
+          f"GiB; a "
+          f"rank's 32 rows x 32768 bases at the widest window (W2 3048) "
+          f"count {need / 2**30:.2f} GiB against it: "
+          f"{'no block is halved' if need <= budget else 'blocks are halved'}"
+          f" on {card}")
+    head = lines_s[:MESH_ROUNDS + 1]
+    for ln in lines_s:
+        print(f"  {ln}")
+    if head != paper_lines[:MESH_ROUNDS + 1]:
+        raise AssertionError(f"mesh trajectory {head} != phase 8's "
+                             f"{paper_lines[:MESH_ROUNDS + 1]}")
+    print(f"{len(lines_s)} OverallScore lines equal in both ranks and in "
+          f"the single-process non-resident run ({s_single:.2f} s), the "
+          f"first {MESH_ROUNDS + 1} equal to phase 8's")
+
+    ref = np.load(os.path.join(WORK, "pipeline_host", "maxcorrs_device.npy"))
+    for rep in reports:
+        mc = np.load(os.path.join(outdir, f"maxcorrs_rank{rep['rank']}.npy"))
+        if not np.array_equal(mc, ref):
+            raise AssertionError(
+                f"rank {rep['rank']}: striped MaxCorrs scan != single scan,"
+                f" max abs difference {np.abs(mc - ref).max()}")
+    print(f"MaxCorrs striped over 2 ranks == the single device scan "
+          f"(tolerance 0, {len(ref)} values, {int((ref > 0).sum())} "
+          f"nonzero): {reports[0]['maxcorr_s']:.2f} / "
+          f"{reports[1]['maxcorr_s']:.2f} s a rank, of it the max-merge "
+          f"{reports[0]['maxcorr_collective_s']:.3f} s, on {card}")
+    return reports[0]["launches"]
+
+
+def run_processes(cmds, what, timeout=RANK_TIMEOUT_S):
+    """Run commands side by side from the repository root; every one
+    must exit 0 inside the time limit. Returns their outputs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            out, _ = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: exit code {p.returncode}\n"
+                                 f"{out[-3000:]}")
+    return outs
+
+
+def resolve_windows_phase(card):
+    """Phase 11."""
+    import socket
+    pdir = os.path.join(WORK, "pipeline")
+    names = (PIPE_NAME + "_MSAreal", "MaxCorrsOf_" + PIPE_NAME + "_MSAreal")
+    dirs = {k: os.path.join(WORK, "windows_" + k) for k in ("single", "dist")}
+    for d in dirs.values():
+        os.makedirs(d)
+        for n in names:
+            shutil.copy(os.path.join(pdir, n), d)
+    cli = [sys.executable, "-m", "repeatresolver_tpu_torch.cli",
+           "resolve-windows"]
+    t0 = time.perf_counter()
+    run_processes([cli + [os.path.join(dirs["single"], names[0]),
+                          "--device", "cuda"]], "resolve-windows")
+    s_single = time.perf_counter() - t0
+    for attempt in range(3):
+        # a free port, found by binding and closing: another process may
+        # take it before rank 0 listens there, so a run that failed for
+        # that alone is made again on another port
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        try:
+            outs = run_processes(
+                [cli + [os.path.join(dirs["dist"], names[0]),
+                        "--coordinator", f"127.0.0.1:{port}", "--procs",
+                        "2", "--proc-id", str(i), "--device", "cuda"]
+                 for i in range(2)], "resolve-windows, two processes")
+            break
+        except AssertionError as e:
+            if attempt == 2 or "address already in use" not in str(e).lower():
+                raise
+            print(f"port {port} was taken meanwhile: once more")
+    s_dist = time.perf_counter() - t0
+    if not all("-> " in out for out in outs):
+        raise AssertionError("a process resolved no window")
+    subs = sorted(n for n in os.listdir(dirs["single"])
+                  if "SubdivisionOf_" in n)
+    if len(subs) != 18:
+        raise AssertionError(f"{len(subs)} subdivision files, not 6 x 3")
+    for n in subs:
+        with open(os.path.join(dirs["single"], n), "rb") as f:
+            ref = f.read()
+        for other in (dirs["dist"], pdir):
+            with open(os.path.join(other, n), "rb") as f:
+                if f.read() != ref:
+                    raise AssertionError(f"{n}: {other} != single process")
+    print(f"{len(subs)} subdivision files byte-identical: one process "
+          f"({s_single:.1f} s), two processes over gloo ({s_dist:.1f} s), "
+          f"the pipeline's (phase 6), on {card}")
+    t0 = time.perf_counter()
+    out, = run_processes([[sys.executable, "-m",
+                           "repeatresolver_tpu_torch.graft_entry",
+                           "--ranks", "2"]], "graft_entry")
+    for line in out.splitlines():
+        if " ok" in line:
+            print(f"  {line}")
+    if "entry ok" not in out or "dryrun_multichip(2) ok" not in out:
+        raise AssertionError(f"graft_entry: {out[-2000:]}")
+    print(f"graft_entry on the card: {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -810,7 +1309,7 @@ def main() -> int:
         cb.backtrack_moves.launches = 0
         prt.BatchedRealigner.host_sweeps = 0
         prt.BatchedRealigner.host_sweep_s = 0.0
-        prd.DeviceResidentRealigner.exact_blocks_run = 0
+        reset_exact_blocks()
         prd.DeviceResidentRealigner.resident_sweep_s = 0.0
         # record the fill inputs of the first block step at each slack
         # (clones: the resident MSA is rewritten in place) for phase 5;
@@ -848,8 +1347,8 @@ def main() -> int:
         print(f"realign: {len(scores)} OverallScore lines, best "
               f"{min(scores)}, {rounds} rounds, wall {wall:.2f} s, "
               f"{cells / wall:.4g} cells/s on {card}")
-        print(f"launches {launches}, exact-fallback blocks "
-              f"{prd.DeviceResidentRealigner.exact_blocks_run}, host "
+        print(f"launches {launches}, exact-fallback blocks (host library, "
+              f"torch exact band) {exact_blocks()}, host "
               f"anneal-tail rounds {prt.BatchedRealigner.host_sweeps}")
         res_s = prd.DeviceResidentRealigner.resident_sweep_s
         host_s = prt.BatchedRealigner.host_sweep_s
@@ -892,13 +1391,26 @@ def main() -> int:
         paper_scan_phase(card, dev)
 
     with phase("8 main path: realign at paper width"):
-        paper_launches = paper_realign_phase(card, dev, errs)
+        paper_launches, paper_msa, paper_lines, paper_block = \
+            paper_realign_phase(card, dev, errs)
+
+    with phase("9 exact band on the card"):
+        exact_band_phase(card, dev, paper_block, msa_path)
+
+    with phase("10 mesh path: two ranks sharing the card over gloo"):
+        mesh_launches = mesh_phase(card, dev, paper_msa, paper_lines,
+                                    errs)
+
+    with phase("11 resolve-windows on two processes; graft entry"):
+        resolve_windows_phase(card)
 
     # `launches` is phase 4's count, as in every earlier report; the
-    # counts of all three main paths stand in `launches_by_path`
+    # counts of all four main paths stand in `launches_by_path` (the
+    # mesh path's is one rank's: both ranks launch the same number)
     by_path = {name: {"realign_tpu_converge": launches[name],
                       "pipeline_615": pipe_launches[name],
-                      "realign_paper_width": paper_launches[name]}
+                      "realign_paper_width": paper_launches[name],
+                      "realign_mesh_2_ranks_per_rank": mesh_launches[name]}
                for name in KERNELS}
     report = [dict(name=name, route="cuda", **KERNELS[name],
                    launches=by_path[name]["realign_tpu_converge"],

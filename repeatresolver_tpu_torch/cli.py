@@ -7,6 +7,7 @@
     python -m repeatresolver_tpu_torch.cli maxcorr  <MSAreal> [-c 30 -p 1]
     python -m repeatresolver_tpu_torch.cli window   <MSAreal> [-c 0.90 -p 6]
     python -m repeatresolver_tpu_torch.cli resolve  <MSAreal> -f von bis [-c 30] [--device cuda|cpu]
+    python -m repeatresolver_tpu_torch.cli resolve-windows <MSAreal> [-c 30 -w 0.90 -p 6] [--coordinator host:port --procs N --proc-id I] [--device cuda|cpu]
     python -m repeatresolver_tpu_torch.cli assess   <dataset_dir> <resolution_dir>
     python -m repeatresolver_tpu_torch.cli assess-transposon <KmeansSubdivisionOf_...>
     python -m repeatresolver_tpu_torch.cli pipeline [-c 40 -n 100 ...] -w workdir [--device cuda|cpu]
@@ -16,7 +17,10 @@ CLI. `--device` names where a stage's device route runs: "cuda" (the
 default; raises when torch sees no GPU) or "cpu". cut and align on
 "cuda" run the edit DP on the card, on "cpu" the native host kernels;
 realign on "cpu" runs the kernels' plain torch versions; resolve sends
-its exact products above the devmm gate to the device. maxcorr runs on
+its exact products above the devmm gate to the device, and so does
+resolve-windows, which resolves every window of an MSA, or this
+process's round-robin share of them when --coordinator joins it to a
+torch.distributed process group (gloo over TCP). maxcorr runs on
 the host, as the JAX CLI's does; the pipeline routes it to the device
 scan on "cuda" for large MSAs.
 """
@@ -88,6 +92,19 @@ def main(argv=None):
                    metavar=("VON", "BIS"))
     s.add_argument("-c", type=int, default=30)
     s.add_argument("-t", type=float, default=0.0)
+    _device_arg(s, "where the exact products above the gate run")
+
+    s = sub.add_parser("resolve-windows")
+    s.add_argument("msa")
+    s.add_argument("-c", type=int, default=30, help="resolver cov")
+    s.add_argument("-w", type=float, default=0.90,
+                   help="window coverage fraction")
+    s.add_argument("-p", type=int, default=6, help="window parts")
+    s.add_argument("--coordinator", default=None,
+                   help="torch.distributed coordinator host:port "
+                        "(multi-process mode)")
+    s.add_argument("--procs", type=int, default=None)
+    s.add_argument("--proc-id", type=int, default=None)
     _device_arg(s, "where the exact products above the gate run")
 
     s = sub.add_parser("assess")
@@ -172,6 +189,7 @@ def main(argv=None):
         for m, u in log:
             print(f"OverallScore: {m}{u:06d}")
         print(f"-> {args.o}")
+        _report_exact_blocks()
 
     elif args.cmd == "maxcorr":
         from .models.maxcorr import run
@@ -192,6 +210,21 @@ def main(argv=None):
             device=args.device)
         for kind in ("Dropoff", "RelDrop", "Kmeans"):
             print(f"-> {rio.subdivision_path(kind, von, bis, args.msa)}")
+
+    elif args.cmd == "resolve-windows":
+        from .parallel import multihost
+        if args.coordinator:
+            pid, n = multihost.initialize(args.coordinator, args.procs,
+                                          args.proc_id)
+        else:
+            pid, n = args.proc_id or 0, args.procs or 1
+        paths = multihost.resolve_windows(
+            args.msa, ResolverConfig(cov=args.c),
+            WindowConfig(coverage=args.w, parts=args.p),
+            process_id=pid, process_count=n, device=args.device)
+        for path in paths:
+            print(f"-> {path}")
+        multihost.shutdown()          # the final barrier
 
     elif args.cmd == "assess":
         from .models.assessment import assess_directory
@@ -216,8 +249,19 @@ def main(argv=None):
             realigner=RealignerConfig(bandwidth=args.b,
                                       block_rows=args.block_rows))
         run_pipeline(cfg, args.workdir, device=args.device)
+        _report_exact_blocks()
 
     return 0
+
+
+def _report_exact_blocks() -> None:
+    """Say on stderr which route the resident engine's exact blocks
+    took, when any ran: the host library or the torch exact band."""
+    from .models.realigner_device import DeviceResidentRealigner as eng
+    if eng.exact_blocks_run or eng.exact_blocks_run_torch:
+        print(f"exact blocks: {eng.exact_blocks_run} through the host "
+              f"library, {eng.exact_blocks_run_torch} through the torch "
+              "exact band", file=sys.stderr)
 
 
 def _device_arg(parser, what: str) -> None:

@@ -83,19 +83,22 @@ class RealignerConfig:
     # Extensions (no reference equivalent):
     block_rows: int = 1        # rows realigned per Jacobi block; 1 == exact
                                # Gauss-Seidel reference trajectory
-    mode: str = "auto"         # auto (staircase on an accelerator, exact on
-                               # the CPU) |
+    mode: str = "auto"         # auto (the staircase; the exact band with
+                               # kernel native) |
                                # "exact" reference band | "staircase"
                                # chunked band (turbo; ops/staircase_realign)
-    kernel: str = "auto"       # auto (the hand-written kernels on an
-                               # accelerator, native on the CPU) |
-                               # xla | pallas (staircase) |
+    kernel: str = "auto"       # auto (the hand-written kernels for the
+                               # staircase; for the exact band torch on
+                               # a GPU, native on the CPU) |
+                               # torch (plain torch ops) | cuda (kernels
+                               # A and B, staircase) |
                                # native (C++ host kernel, exact mode)
     checkpoint_every_round: bool = True  # best-MSA persistence semantics of
                                # PW_ReAligner.c:1741
-    mesh_devices: int = 0      # >1: shard each block's rows over a
-                               # device mesh (parallel/sharded.py);
-                               # trajectory bit-equal to single-device
+    mesh_devices: int = 0      # >1: shard each block's rows over the
+                               # ranks of a process group
+                               # (parallel/sharded.py); trajectory
+                               # bit-equal to single-process
 
 
 @dataclass(frozen=True)

@@ -370,14 +370,20 @@ def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
                             device="cuda") -> np.ndarray:
     """MaxCorrs through the device scan on `device` -> float64 [C*5].
 
-    mesh (the JAX package's seed-tile striping over a device mesh) waits
-    for the port's parallel/ slice."""
-    if mesh is not None:
-        raise NotImplementedError("compute_maxcorrs_device(mesh=...) is "
-                                  "not ported yet")
+    mesh: a parallel/sharded.Mesh. The seed tiles are striped round-robin
+    over its ranks (the reference's pthread seed stripes,
+    MaxCorrelation.c:796), each rank scans its stripe on its own device,
+    and the accumulators merge by an elementwise max (the thread merge,
+    :881-891): every rank returns the whole result, bit-equal to the
+    single scan's (a max is exact)."""
     msa = np.asarray(msa)
-    sc = MaxCorrScan(msa, cfg, tile, resolve_device(device))
-    acc = sc.scan(range(sc.nt))
+    if mesh is None:
+        sc = MaxCorrScan(msa, cfg, tile, resolve_device(device))
+        acc = sc.scan(range(sc.nt))
+    else:
+        sc = MaxCorrScan(msa, cfg, tile, mesh.device)
+        acc = mesh.all_reduce(
+            sc.scan(range(mesh.rank, sc.nt, mesh.size)), "max")
     compute_maxcorrs_device.calls += 1
     return acc[:msa.shape[1] * 5].cpu().numpy().astype(np.float64)
 

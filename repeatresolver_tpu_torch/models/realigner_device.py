@@ -32,6 +32,7 @@ bit-equal to the JAX engine's (tests/test_torch_realigner_device.py).
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -40,24 +41,17 @@ from ..device import resolve_device
 from ..ops import cuda_backtrack as cb
 from ..ops import cuda_realign as cr
 from ..ops import staircase_realign as sr
-from .realigner import (BatchedRealigner, _native, compact_rows,
-                        overall_score_pair, realign_block_native,
-                        validate_counts)
+from ..utils.native import NativeBuildError
+from .realigner import (BatchedRealigner, _bucket, _check_inserts,
+                        _native, band_starts, block_dp, compact_rows,
+                        device_memory_budget, overall_score_pair,
+                        realign_block_native, validate_counts)
 
 # insert slots fetched per row and block (a row inserts ~0-5 columns per
 # sweep; a row overflowing it reroutes its block, see _drain)
 MAX_INSERTS_FETCH = 512
 # the slack every block starts at, before its drift is measured
 DEFAULT_WIDEN = 12
-
-
-def _bucket(x: int) -> int:
-    """Row-length bucket of a block: powers of two from 256 with a 3/4
-    rung in between (the JAX engine's buckets)."""
-    v = 256
-    while v < x:
-        v *= 2
-    return v * 3 // 4 if v > 256 and v * 3 // 4 >= x else v
 
 
 def _hist(rows: torch.Tensor) -> torch.Tensor:
@@ -134,9 +128,12 @@ class DeviceResidentRealigner(BatchedRealigner):
     # part of the trajectory, since the two engines splice and drop
     # columns at different points of a sweep)
     RESIDENT_MIN_BS = 32
-    # blocks realigned through the exact host fallback, and seconds in
-    # resident sweeps (to their last device sync), for reports
+    # blocks realigned through the exact band, by route (the native host
+    # engine; the torch exact band on the engine's device, taken when
+    # the host library cannot be built), and seconds in resident sweeps
+    # (to their last device sync), for reports
     exact_blocks_run = 0
+    exact_blocks_run_torch = 0
     resident_sweep_s = 0.0
 
     def __init__(self, msa: np.ndarray, bandwidth: int = 1000,
@@ -152,6 +149,7 @@ class DeviceResidentRealigner(BatchedRealigner):
         self._widen = DEFAULT_WIDEN
         self._maxf = MAX_INSERTS_FETCH
         self._overflow_events = 0         # insert-fetch overflows seen
+        self._warned_no_library = False   # exact blocks without the library
         self._block_widen = None          # per-block adaptive slack
         self._widen_src_bs = None         # block size it is laid out for
         self._widen_state = widen_state   # (src_bs, widen[], exact[])
@@ -269,6 +267,10 @@ class DeviceResidentRealigner(BatchedRealigner):
             return self.msa.copy()
         return self._fetch_msa_host()
 
+    def width(self) -> int:
+        return self._ncols if self._msa_d is not None \
+            else self.msa.shape[1]
+
     def validate(self):
         if self._msa_d is None:
             validate_counts(self.msa, self.counts)
@@ -286,7 +288,8 @@ class DeviceResidentRealigner(BatchedRealigner):
 
     def _host_engine(self, msa, block_rows):
         return BatchedRealigner(msa, bandwidth=self.bandwidth,
-                                block_rows=block_rows)
+                                block_rows=block_rows, mode="exact",
+                                kernel="native")
 
     def respawn(self, msa, block_rows):
         if block_rows >= max(2, self.RESIDENT_MIN_BS):
@@ -414,10 +417,22 @@ class DeviceResidentRealigner(BatchedRealigner):
     def _exact_block(self, rows, pending) -> None:
         """Exact-band realignment of a block whose drift exceeds any
         staircase slack (short fragments spread over wide spans), or
-        whose insert list overflowed: through the native host engine,
-        the math the host path uses, then written back in place."""
-        nat = _native()
-        DeviceResidentRealigner.exact_blocks_run += 1
+        whose insert list overflowed, written back in place. Through
+        the native host engine, the math the host path uses; when the
+        host library cannot be built, through the torch exact band on
+        the engine's device (same math, both are the reference
+        recurrence). The two routes are counted apart, and the first
+        block that takes the torch route warns."""
+        try:
+            nat = _native()
+        except NativeBuildError as e:
+            nat = None
+            if not self._warned_no_library:
+                self._warned_no_library = True
+                warnings.warn(
+                    "exact blocks run through the torch exact band (far "
+                    f"slower than the host library): {e}", RuntimeWarning,
+                    stacklevel=2)
         c = self._ncols
         rows_d = torch.from_numpy(np.asarray(rows, np.int64)).to(
             self.device)
@@ -425,8 +440,14 @@ class DeviceResidentRealigner(BatchedRealigner):
         rows_host = np.ascontiguousarray(rows_old_d[:, :c].cpu().numpy())
         counts = self._counts_d[:c].cpu().numpy()
         seqs, ways, lengths = compact_rows(rows_host)
-        new_rows, _best, iy, ib, inn = realign_block_native(
-            nat, counts, rows_host, seqs, ways, lengths, self.bandwidth)
+        if nat is not None:
+            DeviceResidentRealigner.exact_blocks_run += 1
+            new_rows, _best, iy, ib, inn = realign_block_native(
+                nat, counts, rows_host, seqs, ways, lengths, self.bandwidth)
+        else:
+            DeviceResidentRealigner.exact_blocks_run_torch += 1
+            new_rows, iy, ib, inn = self._exact_block_torch(
+                counts, rows_host, seqs, ways, lengths)
         nr = torch.full((len(rows), self._cpad), 5, dtype=torch.int8,
                         device=self.device)
         nr[:, :c] = torch.from_numpy(new_rows).to(self.device)
@@ -434,6 +455,32 @@ class DeviceResidentRealigner(BatchedRealigner):
         for b, k in enumerate(rows):
             for o in range(int(inn[b])):
                 pending.append((int(iy[b, o]), int(k), o, int(ib[b, o])))
+
+    def _exact_block_torch(self, counts, rows_host, seqs, ways, lengths):
+        """The torch exact band (ops/banded_realign) on the engine's
+        device, in sub-blocks whose unpacked [B, L, W] codes stay inside
+        the memory budget; its insert capacity is MAX_INSERTS a row."""
+        bs, c = rows_host.shape
+        dev = self.device
+        sub = max(1, min(bs, int(device_memory_budget(dev) // max(
+            1, 2 * seqs.shape[1] * self.bandwidth))))
+        counts_d = torch.from_numpy(counts).to(dev)
+        outs = []
+        for s0 in range(0, bs, sub):
+            sl = slice(s0, s0 + sub)
+            anf_full, entry_bound = band_starts(
+                ways[sl], lengths[sl], self.bandwidth, self.chunk, False)
+            new_rows, _best, iy, ib, inn = block_dp(
+                counts_d, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                            for a in (rows_host[sl], seqs[sl], ways[sl],
+                                      lengths[sl], anf_full, entry_bound)),
+                c, bandwidth=self.bandwidth, chunk=self.chunk, widen=1,
+                staircase=False, kernel="torch")
+            outs.append([t.cpu().numpy() for t in (new_rows, iy, ib, inn)])
+        new_rows, iy, ib, inn = (np.concatenate([o[i] for o in outs])
+                                 for i in range(4))
+        _check_inserts(inn)
+        return new_rows, iy, ib, inn
 
     def _flush_device(self, pending, drop_empty: bool) -> None:
         """Sweep-end (or cap-triggered) splice plus optional empty-column

@@ -6,8 +6,9 @@ relative_vars, _grmatch_matrix, kmeans, kmeans_subdivision,
 resolve_window, run) are ported here and route those products through
 the port's ops/devmm on the caller's `device`; every other piece of
 the clustering (window extraction, the DropOff / RelativeDropoff
-subdivisions, the clique bookkeeping) is copied from that module, same
-arithmetic.
+subdivisions, the clique bookkeeping, the scalar significance and the
+greedy clique, the cutoff helpers the product path leaves unused, the
+flank-connection chain) is copied from that module, same arithmetic.
 """
 from __future__ import annotations
 
@@ -77,6 +78,72 @@ class GroupData:
                    coverage.sum(axis=1).astype(np.int64))
 
 
+def group_positive_significance(g1: np.ndarray, g2: np.ndarray,
+                                cov1: np.ndarray,
+                                cov2: np.ndarray) -> float:
+    """Group_PositiveSignificance (RepeatResolver.c:472-488), scalar."""
+    schnitt = int(np.dot(g1, g2))
+    cov = int(np.dot(cov1, cov2))
+    gr1 = int(np.dot(g1, cov2))
+    gr2 = int(np.dot(g2, cov1))
+    if gr1 == 0 or gr2 == 0:
+        return 0.0
+    z = float(hg.positive_cum_hyp_geo_log(
+        np.array([schnitt]), np.array([gr1]), np.array([gr2]),
+        np.array([cov]))[0])
+    if np.isinf(z) or z > 98.0:
+        z = 97.90 + float(hg.f_beta(schnitt, g1.sum(), g2.sum()))
+    return z
+
+
+def cliquer(gd: GroupData, mincov: int, maxclique: int, greedy: float,
+            seed: int) -> list[int]:
+    """Greedy clique on the seed group (RepeatResolver.c:1179-1240)."""
+    g_seed = gd.groups[seed].astype(np.float64)
+    cov_seed = gd.coverage[seed // 5].astype(np.float64)
+    gf = gd.groups.astype(np.float64)
+    covf = gd.coverage.astype(np.float64)
+    schnitt = gf @ g_seed                       # [w*5]
+    gr1 = gf @ cov_seed                         # [w*5]
+    gr2 = covf @ g_seed                         # [w]  (per column)
+    cov = covf @ cov_seed                       # [w]
+    cand = np.nonzero((schnitt > mincov // 4)
+                      & (np.arange(len(schnitt)) != seed))[0]
+    if cand.size == 0:
+        return [seed] + [-1]
+    s_ = schnitt[cand].astype(np.int64)
+    g1 = gr1[cand].astype(np.int64)
+    g2 = gr2[cand // 5].astype(np.int64)
+    cv = cov[cand // 5].astype(np.int64)
+    z = hg.positive_significance(
+        s_, g1, g2, cv, gd.sizes[cand],
+        np.full(cand.shape, gd.sizes[seed]), cap_base=97.90)
+
+    # TheBestUpdater simulation over candidates in index order.
+    best_scores = [0.0] * maxclique
+    clique = [seed] + [0] * (maxclique - 1)
+    for idx, zz in zip(cand, z):
+        if zz <= greedy:
+            continue
+        if best_scores[maxclique - 1] >= zz:
+            continue
+        ii = maxclique - 1
+        while best_scores[ii] < zz and ii > 0:
+            ii -= 1
+        ii += 1
+        best_scores[ii + 1:maxclique] = best_scores[ii:maxclique - 1]
+        clique[ii + 1:maxclique] = clique[ii:maxclique - 1]
+        best_scores[ii] = zz
+        clique[ii] = int(idx)
+    best_scores[0] = 100.0
+    clique = clique + [-1]
+    j = maxclique - 1
+    while best_scores[j] < greedy or clique[j] == clique[j - 1]:
+        clique[j] = -1
+        j -= 1
+    return clique
+
+
 def clique_len(clique: list[int]) -> int:
     """CliqueGroup's length scan: first negative entry (:982-989)."""
     for jj, v in enumerate(clique):
@@ -127,6 +194,62 @@ def clique_coverage(gd: GroupData, clique: list[int],
     cols = np.array(clique[:upto], np.int64) // 5
     m = gd.coverage[cols].sum(axis=0)
     return m > c
+
+
+def core_cutoff(gr: int) -> int:
+    """Core_Cutoff (:1589-1597); unused by the product path."""
+    if gr < 100:
+        p = 0.77
+    elif gr < 1000:
+        p = 0.83
+    elif gr < 2000:
+        p = 0.90
+    else:
+        p = 0.93
+    return int(p * gr)
+
+
+def core_group(gd: GroupData, clique: list[int], c: int) -> np.ndarray:
+    """CoreGroup (:1011-1062): adaptive cutoff = first membership level
+    whose group size drops to <= c; unused by the product path."""
+    upto = clique_len(clique)
+    m = membership_counts(gd, clique, upto)
+    histo = np.array([(m > t).sum() for t in range(max(upto, 1))],
+                     np.int64)
+    i = 0
+    while i < len(histo) and histo[i] > c:
+        i += 1
+    return m > i
+
+
+def best_cutoff(n: int, nn: int, v: int, p: float, pp: float) -> int:
+    """BestCutoff (:530-548); result unused by the product path."""
+    bestc, bestscore = 0, 0.0
+    for c in range(v):
+        score = hg.binom_q(c, p, v) * n
+        score /= max(hg.binom_q(c, pp, v) * nn, 1.0)
+        if score > bestscore:
+            bestscore = score
+            bestc = c
+    return bestc
+
+
+def korrmax_cutoff(gd: GroupData, clique: list[int], s_trunc: int,
+                   c: int, seed: int) -> int:
+    """KorrMaxCutoff (:1393-1457); result unused by the product path.
+    Note BOTH coverage arguments are the seed column's (:1422)."""
+    m = membership_counts(gd, clique, s_trunc)
+    maxps, max_i = 0.0, 0
+    cov_seed = gd.coverage[seed // 5].astype(np.float64)
+    for t in range(c, s_trunc):
+        cg = (m > t).astype(np.float64)
+        possig = group_positive_significance(
+            cg, gd.groups[clique[0]].astype(np.float64),
+            cov_seed, cov_seed)
+        if possig > maxps:
+            maxps = possig
+            max_i = t
+    return max_i
 
 
 def dropoff_cutoff(sizes: np.ndarray, signumber: int,
@@ -228,6 +351,21 @@ def dropoff_subdivision(ref: Refinement, cutoff: float,
             number = number2
             number = komprimierung(u)
     return u
+
+
+def relative_dropoff_cutoff(gd: GroupData, clique: list[int],
+                            s_trunc: int, u: np.ndarray,
+                            k: int, signumber: int,
+                            c: int = 0,
+                            m: np.ndarray | None = None) -> tuple[int,
+                                                                  float]:
+    """Relative_Dropoff_Cutoff (:2859-2920): cutoff groups restricted
+    to cluster k's rows. m: precomputed membership_counts (it depends
+    only on the clique, so callers looping over clusters hoist it)."""
+    if m is None:
+        m = membership_counts(gd, clique, s_trunc)
+    sizes = _cutoff_sizes(m, s_trunc, u == k)
+    return dropoff_cutoff(sizes, signumber, c)
 
 
 def relative_dropoff_subdivision(gd: GroupData, ref: Refinement,
@@ -521,6 +659,38 @@ def kmeans_subdivision(gd: GroupData, ref: Refinement, u: np.ndarray,
                                   mingroup, device)
             kmeans(gd, u, k, vars_, mingroup, device=device)
     komprimierung(u)
+
+
+# -------------------------------------------------- flank connection
+
+
+def probability_chain(subdivisions: list[np.ndarray]) -> np.ndarray:
+    """Multi_Verbindungen (:2029-2165): chained row-normalized
+    transition matrices over a list of clusterings (-1 = missing)."""
+    us = [np.asarray(s, np.int64).copy() for s in subdivisions]
+    maxes = [komprimierung(x) for x in us]
+    mats = []
+    for j in range(len(us) - 1):
+        a, b = us[j], us[j + 1]
+        m = np.zeros((maxes[j], maxes[j + 1]))
+        ok = (a > -1) & (b > -1)
+        np.add.at(m, (a[ok], b[ok]), 1.0)
+        card = m.sum(axis=1, keepdims=True)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            m = np.where(card > 0.5, m / np.maximum(card, 1e-300), 0.0)
+        mats.append(m)
+    out = mats[0]
+    for m in mats[1:]:
+        out = out @ m
+    return out
+
+
+def back_and_forth(subdivisions: list[np.ndarray]) -> np.ndarray:
+    """Back_And_Forth (:2170-2226): forward chain x transpose of the
+    backward chain, elementwise."""
+    fwd = probability_chain(subdivisions)
+    bwd = probability_chain(subdivisions[::-1])
+    return fwd * bwd.T
 
 
 def resolve_window(msa: np.ndarray, maxcorrs_full: np.ndarray,

@@ -65,11 +65,23 @@ def run_pipeline(cfg: PipelineConfig, workdir: str, progress=print,
                  device="cuda") -> PipelineResult:
     """profile_dir: when set, a torch.profiler trace of the realign
     phase is written there as realign_trace.json (Chrome trace
-    format)."""
-    if cfg.realigner.mesh_devices > 1:
-        raise NotImplementedError("realigner.mesh_devices > 1 is not "
-                                  "ported yet")
+    format).
+
+    cfg.realigner.mesh_devices > 1 (with block_rows > 1) shards the
+    realign blocks over the process group this process has joined
+    (parallel/sharded.make_mesh, which raises unless the group has that
+    many ranks). Every rank runs the whole pipeline: rank 0 in workdir,
+    rank r in workdir/rank<r>; on a mesh the realign stage writes its
+    files on rank 0 only."""
     dev = resolve_device(device)
+    mesh = None
+    if cfg.realigner.block_rows > 1 and cfg.realigner.mesh_devices > 1:
+        from .parallel import sharded
+        mesh = sharded.make_mesh(cfg.realigner.mesh_devices, device=dev)
+        if mesh.rank:
+            # every rank runs the (deterministic) stages on files of its
+            # own; rank 0's are the run's result
+            workdir = os.path.join(workdir, f"rank{mesh.rank}")
     tune_allocator()
     os.makedirs(workdir, exist_ok=True)
     ds = simulator.simulate(cfg.simulator)
@@ -107,7 +119,11 @@ def run_pipeline(cfg: PipelineConfig, workdir: str, progress=print,
         best = realigner.realign_batched(
             msa, cfg.realigner, out_path=msareal_path, score_log=log,
             checkpoint_path=os.path.join(workdir, name + "_realign.ckpt"),
-            stats=rstats, device=dev)
+            stats=rstats, mode=cfg.realigner.mode,
+            kernel=cfg.realigner.kernel, mesh=mesh,
+            device=dev)
+    if mesh is not None and mesh.rank:
+        rio.write_msa(msareal_path, best, upper=True)
     paths["msareal"] = msareal_path
     progress(f"[realign] {len(log) - 1} rounds, score "
              f"{log[0]} -> {log[-1]}, width {best.shape[1]}"

@@ -33,6 +33,11 @@ _lib = None
 _lock = threading.Lock()
 
 
+class NativeBuildError(RuntimeError):
+    """The host library is not there and could not be built (no compiler,
+    or the compiler failed on the source)."""
+
+
 def _build() -> str:
     """Path of the compiled library, built first if it is not there."""
     with open(SOURCE, "rb") as f:
@@ -46,11 +51,11 @@ def _build() -> str:
             res = subprocess.run([CXX, *CXX_FLAGS, "-o", tmp, SOURCE],
                                  capture_output=True, text=True)
         except OSError as e:
-            raise RuntimeError(f"native host library: cannot run {CXX} "
-                               f"({e})") from e
+            raise NativeBuildError(f"native host library: cannot run "
+                                   f"{CXX} ({e})") from e
         if res.returncode != 0:
-            raise RuntimeError(f"native host library: {CXX} failed on "
-                               f"{SOURCE}:\n{res.stdout}\n{res.stderr}")
+            raise NativeBuildError(f"native host library: {CXX} failed on "
+                                   f"{SOURCE}:\n{res.stdout}\n{res.stderr}")
         os.replace(tmp, so)
     return so
 

@@ -1,6 +1,7 @@
 """The port's device routes on the GPU against the same code on the CPU.
 
-The edit DP (ops/editdp), the exact int8 products (ops/devmm), the
+The exact band (ops/banded_realign), the edit DP (ops/editdp), the exact
+int8 products (ops/devmm), the
 float32 significance (ops/hypergeom_device), the MaxCorrs device scan
 and the resolver's device products run on CUDA tensors and on CPU
 tensors, which tests/test_torch_{editdp,devmm,hypergeom,maxcorr,
@@ -32,6 +33,39 @@ def _both(fn, dev, *arrays):
     """fn on CPU tensors and on CUDA tensors of the same numpy arrays."""
     cpu = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
     return fn(*cpu), fn(*[t.to(dev) for t in cpu])
+
+
+def test_exact_band_cuda_equals_cpu(dev):
+    """banded_fill + entry_and_backtrack on CUDA tensors == on CPU
+    tensors (which tests/test_torch_banded.py holds to the JAX
+    package): codes, final band, rows, best and insert lists."""
+    from repeatresolver_tpu_torch.ops import banded_realign as br
+    rng = np.random.default_rng(8)
+    b, c, l, w = 6, 700, 300, 48
+    msa = rng.integers(0, 6, (b * 3, c)).astype(np.int8)
+    counts = np.stack([(msa == s).sum(axis=0) for s in range(6)],
+                      axis=1).astype(np.int32)
+    seqs = rng.integers(0, 4, (b, l)).astype(np.int8)
+    steps = rng.choice([0, 1, 1, 2, 7], (b, l)).astype(np.int32)
+    ways = np.minimum(np.cumsum(steps, axis=1), c - 1).astype(np.int32)
+    lengths = rng.integers(l // 2, l + 1, b).astype(np.int32)
+    lengths[1] = 0
+    for i in range(b):
+        ways[i, lengths[i]:] = ways[i, max(lengths[i] - 1, 0)]
+    anf = np.maximum(0, ways - w // 2).astype(np.int32)
+    eb = np.maximum(-1, ways[np.arange(b), np.maximum(lengths - 1, 0)]
+                    - w // 2).astype(np.int32)
+
+    def run(counts, rows, seqs, ways, lengths, anf, eb):
+        fill = br.banded_fill(counts, rows, seqs, ways, lengths, c,
+                              bandwidth=w, chunk=128)
+        return (*fill, *br.entry_and_backtrack(
+            *fill, seqs, anf, eb, lengths, c, cpad=c, bandwidth=w))
+
+    cpu, gpu = _both(run, dev, counts, msa[:b], seqs, ways, lengths, anf, eb)
+    for x, y in zip(cpu, gpu, strict=True):
+        assert torch.equal(x, y.cpu())
+    assert int(cpu[-1].sum()) > 0         # some inserts
 
 
 def test_editdp_cuda_equals_cpu(dev):

@@ -66,6 +66,16 @@ def test_seed_tile_stripes_with_padding(planted_msa, jax_device_scan):  # noqa: 
 
 
 def test_mesh_not_ported(planted_msa):  # noqa: F811
-    with pytest.raises(NotImplementedError):
-        pmc.compute_maxcorrs_device(planted_msa[2], MaxCorrConfig(),
-                                    mesh=object(), device="cpu")
+    """mesh= was refused until parallel/ was ported; now a mesh of one
+    rank scans every tile itself and gives the single scan, and a mesh
+    of more ranks than this process has joined is refused by make_mesh
+    (two ranks: tests/test_torch_sharded.py)."""
+    from repeatresolver_tpu_torch.parallel import sharded
+    _, _, msa = planted_msa
+    cfg = MaxCorrConfig(mincov=20)
+    mesh = sharded.make_mesh(1, device="cpu")
+    np.testing.assert_array_equal(
+        pmc.compute_maxcorrs_device(msa, cfg, tile=64, mesh=mesh),
+        pmc.compute_maxcorrs_device(msa, cfg, tile=64, device="cpu"))
+    with pytest.raises(ValueError, match="need 2 ranks"):
+        sharded.make_mesh(2, device="cpu")

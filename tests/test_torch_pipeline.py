@@ -93,9 +93,11 @@ def test_realign_stats_match_jax():
 def test_device_is_explicit(monkeypatch, tmp_path):
     from repeatresolver_tpu_torch import cli as pcli
     from repeatresolver_tpu_torch.pipeline import run_pipeline
-    with pytest.raises(NotImplementedError):
+    # a mesh of two ranks needs two processes in one process group
+    with pytest.raises(ValueError, match="need 2 ranks"):
         run_pipeline(_cfg(mesh_devices=2), str(tmp_path / "m"),
                      device="cpu")
+    assert not os.path.exists(tmp_path / "m")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         pcli.main(["pipeline", "-c", "4", "-n", "2", "-l", "1500",

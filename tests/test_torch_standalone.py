@@ -8,7 +8,9 @@ Independence:
   * no source file of the port, and not chip_smoke.py, names the JAX
     package in an import;
   * the run leaves native/libhostops.so as it was (same mtime, same
-    bytes): the port builds its own host library under build/host/.
+    bytes): the port builds its own host library under build/host/;
+  * every subcommand the two CLIs share takes the same flags with the
+    same defaults, apart from the port's --device.
 
 Copies: the port keeps its own copy of the JAX package's jax-free host
 modules. Each copy gets the same numpy inputs from a seed as its
@@ -48,8 +50,11 @@ sys.path.insert(0, {REPO!r})
 import torch
 torch.set_num_threads(1)
 import repeatresolver_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                              pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+print("PORT-MODULES", " ".join(sorted(mods)))
 from repeatresolver_tpu_torch import cli
 cli.main(["pipeline", "-c", "8", "-n", "4", "-l", "2000", "-b", "200",
           "-w", {str(work / "run")!r}, "--device", "cpu"])
@@ -73,6 +78,11 @@ def test_fresh_interpreter_loads_no_jax_and_no_jax_package(standalone_run):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "[assess multi]" in res.stdout
     assert "FOREIGN-MODULES []" in res.stdout, res.stdout[-500:]
+    mods = next(ln for ln in res.stdout.splitlines()
+                if ln.startswith("PORT-MODULES")).split()[1:]
+    for name in ("parallel.sharded", "parallel.multihost", "graft_entry",
+                 "ops.myers", "ops.banded_realign"):
+        assert "repeatresolver_tpu_torch." + name in mods, name
 
 
 def test_no_source_file_imports_the_jax_package():
@@ -423,6 +433,103 @@ def _case_resolver_host(tmp_path, run_dir):
                                   jres.komplettierung(b, wj.ausgelassen))
 
 
+def _case_resolver_leftovers(tmp_path, run_dir):
+    """The nine functions the product path leaves aside."""
+    from repeatresolver_tpu.models import resolver as jres
+    from repeatresolver_tpu_torch.models import resolver as pres
+    msa = _small_msa(10, rows=32, cols=400)
+    wj, wp = jres.extract_window(msa, 50, 349), pres.extract_window(
+        msa, 50, 349)
+    gj, gp = jres.GroupData.from_window(wj), pres.GroupData.from_window(wp)
+    rng = np.random.default_rng(14)
+    n = gj.groups.shape[1]
+    for _ in range(4):
+        vecs = [(rng.random(n) < q).astype(np.float64)
+                for q in (0.4, 0.5, 0.9, 0.9)]
+        assert pres.group_positive_significance(*vecs) == \
+            jres.group_positive_significance(*vecs)
+    zero = np.zeros(n)
+    assert pres.group_positive_significance(zero, vecs[1], zero, zero) == 0.0
+    # seeds: the groups of about half the rows (the planted SNPs)
+    seeds = [int(i) for i in np.nonzero((gj.sizes > 8)
+                                        & (gj.sizes < 24))[0][:6]]
+    cliques = []
+    for seed in seeds:
+        cj = jres.cliquer(gj, 8, 7, 1.5, seed)
+        assert pres.cliquer(gp, 8, 7, 1.5, seed) == cj
+        cliques.append(cj)
+    assert any(jres.clique_len(c) > 1 for c in cliques)
+    for gr in (5, 99, 100, 999, 1000, 1999, 2000, 31337):
+        assert pres.core_cutoff(gr) == jres.core_cutoff(gr)
+    u = rng.integers(0, 3, n)
+    for seed, cl in zip(seeds, cliques):
+        upto = jres.sizes_trunc(cl)
+        for c in (0, 1, 5, 20):
+            np.testing.assert_array_equal(pres.core_group(gp, cl, c),
+                                          jres.core_group(gj, cl, c))
+        assert pres.korrmax_cutoff(gp, cl, upto, 0, seed) == \
+            jres.korrmax_cutoff(gj, cl, upto, 0, seed)
+        for k in range(3):
+            assert pres.relative_dropoff_cutoff(gp, cl, upto, u, k, n) == \
+                jres.relative_dropoff_cutoff(gj, cl, upto, u, k, n)
+    for args in ((40, 60, 6, 0.8, 0.3), (10, 10, 4, 0.5, 0.5)):
+        assert pres.best_cutoff(*args) == jres.best_cutoff(*args)
+    subs = [rng.integers(-1, 4, 50) for _ in range(4)]
+    np.testing.assert_array_equal(pres.probability_chain(subs),
+                                  jres.probability_chain(subs))
+    bf = pres.back_and_forth(subs)
+    np.testing.assert_array_equal(bf, jres.back_and_forth(subs))
+    assert bf.shape == (4, 4) and bf.max() > 0
+
+
+def _case_myers(tmp_path, run_dir):
+    from repeatresolver_tpu.ops import myers as jm
+    from repeatresolver_tpu_torch.ops import myers as pm
+    rng = np.random.default_rng(3)
+    pattern = rng.integers(0, 4, 40).astype(np.int16)
+    texts = rng.integers(0, 4, (5, 200)).astype(np.int16)
+    texts[2, 60:100] = pattern            # a planted exact occurrence
+    texts[4, 150:] = 100                  # padding past a short text
+    got = pm.last_rows_batch(pattern, texts)
+    np.testing.assert_array_equal(got, jm.last_rows_batch(pattern, texts))
+    assert got[2, 99] == 0
+    for i in (0, 2):
+        np.testing.assert_array_equal(pm.last_row(pattern, texts[i]),
+                                      jm.last_row(pattern, texts[i]))
+        np.testing.assert_array_equal(pm.last_row(pattern, texts[i]), got[i])
+
+
+def _case_realigner_serial(tmp_path, run_dir):
+    """The serial engine's numpy row DP, row by row, and `realign`."""
+    from repeatresolver_tpu.config import RealignerConfig
+    from repeatresolver_tpu.models import realigner as jr
+    from repeatresolver_tpu_torch.models import realigner as pr
+    assert pr.HUGE == jr.HUGE
+    msa = _small_msa(15, rows=10, cols=180)
+    ej, ep = jr.RealignEngine(msa.copy(), 48), pr.RealignEngine(
+        msa.copy(), 48)
+    ej.ent_al_gapper()
+    ep.ent_al_gapper()
+    for k in range(10):
+        assert ep.realign_row(k) == ej.realign_row(k)
+        np.testing.assert_array_equal(ep.msa, ej.msa)
+        np.testing.assert_array_equal(ep.counts, ej.counts)
+        assert pr.row_score(ep.msa, ep.counts, k) == \
+            jr.row_score(ej.msa, ej.counts, k)
+    assert ep.msa.shape[1] != msa.shape[1] or (ep.msa != msa).any()
+    assert ep.overall_pair() == ej.overall_pair()
+    cfg = RealignerConfig(bandwidth=48)
+    lj: list = []
+    lp: list = []
+    oj = jr.realign(msa.copy(), cfg, out_path=str(tmp_path / "j"),
+                    score_log=lj)
+    op = pr.realign(msa.copy(), cfg, out_path=str(tmp_path / "p"),
+                    score_log=lp)
+    assert lp == lj and len(lp) > 2
+    np.testing.assert_array_equal(op, oj)
+    assert (tmp_path / "p").read_bytes() == (tmp_path / "j").read_bytes()
+
+
 def _case_native(tmp_path, run_dir):
     from repeatresolver_tpu.utils import native as jn
     from repeatresolver_tpu_torch.models.realigner import compact_rows
@@ -476,6 +583,10 @@ COPIES = {
     "models/maxcorr (host scans)": _case_maxcorr_host,
     "models/realigner (host helpers)": _case_realigner_host,
     "models/resolver (host functions)": _case_resolver_host,
+    "models/resolver (functions off the product path)":
+        _case_resolver_leftovers,
+    "models/realigner (serial engine)": _case_realigner_serial,
+    "ops/myers": _case_myers,
 }
 
 
@@ -484,3 +595,56 @@ def test_copy_equals_original(module, tmp_path, standalone_run):
     run_dir, res, _, _ = standalone_run
     assert res.returncode == 0, res.stderr[-3000:]
     COPIES[module](tmp_path, run_dir)
+
+
+def _cli_parser(cli_main):
+    """The argparse parser that a CLI's main() builds."""
+    import argparse
+
+    class Caught(Exception):
+        pass
+
+    def grab(self, args=None, namespace=None):
+        raise Caught(self)
+
+    orig = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        cli_main([])
+    except Caught as e:
+        return e.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = orig
+    raise AssertionError("main() parsed no arguments")
+
+
+def _subcommands(parser):
+    """{subcommand: {flag or positional: (default, type, nargs, choices,
+    required)}}"""
+    sub = next(a for a in parser._actions
+               if a.__class__.__name__ == "_SubParsersAction")
+    out = {}
+    for name, sp in sub.choices.items():
+        out[name] = {
+            " ".join(a.option_strings) or a.dest:
+                (a.default, a.type, a.nargs, a.choices and tuple(a.choices),
+                 a.required)
+            for a in sp._actions if a.dest != "help"}
+    return out
+
+
+def test_shared_cli_subcommands_take_the_same_flags_and_defaults():
+    from repeatresolver_tpu import cli as jcli
+    from repeatresolver_tpu_torch import cli as pcli
+    jsub, psub = _subcommands(_cli_parser(jcli.main)), _subcommands(
+        _cli_parser(pcli.main))
+    assert set(psub) == set(jsub) and len(jsub) == 11
+    assert jsub["realign"]["-B --block-rows"][0] == 16
+    for name, flags in jsub.items():
+        port = dict(psub[name])
+        device = port.pop("--device", None)
+        assert port == flags, name
+        if device is not None:
+            assert device == ("cuda", None, None, ("cuda", "cpu"), False)
+    assert sorted(n for n in psub if "--device" in psub[n]) == [
+        "align", "cut", "pipeline", "realign", "resolve", "resolve-windows"]
