@@ -7,17 +7,27 @@ Phases (each raises on failure, or when jax or any module of the JAX
 package repeatresolver_tpu was imported, so any failure exits non-zero):
 
   1. card and build: the card's name, power limit and SM clock, torch /
-     CUDA versions, the nvcc build of both kernels from csrc/ (started
-     together) and the g++ build of the port's host library;
+     CUDA versions, the nvcc build of the four kernels from csrc/ (one
+     nvcc each, started together) and the g++ build of the port's host
+     library;
   2. kernels vs plain versions, small random blocks (gap-dense paths,
      rows of length 0 and 1), on the GPU: bit-equal codes, band, moves
-     and (rows, best, iy, ib, inn);
+     and (rows, best, iy, ib, inn) of kernels A and B; for kernels C and
+     D (the edit DP of cut and align), small batches with rows of length
+     0 and 1 and homopolymer ties: final rows, packed and int8 codes and
+     walks of align batches (shared target, Lq > Lt, two segments),
+     final rows of cut batches (stride-0 queries, 200-padded targets,
+     two and three segments), bit-equal to forward_plain / walk_plain;
   3. the same at the production dispatch shape (64 rows x 32,768 bases,
      band 1000, chunk 128, widen 6, MSA width 139,264), with the times
-     and cells/s of each kernel and of its plain version, each kernel's
-     bound (the larger of bytes over the memory rate and int32
-     operations over the card's integer rate), and kernel A's time at
-     widen 1, 8, 10, 12 and 16 (W2 1,128 to 3,048);
+     (a kernel's: the median of KERNEL_REPS runs after two warm-ups, with
+     the spread) and cells/s of each kernel and of its plain version,
+     each kernel's bound (the larger of bytes over the memory rate and
+     int32 operations over the card's integer rate), and kernel A's
+     time at widen 1, 8, 10, 12 and 16 (W2 1,128 to 3,048); then
+     kernels C and D at pipeline-615's largest align batch (256 pieces x
+     Lq 13,700 x Lt 4,000) and C at cut's shape (64 x 66 x 25,950), the
+     same way;
   4. the main path: the runs/tpu_converge dataset (Tree, c=25, n=8,
      d=1%, l=4000, seed 11) built with the port's host stages, then the
      port's CLI `realign -b 1000 -B 64 --device cuda`. Its OverallScore
@@ -32,13 +42,15 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      4000 -t Tree --seed 11 -b 1000 -B 64 --device cuda` (615 MSA rows,
      so the MaxCorrs device scan's >= 512-row gate routes it to the
      card), with every resolver product sent to the card
-     (RR_DEVICE_MM_MIN=0). The edit DP of cut and align, kernels A and
-     B, the MaxCorrs scan and the resolver products must each have run
-     on the card; cut and align must write the host native route's
-     files byte for byte, MaxCorrs must make the host fast scan's
-     decisions (within its tolerances), and one window's subdivisions
-     must equal, byte for byte, a rerun with every product on the host.
-     Prints each stage's seconds and the assessment;
+     (RR_DEVICE_MM_MIN=0). The edit DP of cut and align (kernels C and
+     D), kernels A and B, the MaxCorrs scan and the resolver products
+     must each have run on the card, and the plain edit-DP loop not at
+     all; cut and align must write the host native route's files byte
+     for byte, MaxCorrs must make the host fast scan's decisions (within
+     its tolerances), and one window's subdivisions must equal, byte for
+     byte, a rerun with every product on the host. Prints each stage's
+     seconds, each kernel's launches and seconds inside it (CUDA events)
+     and the assessment;
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
      of 13,833 rows x 131,072 columns from seed 0, a band of seed tiles
      scanned on the card and by the native host scan, same decisions
@@ -84,7 +96,18 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      over gloo (`--coordinator 127.0.0.1:<port> --procs 2 --proc-id i
      --device cuda`): subdivision files byte-identical to a
      single-process run and to the pipeline's; then `python -m
-     repeatresolver_tpu_torch.graft_entry --ranks 2`.
+     repeatresolver_tpu_torch.graft_entry --ranks 2`;
+ 12. cut and align at the paper's repeat length on the card: phase 8's
+     reads (a copy) through `cli cut --device cuda` and `cli align
+     --device cuda` (kernels C and D; the plain edit-DP loop must not
+     run). Cut's _Seq.fasta and _ReadSeqInfo must equal phase 8's `cli
+     cut --device cpu` byte for byte; every 10th piece by length must
+     have the alignments and error of the host native full DP (band 0),
+     tolerance 0. Prints each stage's seconds, the launches, the seconds
+     inside C and D and the cells/s. Then the inputs recorded from the
+     first cut call (whole) and from the first align call and the one
+     with the most DP rows (three rows each, at the batch's Lq) go
+     through C and D and their plain versions, bit-equal.
 
 Every process a phase starts gets a time limit and is stopped when it
 passes it; a rank that fails or hangs fails the phase, and so does a
@@ -116,7 +139,20 @@ KERNELS = {
     "walk_backtrack": dict(
         source="repeatresolver_tpu_torch/csrc/walk_backtrack.cu",
         replaces="repeatresolver_tpu/ops/pallas_backtrack.py:129"),
+    # kernels C and D replace XLA code (scans and a while loop), not a
+    # Pallas kernel
+    "editdp_fill": dict(
+        source="repeatresolver_tpu_torch/csrc/editdp_fill.cu",
+        replaces="repeatresolver_tpu/ops/editdp.py:69, :107, :135 (XLA)"),
+    "editdp_walk": dict(
+        source="repeatresolver_tpu_torch/csrc/editdp_walk.cu",
+        replaces="repeatresolver_tpu/ops/editdp.py:135 (XLA)"),
 }
+# the path whose launches stand in a kernel's `launches`
+MAIN_PATH = {"staircase_fill": "realign_tpu_converge",
+             "walk_backtrack": "realign_tpu_converge",
+             "editdp_fill": "pipeline_615", "editdp_walk": "pipeline_615"}
+REALIGN_KERNELS = ("staircase_fill", "walk_backtrack")
 
 
 @contextlib.contextmanager
@@ -134,25 +170,45 @@ def phase(name):
     print(f"== {name}: ok ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
-def block_generator():
-    """The CUDA kernel tests' random-block generator (numpy, from a
-    seed: gap-dense paths, rows of length 0 and 1), loaded by path:
-    other installed packages may shadow the top-level name `tests`."""
+def kernel_tests():
+    """The CUDA kernel tests' module, loaded by path (other installed
+    packages may shadow the top-level name `tests`), for its input
+    generators (numpy, from a seed) and its packed-code comparison."""
     import importlib.util
     path = os.path.join(REPO, "tests", "test_torch_cuda_kernels.py")
     spec = importlib.util.spec_from_file_location("_cuda_kernel_tests",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod._inputs
+    return mod
+
+
+def launch_counters():
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    return {"staircase_fill": cr.staircase_fill,
+            "walk_backtrack": cb.backtrack_moves,
+            "editdp_fill": ce.editdp_fill, "editdp_walk": ce.editdp_walk}
+
+
+def reset_launches():
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def launches_now():
+    return {k: fn.launches for k, fn in launch_counters().items()}
 
 
 def compare_block(args, ncols, w, t, widen, cpad, timed=False):
     """Kernels A and B against their plain versions on one block of
     GPU tensors (counts, rows, seqs, ways, lengths), chained as a block
     step chains them; cpad is the width of the rewritten rows. Returns
-    (max abs difference per kernel, times in ms or None: kernel A, its
-    plain version (one run), kernel B, its plain version)."""
+    (max abs difference per kernel, times in ms or None: kernel A (the
+    median of KERNEL_REPS runs), its plain version (one run), kernel B,
+    its plain version)."""
     import torch
 
     from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
@@ -164,29 +220,17 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
     dev = msa.device
     w2 = w + widen * t
 
-    def timed_call(fn, reps):
-        """reps > 1: a warm-up, then the mean of reps launches; reps ==
-        1 (the plain versions, tens of seconds each): the one run."""
-        if not timed:
-            return fn(), None
-        if reps > 1:
-            fn()
-        torch.cuda.synchronize()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        for _ in range(reps):
-            out = fn()
-        ev[1].record()
-        torch.cuda.synchronize()
-        return out, ev[0].elapsed_time(ev[1]) / reps
+    def timed_call(fn, reps, key):
+        return time_launches(fn, reps, key) if timed else (fn(), None)
 
     kw = dict(bandwidth=w, chunk=t, widen=widen)
     (ck, bk, ak), ms_a = timed_call(
         lambda: cr.staircase_fill(counts, msa, seqs, ways, lengths,
-                                  ncols, **kw), 3)
+                                  ncols, **kw),
+        KERNEL_REPS, "staircase_fill")
     (cp, bp, ap), plain_a = timed_call(
         lambda: sr.staircase_fill(counts, msa, seqs, ways, lengths,
-                                  ncols, **kw), 1)
+                                  ncols, **kw), 1, None)
     err_a = max(int((ck.long() - cp.long()).abs().max()),
                 int((bk.long() - bp.long()).abs().max()),
                 int((ak.long() - ap.long()).abs().max()))
@@ -198,9 +242,10 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
                                 bandwidth=w2)
     aint = anf_full[:, ::t].contiguous()
     mk, ms_b = timed_call(
-        lambda: cb.backtrack_moves(ck, wayin, aint, lengths, chunk=t), 3)
+        lambda: cb.backtrack_moves(ck, wayin, aint, lengths, chunk=t),
+        KERNEL_REPS, "walk_backtrack")
     mp, plain_b = timed_call(
-        lambda: cb.walk_plain(ck, wayin, aint, lengths, chunk=t), 1)
+        lambda: cb.walk_plain(ck, wayin, aint, lengths, chunk=t), 1, None)
     err_b = int((mk.long() - mp.long()).abs().max())
     nw = ck.shape[0]
     seqs_p = torch.nn.functional.pad(seqs, (0, nw * 16 - seqs.shape[1]))
@@ -212,6 +257,142 @@ def compare_block(args, ncols, w, t, widen, cpad, timed=False):
         raise AssertionError(f"kernel != plain version: fill max abs "
                              f"err {err_a}, walk max abs err {err_b}")
     return (err_a, err_b), (ms_a, plain_a, ms_b, plain_b)
+
+
+# timed runs of a kernel (the median is its time)
+KERNEL_REPS = 5
+
+
+def time_launches(fn, reps, key=None):
+    """(result, ms). reps > 1 (a kernel): two warm-ups, then the median of
+    reps runs, each between its own pair of CUDA events. The warm-ups
+    leave the caching allocator holding both output buffers that
+    back-to-back calls alternate between, so no cudaMalloc falls among
+    the timed runs; time_launches.spread[key] is (min ms, max ms, device
+    memory segments allocated while timing). reps == 1 (a plain version,
+    seconds): the one run."""
+    import torch
+    if reps > 1:
+        keep = fn()
+        fn()
+        del keep
+    torch.cuda.synchronize()
+    seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(reps)]
+    for e0, e1 in ev:
+        e0.record()
+        out = fn()
+        e1.record()
+    torch.cuda.synchronize()
+    ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+    if reps > 1:
+        time_launches.spread[key] = (
+            ms[0], ms[-1],
+            torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg0)
+    return out, ms[len(ms) // 2]
+
+
+time_launches.spread = {}
+
+
+def spread(key):
+    """A timed kernel's run-to-run spread, for printing."""
+    lo, hi, segs = time_launches.spread[key]
+    return (f"median of {KERNEL_REPS} runs, {lo:.3f}-{hi:.3f} ms, {segs} "
+            f"device memory segments allocated while timing")
+
+
+def one_window_ms(fn, reps):
+    """(ms a run, device memory segments allocated while timing) of one
+    warm-up and then reps runs under a single pair of CUDA events."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    for _ in range(reps):
+        out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    del out
+    return (ev[0].elapsed_time(ev[1]) / reps,
+            torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg0)
+
+
+def sm_mhz_under(fn):
+    """The SM clock in MHz (nvidia-smi clocks.sm), read while fn runs on
+    the card back to back."""
+    import threading
+
+    import torch
+    got = {}
+
+    def query():
+        got["mhz"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()[0]
+    th = threading.Thread(target=query)
+    th.start()
+    while th.is_alive():
+        fn()
+    torch.cuda.synchronize()
+    th.join()
+    return got.get("mhz", "not read")
+
+
+def compare_editdp(q, lens, targets, timed=False):
+    """Kernels C and D against their plain versions (forward_plain,
+    walk_plain) on one batch of GPU tensors: int16 queries [B, Lq], int32
+    qlens, int16 targets [Lt] (shared: align's packed codes and kernel D,
+    as align_on_device runs them) or [B, Lt] (cut's final rows). Returns
+    (max abs difference per kernel or None, times in ms or None: kernel C,
+    its plain version (one run), kernel D, its plain version, and each
+    row's walk steps or None)."""
+    import torch
+
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    from repeatresolver_tpu_torch.ops import editdp as ed
+
+    b, lq = q.shape
+    reps = KERNEL_REPS if timed else 1
+
+    def diff(x, y):
+        return int((x.long() - y.long()).abs().max()) if x.numel() else 0
+    if targets.dim() == 2:                          # cut
+        (fr, _), ms_c = time_launches(
+            lambda: ce.editdp_fill(q, lens, targets), reps, "editdp_fill")
+        fr_p, plain_c = time_launches(
+            lambda: ed.forward_plain(q, lens, targets), 1)
+        err_c = diff(fr, fr_p)
+        if err_c:
+            raise AssertionError(f"kernel C != plain (final rows): {err_c}")
+        return (err_c, None), (ms_c, plain_c, None, None, None)
+    lt = targets.shape[0]
+    (fr, packed), ms_c = time_launches(
+        lambda: ce.editdp_fill(q, lens, targets, codes="packed"), reps,
+        "editdp_fill")
+    codes_p = torch.empty((lq, b, lt), dtype=torch.int8, device=q.device)
+    fr_p, plain_c = time_launches(lambda: ed.forward_plain(
+        q, lens, targets[None, :].expand(b, -1), codes_p), 1)
+    err_c = max(diff(fr, fr_p),
+                kernel_tests().packed_max_diff(packed, codes_p, lens))
+    if not timed:                   # align_with_codes: int8, every row
+        fr8, codes8 = ce.editdp_fill(q, lens, targets, codes="int8")
+        err_c = max(err_c, diff(fr8, fr_p), diff(codes8, codes_p))
+    walked = torch.zeros(b, dtype=torch.int32, device=q.device)
+    al, ms_d = time_launches(
+        lambda: ce.editdp_walk(packed, lens, fr, walked=walked), reps,
+        "editdp_walk")
+    al_p, plain_d = time_launches(
+        lambda: ed.walk_plain(codes_p, lens, fr_p), 1)
+    err_d = diff(al, al_p)
+    if err_c or err_d:
+        raise AssertionError(f"kernel != plain version: fill max abs err "
+                             f"{err_c}, walk max abs err {err_d}")
+    return (err_c, err_d), (ms_c, plain_c, ms_d, plain_d, walked.cpu())
 
 
 def exact_blocks():
@@ -287,8 +468,7 @@ def pipeline_phase(card, dev):
     from repeatresolver_tpu_torch.models import maxcorr as pmc
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.models.window import window_boundaries
-    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
-    from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    from repeatresolver_tpu_torch.ops import _build
     from repeatresolver_tpu_torch.ops import devmm
     from repeatresolver_tpu_torch.ops import editdp
     from repeatresolver_tpu_torch.utils import io as rio
@@ -296,18 +476,19 @@ def pipeline_phase(card, dev):
     pdir = os.path.join(WORK, "pipeline")
     hdir = os.path.join(WORK, "pipeline_host")
     os.makedirs(hdir)
-    counters = [(cr.staircase_fill, "launches"),
-                (cb.backtrack_moves, "launches"),
-                (editdp.last_rows, "calls"), (editdp.align_on_device, "calls"),
-                (pmc.compute_maxcorrs_device, "calls"),
-                (devmm.matmul_t, "device_calls")]
-    for fn, attr in counters:
+    counters = [(fn, "launches") for fn in launch_counters().values()] + [
+        (editdp.last_rows, "calls"), (editdp.align_on_device, "calls"),
+        (pmc.compute_maxcorrs_device, "calls"),
+        (devmm.matmul_t, "device_calls")]
+    plain = (editdp.forward_plain, editdp.walk_plain)
+    for fn, attr in counters + [(fn, "calls") for fn in plain]:
         setattr(fn, attr, 0)
     reset_exact_blocks()
     # every resolver product to the card: at 615 rows no product reaches
     # the JAX package's 3e9-op gate
     os.environ["RR_DEVICE_MM_MIN"] = "0"
     out = TimedLines()
+    _build.kernel_events = {}
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
@@ -316,8 +497,13 @@ def pipeline_phase(card, dev):
         torch.cuda.synchronize()
     finally:
         del os.environ["RR_DEVICE_MM_MIN"]
+        events, _build.kernel_events = _build.kernel_events, None
     fired = {f"{fn.__module__.split('.')[-1]}.{fn.__name__}":
              getattr(fn, attr) for fn, attr in counters}
+    launches = launches_now()
+    plain_runs = [fn.calls for fn in plain]
+    in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
+                 for k, v in events.items()}
     stage_s: dict = {}
     t_prev = t0
     for t, line in out.lines:
@@ -332,8 +518,16 @@ def pipeline_phase(card, dev):
     print("stage seconds (host clock, on " + card + "): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
           + f"; total {t_prev - t0:.2f}")
+    print("seconds inside the kernels (CUDA events around every launch): "
+          + ", ".join(f"{k} {in_kernel.get(k, 0.0):.3f} ({n} launches)"
+                      for k, n in launches.items())
+          + f"; plain edit-DP loop runs (forward_plain, walk_plain) "
+          f"{plain_runs}")
     if min(fired.values()) <= 0:
         raise AssertionError(f"a device route never ran: {fired}")
+    if any(plain_runs):
+        raise AssertionError(f"the plain edit-DP loop ran on the card: "
+                             f"{plain_runs}")
     real_path = os.path.join(pdir, PIPE_NAME + "_MSAreal")
     real = rio.read_msa(real_path)
     print(f"MSAreal {real.shape}")
@@ -426,8 +620,7 @@ def pipeline_phase(card, dev):
     for _, line in out.lines:
         if line.startswith(("[realign]", "[assess")):
             print(f"{line}  ({card})")
-    return {"staircase_fill": fired["cuda_realign.staircase_fill"],
-            "walk_backtrack": fired["cuda_backtrack.backtrack_moves"]}
+    return launches
 
 
 PAPER_ROWS, PAPER_COLS = 13833, 131072
@@ -588,6 +781,56 @@ def kernel_bounds(b, l, c, w, t, widen, lengths, sm_count, sm_hz):
     }
 
 
+# int32 operations that one cell of the edit DP needs (kernel C's
+# formulation): mismatch test, diagonal add, up add, left add, min of
+# diagonal and left, min with up, the left and the up compare, the code
+# select, its shift into the code word
+EDIT_OPS_PER_CELL = 10
+# dependent integer operations of one walk step besides its load (kernel
+# D): word index, shift, and, the code tests, the x and y updates
+EDIT_WALK_OPS = 6
+
+
+def editdp_bounds(b, lq, lt, lens, walked, sm_count, sm_hz):
+    """The least time the card could take for kernels C and D's work on
+    one align batch (packed codes, rows below qlen), in ms, as
+    kernel_bounds gives it. C: cells x EDIT_OPS_PER_CELL over the int32
+    rate against its bytes (symbols in, two bits a code and the final
+    rows out); D: walk steps x EDIT_WALK_OPS against its bytes (the final
+    rows, one code word a step, the alignments out)."""
+    int_rate = sm_count * INT32_LANES_PER_SM * sm_hz
+    n = int(sum(int(x) for x in lens))
+    cells = n * lt
+    bytes_c = 2 * n + 2 * lt + 4 * b + cells / 4 + 4 * b * lt
+    tc_ops, tc_bytes = (EDIT_OPS_PER_CELL * cells / int_rate * 1e3,
+                        bytes_c / HBM_BYTES_PER_S * 1e3)
+    steps = int(sum(int(x) for x in walked))
+    longest = max(int(x) for x in walked)
+    bytes_d = 4 * b * lt + 4 * b + 4 * steps + 4 * b * lq
+    td_ops, td_bytes = (EDIT_WALK_OPS * steps / int_rate * 1e3,
+                        bytes_d / HBM_BYTES_PER_S * 1e3)
+    chain_ms = longest * EDIT_WALK_OPS / sm_hz * 1e3
+    return {
+        "editdp_fill": (
+            max(tc_ops, tc_bytes),
+            "operations" if tc_ops >= tc_bytes else "bytes",
+            f"{cells:.4g} cells x {EDIT_OPS_PER_CELL} int32 operations over "
+            f"{sm_count} SMs x {INT32_LANES_PER_SM} lanes x "
+            f"{sm_hz / 1e6:.0f} MHz = {tc_ops:.3f} ms; {bytes_c / 1e6:.1f} MB"
+            f" (two bits a code) over 3.35 TB/s = {tc_bytes:.3f} ms"),
+        "editdp_walk": (
+            max(td_ops, td_bytes),
+            "operations" if td_ops >= td_bytes else "bytes",
+            f"{steps} walk steps x one 4-byte code word + final rows + "
+            f"alignments = {bytes_d / 1e6:.1f} MB over 3.35 TB/s = "
+            f"{td_bytes:.4f} ms; {steps} steps x {EDIT_WALK_OPS} operations "
+            f"= {td_ops:.5f} ms; serial-chain floor (not the bound): "
+            f"{longest} dependent steps (the longest walk) x "
+            f"{EDIT_WALK_OPS} operations at one a cycle = {chain_ms:.3f} ms"
+            f", each step also waiting for its load"),
+    }
+
+
 PAPER_SIM = ["-c", "12", "-n", "8", "-d", "1", "-l", "30000", "-t", "Tree",
              "--seed", "11"]
 PAPER_NAME = "Tree_1perc_30000kb"
@@ -609,7 +852,6 @@ def paper_realign_phase(card, dev, errs):
     from repeatresolver_tpu_torch.models import realigner as prt
     from repeatresolver_tpu_torch.models import realigner_device as prd
     from repeatresolver_tpu_torch.ops import _build
-    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
     from repeatresolver_tpu_torch.utils import io as rio
 
@@ -641,8 +883,7 @@ def paper_realign_phase(card, dev, errs):
                           max_rounds=PAPER_ROUNDS)
     os.environ["RR_FLUSH_CAP"] = str(1 << 30)
     try:
-        cr.staircase_fill.launches = 0
-        cb.backtrack_moves.launches = 0
+        reset_launches()
         prt.BatchedRealigner.host_sweeps = 0
         reset_exact_blocks()
         prd.DeviceResidentRealigner.resident_sweep_s = 0.0
@@ -664,8 +905,7 @@ def paper_realign_phase(card, dev, errs):
             prd.cr = cr
             events, _build.kernel_events = _build.kernel_events, None
         wall = time.perf_counter() - t0
-        launches = {"staircase_fill": cr.staircase_fill.launches,
-                    "walk_backtrack": cb.backtrack_moves.launches}
+        launches = launches_now()
         in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
                      for k, v in events.items()}
         res_s = prd.DeviceResidentRealigner.resident_sweep_s
@@ -673,7 +913,7 @@ def paper_realign_phase(card, dev, errs):
             raise AssertionError(
                 f"{prt.BatchedRealigner.host_sweeps} rounds left the "
                 "resident engine: the cap must hold the run at block 64")
-        if min(launches.values()) <= 0:
+        if min(launches[k] for k in REALIGN_KERNELS) <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
         sa = in_kernel.get("staircase_fill", 0.0)
         sb = in_kernel.get("walk_backtrack", 0.0)
@@ -728,6 +968,168 @@ def paper_realign_phase(card, dev, errs):
           f"{kw['bandwidth']}, chunk {kw['chunk']}, widen {kw['widen']} "
           f"(W2 {kw['bandwidth'] + kw['widen'] * kw['chunk']})")
     return launches, d["msa"], lines_d, first["block"]
+
+
+SAMPLE_EVERY = 10     # phase 12's host check: every 10th piece by length
+
+
+def paper_cut_align_phase(card, dev, errs):
+    """Phase 12; returns the kernels' launches in the device cut and
+    align. Starts no process."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch import cli
+    from repeatresolver_tpu_torch.config import ReadCutterConfig
+    from repeatresolver_tpu_torch.models import initial_aligner
+    from repeatresolver_tpu_torch.models import read_cutter
+    from repeatresolver_tpu_torch.ops import _build
+    from repeatresolver_tpu_torch.ops import editdp
+    from repeatresolver_tpu_torch.utils import io as rio
+
+    src = os.path.join(WORK, "paper_width")      # phase 8's files
+    work = os.path.join(WORK, "paper_cut_align")
+    os.makedirs(work)
+    for suffix in ("_Template.fasta", ".fasta"):
+        shutil.copy(os.path.join(src, PAPER_NAME + suffix), work)
+    template = os.path.join(work, PAPER_NAME + "_Template.fasta")
+    d = rio.derived_paths(template)
+    reset_launches()
+    plain = (editdp.forward_plain, editdp.walk_plain)
+    for fn in plain + (editdp.last_rows, editdp.align_on_device):
+        fn.calls = 0
+    kept = {}
+    write_outputs = initial_aligner.write_outputs
+
+    def keeping_write(res, *paths):      # the CLI's aligner result
+        kept["res"] = res
+        return write_outputs(res, *paths)
+
+    # the inputs of the first cut call, and of the first align call and
+    # the one with the most DP rows, for the kernels' check below (no
+    # caller writes into them); cut and align reach the edit DP through
+    # these stand-ins for the module
+    def keeping_last_rows(*args):
+        kept.setdefault("cut", args)
+        return editdp.last_rows(*args)
+
+    def keeping_align(*args):
+        kept.setdefault("align_first", args)
+        if "align_longest" not in kept \
+                or args[0].shape[1] > kept["align_longest"][0].shape[1]:
+            kept["align_longest"] = args
+        return editdp.align_on_device(*args)
+
+    initial_aligner.write_outputs = keeping_write
+    read_cutter.editdp = types.SimpleNamespace(
+        **{**vars(editdp), "last_rows": keeping_last_rows})
+    initial_aligner.editdp = types.SimpleNamespace(
+        **{**vars(editdp), "align_on_device": keeping_align})
+    _build.kernel_events = {}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            cli.main(["cut", template,
+                      os.path.join(work, PAPER_NAME + ".fasta"),
+                      "--device", "cuda"])
+            torch.cuda.synchronize()
+            s_cut = time.perf_counter() - t0
+            n_cut = launches_now()["editdp_fill"]
+            t0 = time.perf_counter()
+            cli.main(["align", template, d["seq_fasta"], "--device", "cuda"])
+            torch.cuda.synchronize()
+            s_align = time.perf_counter() - t0
+    finally:
+        initial_aligner.write_outputs = write_outputs
+        read_cutter.editdp = initial_aligner.editdp = editdp
+        events, _build.kernel_events = _build.kernel_events, None
+    launches = launches_now()
+    plain_runs = [fn.calls for fn in plain]
+    ms = {k: [e0.elapsed_time(e1) for e0, e1 in v] for k, v in events.items()}
+    c_cut = sum(ms["editdp_fill"][:n_cut]) / 1e3
+    c_align = sum(ms["editdp_fill"][n_cut:]) / 1e3
+    d_align = sum(ms["editdp_walk"]) / 1e3
+    for suffix in ("_Seq.fasta", "_ReadSeqInfo"):
+        with open(os.path.join(work, PAPER_NAME + suffix), "rb") as f1, \
+                open(os.path.join(src, PAPER_NAME + suffix), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{suffix}: cut on the card != cli cut "
+                                     "--device cpu (phase 8)")
+    tpl = rio.read_template(template).astype(np.int16)
+    reads = rio.read_fasta(os.path.join(work, PAPER_NAME + ".fasta"))
+    pieces = [p.astype(np.int16) for p in rio.read_fasta(d["seq_fasta"])]
+    cfg = ReadCutterConfig()
+    plen = len(tpl) // cfg.parts + cfg.overlap
+    cells_cut = editdp.last_rows.calls * 64 * plen * max(len(r) for r in
+                                                         reads)
+    cells_align = sum(len(p) for p in pieces) * len(tpl)
+    print(f"{len(reads)} reads of up to {max(len(r) for r in reads)} bases,"
+          f" template {len(tpl)}: cut into {len(pieces)} pieces of "
+          f"{min(len(p) for p in pieces)}-{max(len(p) for p in pieces)} "
+          f"bases; _Seq.fasta and _ReadSeqInfo byte-equal to cli cut "
+          f"--device cpu")
+    print(f"cut on {card}: {s_cut:.2f} s, {editdp.last_rows.calls} "
+          f"last_rows calls, {n_cut} launches of kernel C, {c_cut:.3f} s "
+          f"inside it, {cells_cut:.4g} cells ({cells_cut / c_cut:.4g} "
+          f"cells/s inside the kernel)")
+    print(f"align on {card}: {s_align:.2f} s, "
+          f"{editdp.align_on_device.calls} align_on_device calls, "
+          f"{launches['editdp_fill'] - n_cut} launches of kernel C "
+          f"({c_align:.3f} s inside) and {launches['editdp_walk']} of kernel"
+          f" D ({d_align:.3f} s inside), {cells_align:.4g} cells "
+          f"({cells_align / c_align:.4g} cells/s inside C, "
+          f"{cells_align / s_align:.4g} for the stage)")
+    print(f"launches {launches}; plain edit-DP loop runs (forward_plain, "
+          f"walk_plain) {plain_runs}")
+    if plain_runs != [0, 0]:
+        raise AssertionError("the plain edit-DP loop ran on the card")
+    if min(launches["editdp_fill"] - n_cut, n_cut,
+           launches["editdp_walk"]) <= 0:
+        raise AssertionError(f"a kernel never launched: {launches}")
+
+    # kernels C and D against their plain versions at this phase's own
+    # shapes: cut's first batch whole (stride-0 queries, 200-padded
+    # reads), and three rows (the longest, the median, the shortest) of
+    # the first align batch and of the one with the most DP rows, at the
+    # batch's Lq, so at the kernels' layout of the main run
+    t0 = time.perf_counter()
+    q, ql, tg = kept["cut"]
+    (ec, _), _ = compare_editdp(q, ql, tg)
+    errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+    shapes = [f"cut {q.shape[0]} x {q.shape[1]} x {tg.shape[1]}"]
+    for key in ("align_first", "align_longest"):
+        q, ql, t = kept[key]
+        order = torch.argsort(ql.long(), stable=True)
+        rows = order[sorted({0, len(order) // 2, len(order) - 1})]
+        (ec, ewd), _ = compare_editdp(q[rows], ql[rows], t)
+        errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+        errs["editdp_walk"] = max(errs["editdp_walk"], ewd)
+        shapes.append(f"{len(rows)} of {q.shape[0]} align rows x "
+                      f"{q.shape[1]} x {t.shape[0]} (qlens "
+                      f"{ql[rows].tolist()})")
+    print(f"kernels C and D bit-equal to their plain versions on this "
+          f"phase's inputs ({'; '.join(shapes)}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # a sample against the host native full DP (band 0)
+    res = kept["res"]
+    order = np.argsort([len(p) for p in pieces], kind="stable")
+    sample = order[::SAMPLE_EVERY]
+    t0 = time.perf_counter()
+    al_h, err_h = initial_aligner.align_all(
+        tpl, [pieces[i] for i in sample], band=0, device="cpu")
+    s_host = time.perf_counter() - t0
+    for k, i in enumerate(sample):
+        if not np.array_equal(res.alignments[i], al_h[k]):
+            raise AssertionError(f"piece {i} ({len(pieces[i])} bases): "
+                                 "alignment != host native full DP")
+    np.testing.assert_array_equal(res.errors[sample], err_h)
+    cells_h = sum(len(pieces[i]) for i in sample) * len(tpl)
+    print(f"{len(sample)} pieces (every {SAMPLE_EVERY}th by length): "
+          f"alignments and errors equal to the host native full DP "
+          f"(tolerance 0), which took {s_host:.2f} s for {cells_h:.4g} "
+          f"cells on {os.cpu_count()} threads")
+    return launches
 
 
 def _same_block_result(what, got, ref, ncols):
@@ -886,7 +1288,6 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
     from repeatresolver_tpu_torch.models import maxcorr as pmc
     from repeatresolver_tpu_torch.models import realigner as prt
     from repeatresolver_tpu_torch.ops import _build
-    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
     from repeatresolver_tpu_torch.parallel import sharded
     from repeatresolver_tpu_torch.utils import io as rio
@@ -922,8 +1323,7 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
 
     prt.cr = types.SimpleNamespace(staircase_fill=recording_fill,
                                    MAX_W2=cr.MAX_W2)
-    cr.staircase_fill.launches = 0
-    cb.backtrack_moves.launches = 0
+    reset_launches()
     sync()
     t0 = time.perf_counter()
     try:
@@ -935,8 +1335,7 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
     finally:
         prt.cr = cr
     wall = time.perf_counter() - t0
-    launches = {"staircase_fill": cr.staircase_fill.launches,
-                "walk_backtrack": cb.backtrack_moves.launches}
+    launches = launches_now()
     events, _build.kernel_events = _build.kernel_events, None
     in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
                  for k, v in events.items()}
@@ -1017,7 +1416,7 @@ def mesh_phase(card, dev, msa_path, paper_lines, errs):
         if lines != lines_s:
             raise AssertionError(f"rank {rep['rank']} {lines} != "
                                  f"single-process non-resident {lines_s}")
-        if min(rep["launches"].values()) <= 0:
+        if min(rep["launches"][k] for k in REALIGN_KERNELS) <= 0:
             raise AssertionError(f"rank {rep['rank']}: a kernel never "
                                  f"launched: {rep['launches']}")
         if rep["built_here"]:
@@ -1184,7 +1583,7 @@ def main() -> int:
     from repeatresolver_tpu_torch.models import realigner as prt
     from repeatresolver_tpu_torch.models import realigner_device as prd
     from repeatresolver_tpu_torch.ops import _build
-    from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
 
     from repeatresolver_tpu_torch.models.realigner_device import \
@@ -1234,7 +1633,7 @@ def main() -> int:
         cases = [dict(seed=5), dict(seed=7, gapdense=True),
                  dict(seed=11, gapdense=True, len_lo=0.05),
                  dict(seed=3, zero_rows=(2, 5))]
-        block_inputs = block_generator()
+        block_inputs = kernel_tests()._inputs
         for case in cases:
             args = to_dev(block_inputs(b=8, tlen=256, c=512, **case))
             for widen in (1, 3):
@@ -1243,6 +1642,25 @@ def main() -> int:
                 errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
         print(f"{len(cases) * 2} blocks bit-equal (rows of length 0 and "
               "1, dead walks included)")
+        # kernels C and D: align's shared target (packed and int8 codes),
+        # Lq > Lt, two segments; cut's stride-0 queries against 200-padded
+        # per-read targets (final rows), two and three segments
+        editdp_batch = kernel_tests().editdp_batch
+        for seed, b, lq, lt in ((1, 6, 200, 300), (2, 5, 700, 90),
+                                (3, 8, 256, 4000), (4, 4, 120, 9001)):
+            (ec, ewd), _ = compare_editdp(*to_dev(editdp_batch(seed, b, lq,
+                                                               lt)))
+            errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+            errs["editdp_walk"] = max(errs["editdp_walk"], ewd)
+        for seed, lq, lt in ((5, 66, 9001), (6, 40, 17000)):
+            q, _, tg = to_dev(editdp_batch(seed, 8, lq, lt,
+                                           per_row_targets=True,
+                                           pad_from=lt // 2))
+            ql = torch.full((8,), lq, dtype=torch.int32, device=dev)
+            (ec, _), _ = compare_editdp(q[:1].expand(8, -1), ql, tg)
+            errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+        print("edit DP: 4 align batches (final rows, packed and int8 codes, "
+              "walks) and 2 cut batches (final rows) bit-equal")
 
     with phase("3 kernels vs plain, production shape"):
         import numpy as np
@@ -1269,7 +1687,7 @@ def main() -> int:
         for name, (ms, pms) in times.items():
             bms, by, detail = bounds[name]
             print(f"{name}: kernel {ms:.3f} ms ({cells / ms * 1e3:.4g} "
-                  f"cells/s), plain {pms:.3f} ms "
+                  f"cells/s; {spread(name)}), plain {pms:.3f} ms "
                   f"({cells / pms * 1e3:.4g} cells/s) on {card}")
             print(f"  bound {bms:.4f} ms by {by} ({bms / ms:.1%} of the "
                   f"kernel's time): {detail}; library call: none (no "
@@ -1292,6 +1710,55 @@ def main() -> int:
         print("kernel A by window width W2: "
               + ", ".join(f"{k} {m:.3f} ms" for k, m in by_w2.items()))
 
+        # kernels C and D at pipeline-615's largest align batch: 256
+        # pieces run to Lq 13,700 against the 4,000-base template
+        b, lq, lt = 256, 13700, 4000
+        q, ql, tt = to_dev(kernel_tests().editdp_batch(1, b, lq, lt))
+        # kernel C timed as it was before KERNEL_REPS: one warm-up, then 3
+        # runs under one pair of events, while the runs alternate between
+        # two output buffers of which the allocator holds one
+        def fill_c():
+            return ce.editdp_fill(q, ql, tt, codes="packed")
+        ms_1w, seg_1w = one_window_ms(fill_c, 3)
+        print(f"editdp_fill, one warm-up and 3 runs under one pair of "
+              f"events: {ms_1w:.3f} ms a run, {seg_1w} device memory "
+              f"segments allocated while timing; SM clock under it "
+              f"{sm_mhz_under(fill_c)} MHz")
+        (ec, ewd), (ms_c, plain_c, ms_d, plain_d, walked) = compare_editdp(
+            q, ql, tt, timed=True)
+        errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+        errs["editdp_walk"] = max(errs["editdp_walk"], ewd)
+        cells = int(ql.sum()) * lt
+        times["editdp_fill"] = (ms_c, plain_c)
+        times["editdp_walk"] = (ms_d, plain_d)
+        bounds.update(editdp_bounds(b, lq, lt, ql.tolist(), walked.tolist(),
+                                    sm_count, sm_hz))
+        for name in ("editdp_fill", "editdp_walk"):
+            ms, pms = times[name]
+            bms, by, detail = bounds[name]
+            print(f"{name}: kernel {ms:.3f} ms ({cells / ms * 1e3:.4g} "
+                  f"cells/s; {spread(name)}), plain {pms:.3f} ms on "
+                  f"{card}")
+            print(f"  bound {bms:.4f} ms by {by} ({bms / ms:.1%} of the "
+                  f"kernel's time): {detail}; library call: none (no "
+                  "single PyTorch call computes this function)")
+        print(f"bit-equal at {b} x {lq} x {lt} ({cells:.4g} cells; walks of "
+              f"{int(walked.max())} steps at most, "
+              f"{ms_d * 1e6 / int(walked.max()):.0f} ns a step of the "
+              "longest)")
+        del q, ql, tt
+        # kernel C at cut's shape: 64 reads of up to 25,950 bases against
+        # a 66-base template part, queries a stride-0 expand
+        q, _, tg = to_dev(kernel_tests().editdp_batch(
+            2, 64, 66, 25950, per_row_targets=True, pad_from=13000))
+        ql = torch.full((64,), 66, dtype=torch.int32, device=dev)
+        (ec, _), (ms_cut, plain_cut, *_) = compare_editdp(
+            q[:1].expand(64, -1), ql, tg, timed=True)
+        errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+        print(f"editdp_fill at cut's shape 64 x 66 x 25950 (final rows): "
+              f"kernel {ms_cut:.3f} ms ({spread('editdp_fill')}), plain "
+              f"{plain_cut:.3f} ms on {card}; bit-equal")
+
     with phase("4 main path: CLI realign on the tpu_converge dataset"):
         from repeatresolver_tpu_torch import cli
         from repeatresolver_tpu_torch.utils import io as rio
@@ -1305,8 +1772,7 @@ def main() -> int:
         if msa.shape != (131, 85628):
             raise AssertionError(f"MSA shape {msa.shape} != (131, 85628)")
         out_path = os.path.join(WORK, "MSAreal")
-        cr.staircase_fill.launches = 0
-        cb.backtrack_moves.launches = 0
+        reset_launches()
         prt.BatchedRealigner.host_sweeps = 0
         prt.BatchedRealigner.host_sweep_s = 0.0
         reset_exact_blocks()
@@ -1333,8 +1799,7 @@ def main() -> int:
         finally:
             prd.cr = cr
         wall = time.perf_counter() - t0
-        launches = {"staircase_fill": cr.staircase_fill.launches,
-                    "walk_backtrack": cb.backtrack_moves.launches}
+        launches = launches_now()
         scores = [ln.split()[1] for ln in buf.getvalue().splitlines()
                   if ln.startswith("OverallScore:")]
         with open(os.path.join(REPO, "runs", "tpu_converge",
@@ -1365,7 +1830,7 @@ def main() -> int:
         for k in range(msa.shape[0]):
             if not np.array_equal(msa[k][msa[k] < 4], real[k][real[k] < 4]):
                 raise AssertionError(f"row {k} lost or changed bases")
-        if min(launches.values()) <= 0:
+        if min(launches[k] for k in REALIGN_KERNELS) <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
 
     with phase("5 kernels vs plain on the main path's own blocks"):
@@ -1404,16 +1869,21 @@ def main() -> int:
     with phase("11 resolve-windows on two processes; graft entry"):
         resolve_windows_phase(card)
 
-    # `launches` is phase 4's count, as in every earlier report; the
-    # counts of all four main paths stand in `launches_by_path` (the
-    # mesh path's is one rank's: both ranks launch the same number)
+    with phase("12 main path: cut and align at paper width on the card"):
+        cut_launches = paper_cut_align_phase(card, dev, errs)
+
+    # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
+    # and B, as in every earlier report; phase 6 for C and D); the counts
+    # of all five main paths stand in `launches_by_path` (the mesh path's
+    # is one rank's: both ranks launch the same number)
     by_path = {name: {"realign_tpu_converge": launches[name],
                       "pipeline_615": pipe_launches[name],
                       "realign_paper_width": paper_launches[name],
-                      "realign_mesh_2_ranks_per_rank": mesh_launches[name]}
+                      "realign_mesh_2_ranks_per_rank": mesh_launches[name],
+                      "cut_align_paper_width": cut_launches[name]}
                for name in KERNELS}
     report = [dict(name=name, route="cuda", **KERNELS[name],
-                   launches=by_path[name]["realign_tpu_converge"],
+                   launches=by_path[name][MAIN_PATH[name]],
                    launches_by_path=by_path[name],
                    max_abs_err=errs[name], ms=times[name][0],
                    plain_ms=times[name][1], bound_ms=bounds[name][0],

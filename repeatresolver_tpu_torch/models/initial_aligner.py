@@ -4,9 +4,11 @@ Counterpart of repeatresolver_tpu/models/initial_aligner.py. The glocal
 alignments come from one of two routes, as in the JAX package: the
 native C++ kernels on the host (utils/native.initial_align, full DP,
 and initial_align_banded, the anchored band; it raises when the native
-library cannot be built), or the full edit DP with its
-backtrack as torch ops on a device (ops/editdp.align_on_device, the
-route the JAX package takes on an accelerator, which has no band).
+library cannot be built), or the full edit DP with its backtrack on a
+device (ops/editdp.align_on_device, the route the JAX package takes on
+an accelerator, which has no band): on CUDA tensors kernels C and D
+(csrc/editdp_fill.cu, csrc/editdp_walk.cu), on CPU tensors the plain
+loop.
 Building_MSA (InitialAligner.c:553-663) is reproduced exactly, including
 its two load-bearing quirks (Gapcount over every sequence, class 'l'
 included; the leading-run spill that makes a row ragged).
@@ -26,10 +28,11 @@ from ..utils import native as nat
 
 GAP = 4
 _KMER = 15
-# the device route's batch rows and bound on the move codes [Lq, B, Lt]
-# int8 (the JAX package's are 16 rows and 1 GiB). Rows are independent,
-# so neither changes a result; on an 80 GB card the per-position Python
-# loop, not the arithmetic, sets the time, so fewer, wider batches win.
+# the device route's batch rows and bound on the bytes of its move codes
+# (editdp.code_bytes_per_row: two bits a code on the card; the JAX
+# package's are 16 rows and 1 GiB of int8 codes). Rows are independent,
+# so neither changes a result; one CTA a row of kernel C, so wide batches
+# fill the card's 132 SMs.
 DEVICE_BATCH = 256
 CODES_BUDGET = 1 << 34
 
@@ -201,8 +204,8 @@ def _align_device(template, seqs, dev):
     pos = 0
     while pos < n:
         lq = int(buckets[pos])
-        b_eff = int(max(1, min(DEVICE_BATCH,
-                               CODES_BUDGET // (lq * max(tlen, 1)))))
+        row_bytes = editdp.code_bytes_per_row(lq, max(tlen, 1), dev)
+        b_eff = int(max(1, min(DEVICE_BATCH, CODES_BUDGET // row_bytes)))
         end = pos
         while end < n and end - pos < b_eff and buckets[end] == lq:
             end += 1

@@ -4,8 +4,9 @@ Counterpart of repeatresolver_tpu/models/read_cutter.py. The last DP
 rows of the two mapped template parts come from one of two routes, as in
 the JAX package: the native C++ kernel on the host (utils/native.
 occurrence_rows; it raises when the native library cannot be built) or
-the edit DP as torch ops on a device (ops/editdp.last_rows, the route
-the JAX package takes on an accelerator). The occurrence-region scan,
+the edit DP on a device (ops/editdp.last_rows, the route the JAX package
+takes on an accelerator): on CUDA tensors kernel C (csrc/editdp_fill.cu),
+on CPU tensors the plain row loop. The occurrence-region scan,
 the candidate loops and the greedy cut chain are the reference's
 (quirky) host logic, reproduced exactly (ReadCutter.c:489-742, quirks
 documented in the JAX module).

@@ -2,11 +2,12 @@
 
 Each source is compiled by nvcc into a shared library with a plain C
 interface, at first use, into `build/kernels/` at the repository root
-(listed in .gitignore). The library name carries a hash of the source
-and the flags, so an edited kernel is rebuilt and a stale one is never
-loaded. The libraries are bound with ctypes: every pointer and the
-stream travel as c_void_p, every int as c_int. A launch entry returns
-cudaGetLastError(), which `check` turns into an exception.
+(listed in .gitignore). The library name carries a hash of the source,
+the headers beside it (csrc/*.cuh) and the flags, so an edited kernel is
+rebuilt and a stale one is never loaded. The libraries are bound with
+ctypes: every pointer and the stream travel as c_void_p, every int as
+c_int. A launch entry returns cudaGetLastError(), which `check` turns
+into an exception.
 
 Nothing here runs at import time: the CPU tests import every module of
 the port on machines with no nvcc and no GPU.
@@ -33,6 +34,10 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "walk_backtrack": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "editdp_fill": [ctypes.c_void_p] + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5,
+    "editdp_walk": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
 }
 
 _libs: dict = {}
@@ -53,12 +58,15 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> tuple[str, str]:
     """(source, library) of a kernel; the library's name carries the
-    hash of the source and the flags."""
+    hash of the source, the headers and the flags."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha1()
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in
+                               os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):

@@ -1,23 +1,31 @@
-"""Batched glocal edit-distance DP as a row scan with a prefix-min.
+"""Batched glocal edit-distance DP, on the card through kernels C and D.
 
 Counterpart of repeatresolver_tpu/ops/editdp.py, the compute core of
 ReadCutter's Occurrence (ReadCutter.c:489-568) and InitialAligner's
-IntoAligner (InitialAligner.c:282-453), as torch ops on the device of
-their inputs. The recurrence (query char x vs target char y, the target
-consumed for free at both ends):
+IntoAligner (InitialAligner.c:282-453). The recurrence (query char x vs
+target char y, the target consumed for free at both ends):
 
     M[-1][y] = 0,  M[x][-1] = x + 1
     M[x][y]  = min(M[x-1][y-1] + (q[x] != t[y]),   # diagonal
                    M[x-1][y]   + 1,                # consume query ('d')
                    M[x][y-1]   + 1)                # consume target ('i')
 
-The in-row dependency M[x][y-1] is one cummin per row: with A[y] =
-min(diag, up), M[x][y] = y + cummin_y(A[y] - y, boundary x+2 at y=-1).
 Move codes keep the reference's tie priority (InitialAligner.c:294-324):
 diagonal wins ties, then 'i' (left), then 'd' (up); codes 0=sub 3=match
-1='i' 2='d'. A Python loop over query positions drives the rows.
+1='i' 2='d'.
 
-`last_rows.calls` and `align_on_device.calls` count calls.
+`last_rows`, `align_with_codes` and `align_on_device` route by the
+queries' device: CUDA tensors go to kernel C (the fill) and kernel D
+(the entry scan and the walk) through ops/cuda_editdp.py, CPU tensors to
+the plain version, a Python loop of torch ops over DP rows
+(`forward_plain`, which resolves the in-row dependency M[x][y-1] with
+one cummin a row: with A[y] = min(diag, up), M[x][y] = y + cummin_y(A[y]
+- y, boundary x+2 at y=-1)) and over walk steps (`walk_plain`). Both
+give the same bits.
+
+`last_rows.calls` and `align_on_device.calls` count calls;
+`forward_plain.calls` and `walk_plain.calls` count runs of the plain
+loop.
 """
 from __future__ import annotations
 
@@ -25,17 +33,18 @@ import numpy as np
 import torch
 
 from ..utils import native
+from . import cuda_editdp
 
 BIG = np.int32(1 << 29)
 # backtrack steps between host reads of the "any walk alive" flag
 CHECK_EVERY = 64
 
 
-def _forward(queries, qlens, targets, codes=None):
-    """The DP rows x = 0 .. Lq-1 against targets [B, Lt] (a shared
-    target expanded is fine): the final rows M[qlen-1][:] (rows of qlen
-    0 stay 0), and, when codes (int8 [Lq, B, Lt]) is given, every row's
-    move codes written into it.
+def forward_plain(queries, qlens, targets, codes=None):
+    """The plain version of kernel C: the DP rows x = 0 .. Lq-1 against
+    targets [B, Lt] (a shared target expanded is fine): the final rows
+    M[qlen-1][:] (rows of qlen 0 stay 0), and, when codes (int8
+    [Lq, B, Lt]) is given, every row's move codes written into it.
 
     The row is kept with its left boundary in column 0 (M[x][-1] = x+1),
     so the diagonal, up and left neighbours are views, not copies."""
@@ -78,20 +87,35 @@ def _forward(queries, qlens, targets, codes=None):
             idx = torch.tensor(rows, device=dev)
             fr[idx] = m_next[idx, 1:]
         m_prev, m_next = m_next, m_prev
+    forward_plain.calls += 1
     return fr
+
+
+forward_plain.calls = 0
+
+
+def _qlens32(qlens, dev):
+    if qlens.device != dev:
+        qlens = qlens.to(dev)
+    return qlens.to(torch.int32).contiguous()
 
 
 def last_rows(queries: torch.Tensor, qlens: torch.Tensor,
               targets: torch.Tensor) -> torch.Tensor:
     """Final DP rows M[qlen-1][:] for a batch.
 
-    queries [B, Lq] integer (pad arbitrary), qlens [B], targets [B, Lt]
-    or [Lt] (broadcast), all on one device. Returns int32 [B, Lt];
-    columns beyond a target's real length are garbage for the caller to
-    mask, and rows of qlen 0 stay 0."""
+    queries [B, Lq] integer (pad arbitrary; int16 on the card), qlens
+    [B], targets [B, Lt] or [Lt] (broadcast), all on one device; any
+    strides. Returns int32 [B, Lt]; columns beyond a target's real
+    length are garbage for the caller to mask, and rows of qlen 0 stay
+    0."""
     if targets.dim() == 1:
         targets = targets[None, :].expand(queries.shape[0], -1)
-    fr = _forward(queries, qlens, targets)
+    if queries.device.type == "cuda":
+        fr, _ = cuda_editdp.editdp_fill(
+            queries, _qlens32(qlens, queries.device), targets)
+    else:
+        fr = forward_plain(queries, qlens, targets)
     last_rows.calls += 1
     return fr
 
@@ -103,7 +127,7 @@ def _codes_and_rows(queries, qlens, target):
     b, lq = queries.shape
     codes = torch.empty((lq, b, target.shape[0]), dtype=torch.int8,
                         device=queries.device)
-    fr = _forward(queries, qlens, target[None, :].expand(b, -1), codes)
+    fr = forward_plain(queries, qlens, target[None, :].expand(b, -1), codes)
     return codes, fr
 
 
@@ -112,22 +136,22 @@ def align_with_codes(queries: torch.Tensor, qlens: torch.Tensor,
     """Full DP with move codes against one shared target.
 
     queries [B, Lq], qlens [B], target [Lt]. Returns (codes int8
-    [B, Lq, Lt], final rows int32 [B, Lt])."""
-    codes, fr = _codes_and_rows(queries, qlens, target)
+    [B, Lq, Lt], final rows int32 [B, Lt]); the codes cover every row,
+    past a query's length included."""
+    if queries.device.type == "cuda":
+        fr, codes = cuda_editdp.editdp_fill(
+            queries, _qlens32(qlens, queries.device), target, codes="int8")
+    else:
+        codes, fr = _codes_and_rows(queries, qlens, target)
     return codes.permute(1, 0, 2), fr
 
 
-def align_on_device(queries: torch.Tensor, qlens: torch.Tensor,
-                    target: torch.Tensor):
-    """Full alignment with the backtrack on the device: only the
-    per-base alignments and the final rows leave it (the [Lq, B, Lt]
-    move codes stay). Returns (alignments int32 [B, Lq], final rows);
-    alignments[b, i] is the target column of query base i, or -1, the
-    semantics of backtrack_batch."""
-    b, lq = queries.shape
-    lt = target.shape[0]
-    dev = queries.device
-    codes, fr = _codes_and_rows(queries, qlens, target)
+def walk_plain(codes, qlens, fr):
+    """The plain version of kernel D: the entry scan and the lockstep
+    backtrack over codes int8 [Lq, B, Lt] (forward_plain's layout) with
+    the final rows fr [B, Lt]. Returns alignments int32 [B, Lq]."""
+    lq, b, lt = codes.shape
+    dev = codes.device
     # entry scan: min over columns [1, lt-1], ties -> the largest column
     # (argmin returns the first minimum of the reversed row)
     entries = lt - 1 - torch.argmin(fr[:, 1:].flip(1), dim=1)
@@ -163,11 +187,46 @@ def align_on_device(queries: torch.Tensor, qlens: torch.Tensor,
             it += 1
         if not bool((torch.minimum(x, y) >= 0).any()):
             break
+    walk_plain.calls += 1
+    return out[:b * lq].view(b, lq)
+
+
+walk_plain.calls = 0
+
+
+def align_on_device(queries: torch.Tensor, qlens: torch.Tensor,
+                    target: torch.Tensor):
+    """Full alignment with the backtrack on the device: only the
+    per-base alignments and the final rows leave it (the move codes
+    stay; on the card two bits a code). Returns (alignments int32
+    [B, Lq], final rows); alignments[b, i] is the target column of query
+    base i, or -1, the semantics of backtrack_batch. The target needs at
+    least 2 columns (the entry scan never examines column 0)."""
+    if target.shape[0] < 2:
+        raise ValueError("align_on_device: the entry scan needs a target "
+                         f"of at least 2 columns, got {target.shape[0]}")
+    if queries.device.type == "cuda":
+        ql = _qlens32(qlens, queries.device)
+        fr, packed = cuda_editdp.editdp_fill(queries, ql, target,
+                                             codes="packed")
+        out = cuda_editdp.editdp_walk(packed, ql, fr)
+    else:
+        codes, fr = _codes_and_rows(queries, qlens, target)
+        out = walk_plain(codes, qlens, fr)
     align_on_device.calls += 1
-    return out[:b * lq].view(b, lq), fr
+    return out, fr
 
 
 align_on_device.calls = 0
+
+
+def code_bytes_per_row(lq: int, lt: int, device) -> int:
+    """Device bytes of one batch row's move codes in align_on_device: two
+    bits a code in kernel C's packed layout on the card, a byte a code in
+    the plain version's."""
+    if torch.device(device).type == "cuda":
+        return cuda_editdp.packed_bytes_per_row(lq, lt)
+    return lq * lt
 
 
 def entry_column(final_row: np.ndarray) -> int:

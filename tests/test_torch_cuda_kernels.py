@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain torch versions, on the GPU.
 
-Kernel A (csrc/staircase_fill.cu) and kernel B (csrc/walk_backtrack.cu)
-run through their wrappers on CUDA tensors; the plain versions run on
-the same CUDA tensors. Every output is an integer and must be equal
+Kernel A (csrc/staircase_fill.cu), kernel B (csrc/walk_backtrack.cu),
+kernel C (csrc/editdp_fill.cu) and kernel D (csrc/editdp_walk.cu) run
+through their wrappers on CUDA tensors; the plain versions run on the
+same CUDA tensors. Every output is an integer and must be equal
 (tolerance 0). Marked `cuda`: skipped, with the reason, where torch sees
 no GPU (the plain versions are held to the JAX package by
-tests/test_torch_ops.py on the CPU). The file imports no jax, so it also
-runs where JAX is absent, without the repository's conftest:
+tests/test_torch_ops.py and tests/test_torch_editdp.py on the CPU). The
+file imports no jax, so it also runs where JAX is absent, without the
+repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_cuda_kernels.py -q
@@ -138,3 +140,139 @@ def test_wrapper_rejects_bad_input(dev):
     with pytest.raises(ValueError):
         cr.staircase_fill(counts.cpu(), msa, seqs, ways, lengths, 128,
                           bandwidth=64, chunk=32)
+
+
+def editdp_batch(seed, b, lq, lt, *, per_row_targets=False, pad_from=None):
+    """Edit-DP inputs (numpy, from a seed): int16 queries [b, lq] (pad
+    100), qlens [b] with a row of length 0 and one of 1 (b >= 4) and one
+    at lq, and an int16 target [lt] (or [b, lt] with per_row_targets,
+    200 from column pad_from on in every other row): mutated slices of
+    the target, a homopolymer row and a homopolymer run in the target,
+    so that ties decide codes and entries. chip_smoke.py loads this
+    generator by path."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, lt).astype(np.int16)
+    t[lt // 7:lt // 7 + min(lt // 5, 40)] = 2
+    lens = rng.integers(max(1, lq // 2), lq + 1, b).astype(np.int32)
+    lens[0] = lq
+    if b >= 4:
+        lens[1], lens[2] = 0, 1
+    q = np.full((b, lq), 100, np.int16)
+    for r in range(b):
+        n = int(lens[r])
+        start = int(rng.integers(0, max(1, lt - n)))
+        src = np.resize(t[start:], n) if lt else np.zeros(n, np.int16)
+        mut = rng.random(n) < 0.1
+        src[mut] = rng.integers(0, 4, int(mut.sum()))
+        q[r, :n] = src
+    if b >= 4:
+        q[3, :lens[3]] = 2
+    if not per_row_targets:
+        return q, lens, t
+    tg = np.stack([np.roll(t, 3 * r) for r in range(b)])
+    if pad_from is not None:
+        tg[::2, pad_from:] = 200
+    return q, lens, tg
+
+
+def packed_max_diff(kern, codes8, qlens):
+    """The largest difference between kernel C's packed codes [B, nseg,
+    steps, T] and the plain codes int8 [Lq, B, Lt] packed by
+    cuda_editdp.pack_codes, over the words the kernel writes: rows x in
+    [0, qlen). 0 when they are equal. chip_smoke.py loads this by path."""
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    lq, _, lt = codes8.shape
+    plain = ce.pack_codes(codes8)
+    x = ce.packed_rows(lq, lt, kern.device)
+    worst = 0
+    for r, n in enumerate(qlens.tolist()):
+        valid = (x >= 0) & (x < n)
+        if n:
+            d = (kern[r][:, valid].long() - plain[r][:, valid].long()).abs()
+            worst = max(worst, int(d.max()))
+    return worst
+
+
+def _fill_cases(dev, seed, b, lq, lt, per_row, pad_from=None,
+                expand=False):
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    from repeatresolver_tpu_torch.ops import editdp as ed
+    q, lens, tg = editdp_batch(seed, b, lq, lt, per_row_targets=per_row,
+                               pad_from=pad_from)
+    if expand:                       # cut's stride-0 queries
+        q = np.repeat(q[:1], b, axis=0)
+        lens = np.full(b, lq, np.int32)
+    q = torch.from_numpy(q).to(dev)
+    if expand:
+        q = q[:1].expand(b, -1)
+    lens, tg = torch.from_numpy(lens).to(dev), torch.from_numpy(tg).to(dev)
+    return ce, ed, q, lens, tg
+
+
+@pytest.mark.parametrize("seed,b,lq,lt,per_row,pad_from,expand", [
+    (0, 6, 200, 300, False, None, False),   # Lt not a multiple of 16
+    (1, 6, 160, 320, False, None, False),   # 16-byte code stores
+    (2, 5, 700, 90, False, None, False),    # Lq > Lt
+    (3, 4, 66, 9001, True, 5000, True),     # cut: two segments, pads
+    (4, 4, 150, 17000, False, None, False),  # three segments
+    (5, 4, 37, 1, True, None, False),        # Lt = 1 (final rows)
+])
+def test_editdp_fill_matches_plain(dev, seed, b, lq, lt, per_row, pad_from,
+                                   expand):
+    """Kernel C in its three modes against forward_plain: final rows,
+    int8 codes of every row, packed codes of the rows below qlen."""
+    ce, ed, q, lens, tg = _fill_cases(dev, seed, b, lq, lt, per_row,
+                                      pad_from, expand)
+    targets = tg if per_row else tg[None, :].expand(b, -1)
+    codes_p = torch.empty((lq, b, lt), dtype=torch.int8, device=dev)
+    fr_p = ed.forward_plain(q, lens, targets, codes_p)
+    n0 = ce.editdp_fill.launches
+    fr, none = ce.editdp_fill(q, lens, tg)
+    assert none is None and torch.equal(fr, fr_p), "final rows"
+    fr8, codes8 = ce.editdp_fill(q, lens, tg, codes="int8")
+    assert torch.equal(fr8, fr_p) and torch.equal(codes8, codes_p), "int8"
+    fr2, packed = ce.editdp_fill(q, lens, tg, codes="packed")
+    assert torch.equal(fr2, fr_p), "final rows (packed)"
+    assert packed_max_diff(packed, codes_p, lens) == 0, "packed codes"
+    assert ce.editdp_fill.launches == n0 + 3
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("seed,b,lq,lt", [
+    (6, 6, 200, 300), (7, 5, 700, 90), (8, 4, 120, 9001), (9, 4, 40, 2),
+])
+def test_editdp_walk_matches_plain(dev, seed, b, lq, lt):
+    """Kernel D against walk_plain on the plain codes packed, and on
+    kernel C's own packed codes; align_on_device on the card never runs
+    the plain loop."""
+    ce, ed, q, lens, t = _fill_cases(dev, seed, b, lq, lt, False)
+    codes_p = torch.empty((lq, b, lt), dtype=torch.int8, device=dev)
+    fr_p = ed.forward_plain(q, lens, t[None, :].expand(b, -1), codes_p)
+    al_p = ed.walk_plain(codes_p, lens, fr_p)
+    walked = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    n0 = ce.editdp_walk.launches
+    al = ce.editdp_walk(ce.pack_codes(codes_p), lens, fr_p, walked=walked)
+    assert torch.equal(al, al_p), "walk over the plain codes"
+    assert ce.editdp_walk.launches == n0 + 1
+    assert (walked[lens > 0] > 0).all() and (walked[lens == 0] == 0).all()
+    plain = (ed.forward_plain.calls, ed.walk_plain.calls)
+    al_k, fr_k = ed.align_on_device(q, lens, t)
+    assert (ed.forward_plain.calls, ed.walk_plain.calls) == plain
+    assert torch.equal(al_k, al_p) and torch.equal(fr_k, fr_p)
+    assert (al_k[1] == -1).all()
+    torch.cuda.synchronize()
+
+
+def test_editdp_wrappers_reject_bad_input(dev):
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    q, lens, t = (torch.from_numpy(a).to(dev)
+                  for a in editdp_batch(1, 4, 30, 50))
+    with pytest.raises(ValueError, match="int16"):
+        ce.editdp_fill(q.to(torch.int32), lens, t)
+    with pytest.raises(ValueError, match="qlens"):
+        ce.editdp_fill(q, lens + 40, t)
+    with pytest.raises(ValueError, match="CUDA"):
+        ce.editdp_fill(q.cpu(), lens.cpu(), t.cpu())
+    fr, packed = ce.editdp_fill(q, lens, t[:1], codes="packed")
+    with pytest.raises(ValueError, match="2 columns|packed layout"):
+        ce.editdp_walk(packed, lens, fr)

@@ -81,6 +81,92 @@ def test_align_with_codes_and_on_device_match_jax():
     assert (al_p[1] == -1).all()
 
 
+def _wrapped_batch(seed, lq, lt):
+    """[5, lq] queries (pad 100) of any lengths against any target:
+    mutated copies of the target wrapped around (np.resize), so Lq may
+    pass Lt; rows of length lq, 0, 1, and two random ones."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, lt).astype(np.int16)
+    t[lt // 3:lt // 3 + min(lt // 4, 20)] = 0       # homopolymer run
+    lens = np.array([lq, 0, 1, *rng.integers(1, lq + 1, 2)], np.int32)
+    q = np.full((5, lq), 100, np.int16)
+    for r, n in enumerate(lens):
+        src = np.resize(np.roll(t, -r), n)
+        mut = rng.random(n) < 0.15
+        src[mut] = rng.integers(0, 4, mut.sum())
+        q[r, :n] = src
+    return q, lens, t
+
+
+def _homopolymers(lq, lt):
+    """Every query and the target one symbol: every cell a tie."""
+    q = np.full((4, lq), 1, np.int16)
+    lens = np.array([lq, 0, 1, lq // 2], np.int32)
+    q[3, lens[3]:] = 100
+    return q, lens, np.full(lt, 1, np.int16)
+
+
+@pytest.mark.parametrize("case", ["lq_above_lt", "homopolymers", "lt_2",
+                                  "one_query_row", "wide"])
+def test_plain_edge_shapes_match_jax(case):
+    """The plain versions at the shapes that strain the kernels' design:
+    Lq > Lt (uncut reads against the template), tie-only homopolymers,
+    the shortest target align_on_device takes, one query row, and a
+    target wider than one segment of kernel C (> 8,192 columns). Codes
+    cover every row, past qlen included; rows of qlen 0 and 1 are in
+    every batch but one_query_row."""
+    q, lens, t = {
+        "lq_above_lt": lambda: _wrapped_batch(3, 90, 25),
+        "homopolymers": lambda: _homopolymers(40, 33),
+        "lt_2": lambda: _wrapped_batch(4, 12, 2),
+        "one_query_row": lambda: (np.array([[0, 1, 2, 3, 2]], np.int16),
+                                  np.array([5], np.int32),
+                                  np.array([3, 0, 1, 2, 3, 2, 1], np.int16)),
+        "wide": lambda: _wrapped_batch(5, 24, 8300),
+    }[case]()
+    codes_j, fr_j = jed.align_with_codes(q, lens, t)
+    codes_p, fr_p = ped.align_with_codes(_t(q), _t(lens), _t(t))
+    np.testing.assert_array_equal(codes_p.numpy(), np.asarray(codes_j))
+    np.testing.assert_array_equal(fr_p.numpy(), np.asarray(fr_j))
+    np.testing.assert_array_equal(
+        ped.last_rows(_t(q), _t(lens), _t(t)).numpy(),
+        np.asarray(jed.last_rows(q, lens, t)))
+    al_j, _ = jed.align_on_device(q, lens, t)
+    al_p, _ = ped.align_on_device(_t(q), _t(lens), _t(t))
+    np.testing.assert_array_equal(al_p.numpy(), np.asarray(al_j))
+
+
+def test_cut_shape_stride0_queries_match_jax():
+    """Cut's call: one template part expanded (stride 0) over the batch
+    against per-read targets padded with 200, queries padded with 100."""
+    rng = np.random.default_rng(6)
+    reads = rng.integers(0, 4, (5, 300)).astype(np.int16)
+    reads[1, 120:] = 200
+    reads[3, 40:] = 200
+    part = np.concatenate([reads[2, 50:80], np.full(6, 100, np.int16)])
+    lens = np.full(5, len(part), np.int32)
+    ref = np.asarray(jed.last_rows(np.tile(part, (5, 1)), lens, reads))
+    q = torch.from_numpy(part)[None, :].expand(5, -1)
+    assert q.stride(0) == 0
+    got = ped.last_rows(q, _t(lens), _t(reads))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert int(ref.min()) < 10                   # the part's own read
+
+
+def test_one_column_target():
+    """Lt = 1: final rows as the JAX scan gives them; align_on_device
+    has no column to enter from and raises, as the JAX function does."""
+    q, lens, _ = _batch(7, 9, 30)
+    t = np.array([2], np.int16)
+    np.testing.assert_array_equal(
+        ped.last_rows(_t(q), _t(lens), _t(t)).numpy(),
+        np.asarray(jed.last_rows(q, lens, t)))
+    with pytest.raises(ValueError):
+        jed.align_on_device(q, lens, t)
+    with pytest.raises(ValueError, match="2 columns"):
+        ped.align_on_device(_t(q), _t(lens), _t(t))
+
+
 def test_entry_column_ties():
     assert ped.entry_column(np.array([0, 5, 3, 3, 7])) == 3
     assert ped.entry_column(np.array([9, 4, 4, 4, 4])) == 4
@@ -143,3 +229,135 @@ def test_cut_device_cuda_is_explicit(monkeypatch):
     seq = np.zeros(50, np.int16)
     with pytest.raises(RuntimeError, match="CUDA"):
         prc.cut_reads(seq, [seq], ReadCutterConfig(), device="cuda")
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: it takes the card's
+    route through ops/editdp.py without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _FakeKernels:
+    """Stands in for the compiled libraries of kernels C and D: records
+    each launch's arguments and returns `err`."""
+
+    def __init__(self, err=0):
+        self.err = err
+        self.launches = []
+
+    def editdp_fill_launch(self, *args):
+        self.launches.append(("fill", args))
+        return self.err
+
+    def editdp_walk_launch(self, *args):
+        self.launches.append(("walk", args))
+        return self.err
+
+    def editdp_fill_error_string(self, err):
+        return b"stand-in error"
+
+    editdp_walk_error_string = editdp_fill_error_string
+
+
+def _cuda_typed(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).as_subclass(_CudaTyped)
+            for a in arrays]
+
+
+@pytest.fixture
+def card_route(monkeypatch):
+    """editdp's card route with the kernels' libraries stood in for and
+    the plain loop made to fail if it runs."""
+    import ctypes
+
+    from repeatresolver_tpu_torch.ops import _build, cuda_editdp
+
+    def plain(*a, **k):
+        raise AssertionError("the plain loop ran on the card route")
+    monkeypatch.setattr(ped, "forward_plain", plain)
+    monkeypatch.setattr(ped, "walk_plain", plain)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: ctypes.c_void_p())
+    fake = _FakeKernels()
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    return fake, cuda_editdp, monkeypatch
+
+
+def test_card_route_reaches_the_kernels(card_route):
+    """CUDA-typed calls reach kernels C and D, never the plain loop, with
+    the mode, strides and layout of each entry point: cut's stride-0
+    queries (mode 0), align_with_codes (mode 1, int8 [Lq, B, Lt]) and
+    align_on_device (mode 2 and the walk over its packed codes)."""
+    fake, ce, _ = card_route
+    q, lens, t = _batch(8, 40, 9000)
+    qd, ld, td = _cuda_typed(q, lens, t)
+    n_fill, n_walk = ce.editdp_fill.launches, ce.editdp_walk.launches
+    fr = ped.last_rows(qd[:1].expand(6, -1), ld, td)
+    assert fr.shape == (6, 9000) and fr.dtype == torch.int32
+    kind, a = fake.launches[-1]
+    # queries, stride(0), stride(1), qlens, targets, stride(0), stride(1),
+    # B, Lq, Lt, mode, threads, segments, steps
+    assert kind == "fill" and (a[1], a[2], a[5], a[6]) == (0, 1, 0, 1)
+    assert a[7:14] == (6, 40, 9000, 0, 288, 2, 40 + 287)
+    codes, _ = ped.align_with_codes(qd, ld, td)
+    assert fake.launches[-1][1][10] == 1 and codes.shape == (6, 40, 9000)
+    al, _ = ped.align_on_device(qd, ld, td)
+    (k1, fill), (k2, walk) = fake.launches[-2:]
+    assert (k1, fill[10], k2) == ("fill", 2, "walk") and al.shape == (6, 40)
+    assert walk[5:11] == (6, 40, 9000, 288, 2, 40 + 287)
+    assert ce.editdp_fill.launches == n_fill + 3
+    assert ce.editdp_walk.launches == n_walk + 1
+
+
+def test_card_route_raises_on_launch_and_build_errors(card_route):
+    """A launch error and a failed build raise; nothing falls back to
+    the plain loop (which the fixture makes fail)."""
+    fake, ce, monkeypatch = card_route
+    qd, ld, td = _cuda_typed(*_batch(9, 20, 50))
+    fake.err = 700
+    n_fill = ce.editdp_fill.launches
+    with pytest.raises(RuntimeError, match="editdp_fill launch failed"):
+        ped.align_on_device(qd, ld, td)
+    assert ce.editdp_fill.launches == n_fill
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc failed on csrc/editdp_fill.cu")
+    monkeypatch.setattr(ce._build, "load", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ped.last_rows(qd, ld, td)
+    with pytest.raises(ValueError, match="int16"):
+        ped.last_rows(qd.to(torch.int32), ld, td)
+
+
+def test_packed_layout():
+    """cuda_editdp.pack_codes (the plain version of kernel C's packed
+    store) and packed_rows against the layout written out: word [b, seg,
+    x + k, k] holds the codes of columns 16*(seg*T + k) .. +15 at row x,
+    two bits each; and the layout of the widths the main path uses."""
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    assert ce.layout(13700, 4000) == (256, 1, 13955)
+    assert ce.layout(66, 25950) == (416, 4, 481)
+    assert ce.layout(30693, 30000) == (480, 4, 31172)
+    assert ce.layout(5, 1) == (32, 1, 36)
+    rng = np.random.default_rng(3)
+    lq, b, lt = 3, 2, 8200                        # two segments
+    threads, nseg, steps = ce.layout(lq, lt)
+    assert (threads, nseg, steps) == (288, 2, 290)
+    codes = rng.integers(0, 4, (lq, b, lt)).astype(np.int8)
+    got = ce.pack_codes(torch.from_numpy(codes)).numpy()
+    want = np.zeros((b, nseg, steps, threads), np.uint32)
+    for r in range(b):
+        for x in range(lq):
+            for y in range(lt):
+                j = y // 16
+                seg, k = divmod(j, threads)
+                want[r, seg, x + k, k] |= np.uint32(codes[x, r, y]) << (
+                    2 * (y % 16))
+    np.testing.assert_array_equal(got.view(np.uint32), want)
+    rows = ce.packed_rows(lq, lt).numpy()
+    s, k = 7, 5
+    assert rows.shape == (steps, threads) and rows[s, k] == s - k
+    assert ce.packed_bytes_per_row(13700, 4000) == 4 * 13955 * 256
+    assert ped.code_bytes_per_row(13700, 4000, "cpu") == 13700 * 4000
