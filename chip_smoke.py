@@ -27,13 +27,19 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      time at widen 1, 8, 10, 12 and 16 (W2 1,128 to 3,048); then
      kernels C and D at pipeline-615's largest align batch (256 pieces x
      Lq 13,700 x Lt 4,000) and C at cut's shape (64 x 66 x 25,950), the
-     same way;
+     same way (all three modes of C checked), and their launches alone;
   4. the main path: the runs/tpu_converge dataset (Tree, c=25, n=8,
      d=1%, l=4000, seed 11) built with the port's host stages, then the
      port's CLI `realign -b 1000 -B 64 --device cuda`. Its OverallScore
      sequence must equal column 2 of runs/tpu_converge/scorelog_tpu (all
      24 lines; the JAX package's trajectory, identical on TPU and CPU),
-     and both kernels must have launched;
+     and both kernels must have launched. Then the same MSA at band 2600
+     (block 64, 2 rounds), past kernel A's 4,096-lane window at the
+     default slack: the resident engine on the card must equal the
+     port's host native exact engine line for line, with both kernels
+     launched (counts set to 0 just before that run), and the first
+     block step at each slack it ran (W2 up to 3,880) goes through both
+     kernels and their plain versions, bit-equal;
   5. kernels vs plain versions on the main path's own blocks: the fill
      inputs of the first block step at each slack (widen 12 first)
      recorded during phase 4, replayed through both kernels and their
@@ -303,6 +309,28 @@ def spread(key):
             f"device memory segments allocated while timing")
 
 
+def launch_ms(fn, name):
+    """The median over KERNEL_REPS calls of fn (after two warm-ups) of
+    the time between the CUDA events its wrapper records around the
+    launch of kernel `name` alone, without the wrapper's own work."""
+    import torch
+
+    from repeatresolver_tpu_torch.ops import _build
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    _build.kernel_events = {}
+    try:
+        for _ in range(KERNEL_REPS):
+            fn()
+        torch.cuda.synchronize()
+        ms = sorted(e0.elapsed_time(e1)
+                    for e0, e1 in _build.kernel_events[name])
+    finally:
+        _build.kernel_events = None
+    return ms[len(ms) // 2]
+
+
 def one_window_ms(fn, reps):
     """(ms a run, device memory segments allocated while timing) of one
     warm-up and then reps runs under a single pair of CUDA events."""
@@ -360,7 +388,15 @@ def compare_editdp(q, lens, targets, timed=False):
     reps = KERNEL_REPS if timed else 1
 
     def diff(x, y):
-        return int((x.long() - y.long()).abs().max()) if x.numel() else 0
+        if not x.numel():
+            return 0
+        if x.dtype == torch.int8:
+            # int8 codes [Lq, B, Lt], 14 GB at 256 x 13,700 x 4,000: a
+            # chunk of rows at a time, widened to int16
+            return max(int((a.to(torch.int16) - b.to(torch.int16)).abs()
+                           .max()) for a, b in zip(x.split(256),
+                                                   y.split(256)))
+        return int((x.long() - y.long()).abs().max())
     if targets.dim() == 2:                          # cut
         (fr, _), ms_c = time_launches(
             lambda: ce.editdp_fill(q, lens, targets), reps, "editdp_fill")
@@ -379,9 +415,9 @@ def compare_editdp(q, lens, targets, timed=False):
         q, lens, targets[None, :].expand(b, -1), codes_p), 1)
     err_c = max(diff(fr, fr_p),
                 kernel_tests().packed_max_diff(packed, codes_p, lens))
-    if not timed:                   # align_with_codes: int8, every row
-        fr8, codes8 = ce.editdp_fill(q, lens, targets, codes="int8")
-        err_c = max(err_c, diff(fr8, fr_p), diff(codes8, codes_p))
+    fr8, codes8 = ce.editdp_fill(q, lens, targets, codes="int8")
+    err_c = max(err_c, diff(fr8, fr_p), diff(codes8, codes_p))
+    del fr8, codes8                 # align_with_codes: int8, every row
     walked = torch.zeros(b, dtype=torch.int32, device=q.device)
     al, ms_d = time_launches(
         lambda: ce.editdp_walk(packed, lens, fr, walked=walked), reps,
@@ -393,6 +429,77 @@ def compare_editdp(q, lens, targets, timed=False):
         raise AssertionError(f"kernel != plain version: fill max abs err "
                              f"{err_c}, walk max abs err {err_d}")
     return (err_c, err_d), (ms_c, plain_c, ms_d, plain_d, walked.cpu())
+
+
+def wide_band_check(card, msa, errs):
+    """Phase 4's second run: the tpu_converge MSA at band 2600, block 64,
+    2 rounds, where the default slack's window (2600 + 12 x 128) passes
+    kernel A's 4,096 lanes: the resident engine on the card (slack capped
+    at rung 10, blocks that no fitting rung covers on the exact band)
+    against the port's host native exact engine at the same block size,
+    line for line. RR_FLUSH_CAP is raised for both runs so that both
+    splice once a sweep, as the engines' oracle needs. The first block
+    step at each slack is recorded and replayed through kernels A and B
+    and their plain versions, bit-equal, at this path's own windows.
+    Returns the kernels' launches in the run on the card."""
+    import numpy as np
+
+    from repeatresolver_tpu_torch.config import RealignerConfig
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.models import realigner_device as prd
+    from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    cfg = RealignerConfig(bandwidth=2600, block_rows=64, max_rounds=2)
+    blocks = {}
+
+    def recording_fill(*args, **kw):
+        if kw["widen"] not in blocks:
+            blocks[kw["widen"]] = ([a.clone() for a in args[:5]], args[5],
+                                   kw)
+        return cr.staircase_fill(*args, **kw)
+
+    ex0 = exact_blocks()
+    os.environ["RR_FLUSH_CAP"] = str(1 << 30)
+    prd.cr = types.SimpleNamespace(
+        **{**vars(cr), "staircase_fill": recording_fill})
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        log_d: list = []
+        out_d = prt.realign_batched(msa.copy(), cfg, score_log=log_d,
+                                    device="cuda")
+        t1 = time.perf_counter()
+        launches = launches_now()
+        prd.cr = cr
+        log_h: list = []
+        out_h = prt.realign_batched(msa.copy(), cfg, score_log=log_h,
+                                    mode="exact", kernel="native",
+                                    device="cpu")
+        t2 = time.perf_counter()
+    finally:
+        prd.cr = cr
+        del os.environ["RR_FLUSH_CAP"]
+    ex1 = exact_blocks()
+    print(f"band 2600: {len(log_d)} score lines, {log_d[-1]}; resident "
+          f"engine on {card} {t1 - t0:.2f} s (launches {launches}, "
+          f"{ex1[0] - ex0[0]} exact blocks through the host library), "
+          f"host native exact engine {t2 - t1:.2f} s")
+    if log_d != log_h or not np.array_equal(out_d, out_h):
+        raise AssertionError(f"band 2600: resident {log_d} != host native "
+                             f"exact {log_h}")
+    if min(launches[k] for k in REALIGN_KERNELS) <= 0:
+        raise AssertionError(f"band 2600: a kernel never launched: "
+                             f"{launches}")
+    for widen, (args, ncols, kw) in sorted(blocks.items()):
+        (ea, eb), _ = compare_block(args, ncols, kw["bandwidth"],
+                                    kw["chunk"], widen, args[1].shape[1])
+        errs["staircase_fill"] = max(errs["staircase_fill"], ea)
+        errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
+        b, lpad = args[2].shape
+        print(f"band 2600: first block step at widen {widen} bit-equal to "
+              f"the plain versions: {b} rows x {lpad} bases, MSA width "
+              f"{ncols} of {args[1].shape[1]}, W2 "
+              f"{kw['bandwidth'] + widen * kw['chunk']}")
+    return launches
 
 
 def exact_blocks():
@@ -781,11 +888,18 @@ def kernel_bounds(b, l, c, w, t, widen, lengths, sm_count, sm_hz):
     }
 
 
-# int32 operations that one cell of the edit DP needs (kernel C's
-# formulation): mismatch test, diagonal add, up add, left add, min of
-# diagonal and left, min with up, the left and the up compare, the code
-# select, its shift into the code word
-EDIT_OPS_PER_CELL = 10
+# int32 operations of one word step of kernel C (Myers' bit-vector
+# recurrence in Hyyro's block form, 32 target columns a step): the two
+# carry tests (h_in -1, +1), Xv, Eq | carry, its and with Pv, the add,
+# the xor-or into Xh, Ph, Mh, h_out from their top bits (three), the two
+# shift-ins (two each), the two code planes and their column mask
+# (four), the new Pv and Mv, the carry packed for the next lane (two),
+# the last column's value: 25 operations a word step, 0.78 a cell. (The
+# direct min recurrence needs 10 a cell: mismatch test,
+# three adds, three mins, two compares, the code select and shift.)
+EDIT_OPS_PER_WORD = 25
+EDIT_OPS_PER_CELL = EDIT_OPS_PER_WORD / 32
+EDIT_OPS_PER_CELL_DIRECT = 10
 # dependent integer operations of one walk step besides its load (kernel
 # D): word index, shift, and, the code tests, the x and y updates
 EDIT_WALK_OPS = 6
@@ -814,10 +928,15 @@ def editdp_bounds(b, lq, lt, lens, walked, sm_count, sm_hz):
         "editdp_fill": (
             max(tc_ops, tc_bytes),
             "operations" if tc_ops >= tc_bytes else "bytes",
-            f"{cells:.4g} cells x {EDIT_OPS_PER_CELL} int32 operations over "
+            f"{cells:.4g} cells x {EDIT_OPS_PER_CELL} int32 operations "
+            f"({EDIT_OPS_PER_WORD} a 32-column word step) over "
             f"{sm_count} SMs x {INT32_LANES_PER_SM} lanes x "
             f"{sm_hz / 1e6:.0f} MHz = {tc_ops:.3f} ms; {bytes_c / 1e6:.1f} MB"
-            f" (two bits a code) over 3.35 TB/s = {tc_bytes:.3f} ms"),
+            f" (two bits a code) over 3.35 TB/s = {tc_bytes:.3f} ms; the "
+            f"direct formulation's {EDIT_OPS_PER_CELL_DIRECT} operations a "
+            f"cell would be "
+            f"{tc_ops * EDIT_OPS_PER_CELL_DIRECT / EDIT_OPS_PER_CELL:.3f} "
+            f"ms"),
         "editdp_walk": (
             max(td_ops, td_bytes),
             "operations" if td_ops >= td_bytes else "bytes",
@@ -894,7 +1013,8 @@ def paper_realign_phase(card, dev, errs):
                 first["block"] = ([a.clone() for a in args[:5]], args[5], kw)
             return cr.staircase_fill(*args, **kw)
 
-        prd.cr = types.SimpleNamespace(staircase_fill=recording_fill)
+        prd.cr = types.SimpleNamespace(
+            **{**vars(cr), "staircase_fill": recording_fill})
         _build.kernel_events = {}
         log_d: list = []
         t0 = time.perf_counter()
@@ -1647,12 +1767,12 @@ def main() -> int:
         # per-read targets (final rows), two and three segments
         editdp_batch = kernel_tests().editdp_batch
         for seed, b, lq, lt in ((1, 6, 200, 300), (2, 5, 700, 90),
-                                (3, 8, 256, 4000), (4, 4, 120, 9001)):
+                                (3, 8, 256, 4000), (4, 4, 120, 33000)):
             (ec, ewd), _ = compare_editdp(*to_dev(editdp_batch(seed, b, lq,
                                                                lt)))
             errs["editdp_fill"] = max(errs["editdp_fill"], ec)
             errs["editdp_walk"] = max(errs["editdp_walk"], ewd)
-        for seed, lq, lt in ((5, 66, 9001), (6, 40, 17000)):
+        for seed, lq, lt in ((5, 66, 33000), (6, 40, 70000)):
             q, _, tg = to_dev(editdp_batch(seed, 8, lq, lt,
                                            per_row_targets=True,
                                            pad_from=lt // 2))
@@ -1746,7 +1866,17 @@ def main() -> int:
               f"{int(walked.max())} steps at most, "
               f"{ms_d * 1e6 / int(walked.max()):.0f} ns a step of the "
               "longest)")
-        del q, ql, tt
+        # the launches alone (events around the launch in the wrapper;
+        # the times above include the wrapper's checks and its symbol
+        # remap)
+        fr_k, packed_k = fill_c()
+        kc = launch_ms(fill_c, "editdp_fill")
+        kd = launch_ms(lambda: ce.editdp_walk(packed_k, ql, fr_k),
+                       "editdp_walk")
+        print(f"launches alone (median of {KERNEL_REPS}): editdp_fill "
+              f"{kc:.3f} ms ({bounds['editdp_fill'][0] / kc:.1%} of its "
+              f"bound), editdp_walk {kd:.3f} ms, on {card}")
+        del q, ql, tt, fr_k, packed_k
         # kernel C at cut's shape: 64 reads of up to 25,950 bases against
         # a 66-base template part, queries a stride-0 expand
         q, _, tg = to_dev(kernel_tests().editdp_batch(
@@ -1755,9 +1885,12 @@ def main() -> int:
         (ec, _), (ms_cut, plain_cut, *_) = compare_editdp(
             q[:1].expand(64, -1), ql, tg, timed=True)
         errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+        kcut = launch_ms(lambda: ce.editdp_fill(q[:1].expand(64, -1), ql, tg),
+                         "editdp_fill")
         print(f"editdp_fill at cut's shape 64 x 66 x 25950 (final rows): "
-              f"kernel {ms_cut:.3f} ms ({spread('editdp_fill')}), plain "
-              f"{plain_cut:.3f} ms on {card}; bit-equal")
+              f"kernel {ms_cut:.3f} ms ({spread('editdp_fill')}; the "
+              f"launch alone {kcut:.3f} ms), plain {plain_cut:.3f} ms on "
+              f"{card}; bit-equal")
 
     with phase("4 main path: CLI realign on the tpu_converge dataset"):
         from repeatresolver_tpu_torch import cli
@@ -1789,7 +1922,8 @@ def main() -> int:
             return cr.staircase_fill(*args, **kw)
 
         buf = io.StringIO()
-        prd.cr = types.SimpleNamespace(staircase_fill=recording_fill)
+        prd.cr = types.SimpleNamespace(
+            **{**vars(cr), "staircase_fill": recording_fill})
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
@@ -1832,6 +1966,7 @@ def main() -> int:
                 raise AssertionError(f"row {k} lost or changed bases")
         if min(launches[k] for k in REALIGN_KERNELS) <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
+        band_launches = wide_band_check(card, msa, errs)
 
     with phase("5 kernels vs plain on the main path's own blocks"):
         for widen, (args, ncols, kw) in blocks.items():
@@ -1874,10 +2009,11 @@ def main() -> int:
 
     # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
     # and B, as in every earlier report; phase 6 for C and D); the counts
-    # of all five main paths stand in `launches_by_path` (the mesh path's
+    # of all six main paths stand in `launches_by_path` (the mesh path's
     # is one rank's: both ranks launch the same number)
     by_path = {name: {"realign_tpu_converge": launches[name],
                       "pipeline_615": pipe_launches[name],
+                      "realign_band_2600": band_launches[name],
                       "realign_paper_width": paper_launches[name],
                       "realign_mesh_2_ranks_per_rank": mesh_launches[name],
                       "cut_align_paper_width": cut_launches[name]}

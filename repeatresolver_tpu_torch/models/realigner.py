@@ -829,7 +829,7 @@ class BatchedRealigner:
                 return
         if self.mesh is not None:
             self._realign_block_mesh(rows, rows_old, lengths, seqs, ways,
-                                     c, cpad)
+                                     c, cpad, use_stair, widen)
             return
 
         counts_p = np.zeros((cpad, 6), np.int32)
@@ -857,7 +857,7 @@ class BatchedRealigner:
         return self._budget
 
     def _realign_block_mesh(self, rows, rows_old, lengths, seqs, ways,
-                            c, cpad) -> None:
+                            c, cpad, stair: bool, widen: int) -> None:
         """The block step on a mesh: rows data-parallel over the ranks,
         the histogram replicated, the delta summed over the ranks
         (parallel/sharded.sharded_block_realign). The block is padded to
@@ -865,19 +865,16 @@ class BatchedRealigner:
         outputs are dropped and whose delta is masked out, so the
         trajectory equals the single-process one.
 
-        Where no ladder rung covers the drift, this step takes the top
-        rung, while `_realign_block` has switched such a block to the
-        exact band: the JAX package's behaviour, kept."""
+        stair and widen are `_realign_block`'s choice: a block that no
+        ladder rung covers, or whose window passes kernel A's MAX_W2 on
+        kernel "cuda", runs the exact band here too, so the mesh
+        trajectory is bit-equal to the single-process one. (The JAX
+        package's mesh step takes the top rung for such a block instead,
+        a window that does not cover its drift, and departs from its
+        single-process run there.)"""
         from ..parallel import sharded
         bs = len(rows)
         n = self.mesh.size
-        stair = self.mode == "staircase"
-        widen = 1
-        if stair:
-            drift = chunk_drift(ways, self.chunk)
-            widen = next((v for v in self.WIDEN_LADDER
-                          if v * self.chunk >= drift),
-                         self.WIDEN_LADDER[-1])
         kern = "cuda" if self.kernel == "cuda" and stair else "torch"
         bpad = -(-bs // n) * n
         if bpad != bs:
@@ -895,11 +892,12 @@ class BatchedRealigner:
                                             self.chunk, stair)
         valid = np.zeros(bpad, np.int32)
         valid[:bs] = 1
-        key = (self.mode, widen, kern)
+        mode = "staircase" if stair else "exact"
+        key = (mode, widen, kern)
         step = self._mesh_cache.get(key)
         if step is None:
             step = self._mesh_cache[key] = sharded.sharded_block_realign(
-                self.mesh, self.bandwidth, mode=self.mode,
+                self.mesh, self.bandwidth, mode=mode,
                 chunk=self.chunk, widen=widen, kernel=kern)
         new_rows, iy, ib, inn, delta = step(
             counts_p, rows_p, seqs, ways, lengths, anf_full, entry_bound,

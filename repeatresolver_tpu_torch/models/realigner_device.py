@@ -25,12 +25,19 @@ one ladder rung above its last measured drift. Its actual drift is
 checked when its buffer is read; a block whose drift exceeded its slack
 (or whose insert list overflowed the fetched window) makes the sweep
 restore its start snapshot and redo, wider or through the exact host
-fallback. Since the staircase equals the exact band for any covering
+fallback. Kernel A holds a window of at most `cuda_realign.MAX_W2`
+lanes, so a block's slack is capped at the widest rung whose window
+bandwidth + widen * chunk fits: at dispatch, where `_drain` raises it,
+and in the redo set. A block whose drift no fitting rung covers goes
+through the exact band for good, as `BatchedRealigner._realign_block`
+sends it. Since the staircase equals the exact band for any covering
 slack, the per-sweep (mille, uno) trajectory and the final MSA are
-bit-equal to the JAX engine's (tests/test_torch_realigner_device.py).
+bit-equal to the JAX engine's (tests/test_torch_realigner_device.py,
+tests/test_torch_wide_band.py).
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 
@@ -124,10 +131,11 @@ class DeviceResidentRealigner(BatchedRealigner):
     below RESIDENT_MIN_BS to the host native engine."""
 
     # below this block size the anneal continues on the host native
-    # engine (the JAX package's threshold: where the engine switches is
-    # part of the trajectory, since the two engines splice and drop
-    # columns at different points of a sweep)
-    RESIDENT_MIN_BS = 32
+    # engine (the JAX package's threshold and its variable,
+    # RR_RESIDENT_MIN_BS, read at class definition: where the engine
+    # switches is part of the trajectory, since the two engines splice
+    # and drop columns at different points of a sweep)
+    RESIDENT_MIN_BS = int(os.environ.get("RR_RESIDENT_MIN_BS", "32"))
     # blocks realigned through the exact band, by route (the native host
     # engine; the torch exact band on the engine's device, taken when
     # the host library cannot be built), and seconds in resident sweeps
@@ -147,6 +155,10 @@ class DeviceResidentRealigner(BatchedRealigner):
         self.chunk = min(chunk, 128) if bandwidth >= 768 else chunk
         self.device = resolve_device(device)
         self._widen = DEFAULT_WIDEN
+        # the widest ladder rung whose window fits kernel A (0: none)
+        self._w_fit = max((v for v in BatchedRealigner.WIDEN_LADDER
+                           if bandwidth + v * self.chunk <= cr.MAX_W2),
+                          default=0)
         self._maxf = MAX_INSERTS_FETCH
         self._overflow_events = 0         # insert-fetch overflows seen
         self._warned_no_library = False   # exact blocks without the library
@@ -324,12 +336,13 @@ class DeviceResidentRealigner(BatchedRealigner):
                     time.perf_counter() - t0
                 return
             # restore and redo: drift violations that a ladder rung
-            # covers retry wider (_drain already raised the slack); the
-            # rest go through the exact host fallback for good;
-            # insert-fetch overflows (-1) go exact for this sweep only
+            # within kernel A's window covers retry wider (_drain
+            # already raised the slack); the rest go through the exact
+            # host fallback for good; insert-fetch overflows (-1) go
+            # exact for this sweep only
             self._msa_d, self._counts_d = snap_m, snap_c
             self._ncols = snap_n
-            lad_max = BatchedRealigner.WIDEN_LADDER[-1] * self.chunk
+            lad_max = self._w_fit * self.chunk
             self._exact_blocks |= {
                 bid for bid, dv in violations.items() if dv > lad_max}
             extra_exact |= {
@@ -350,10 +363,13 @@ class DeviceResidentRealigner(BatchedRealigner):
             sl = slice(bid * bs, min((bid + 1) * bs, r))
             rows = self._ord_host[sl]
             bl = self._len_host[sl]
+            # the slack, capped at kernel A's widest window
+            wd = min(int(self._block_widen[bid]), self._w_fit)
+            if not wd:
+                self._exact_blocks.add(bid)
             if bid in self._exact_blocks or bid in extra_exact:
                 self._exact_block(rows, pending)
             else:
-                wd = int(self._block_widen[bid])
                 out = block_step(
                     self._msa_d, self._counts_d, self._order_d[sl],
                     self._len_d[sl], self._ncols,
@@ -386,7 +402,9 @@ class DeviceResidentRealigner(BatchedRealigner):
     def _drain(self, item, pending, violations: dict) -> None:
         """Read one block's buffer into the pending insert list; record
         a violation; adapt the block's slack for its next dispatch to
-        one ladder rung above the rung covering the measured drift."""
+        one ladder rung above the rung covering the measured drift,
+        within kernel A's widest window (a drift beyond it sends the
+        block exact, in `sweep`'s redo set)."""
         bid, rows, out, wd = item
         out = out.cpu().numpy()
         bqn = len(rows)
@@ -395,7 +413,8 @@ class DeviceResidentRealigner(BatchedRealigner):
         lad = BatchedRealigner.WIDEN_LADDER
         i = next((j for j, v in enumerate(lad) if v * t >= dv), None)
         if i is not None:
-            self._block_widen[bid] = lad[min(i + 1, len(lad) - 1)]
+            self._block_widen[bid] = min(lad[min(i + 1, len(lad) - 1)],
+                                         self._w_fit)
         if dv > wd * t:
             violations[bid] = dv
             return

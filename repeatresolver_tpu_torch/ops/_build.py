@@ -34,8 +34,8 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "walk_backtrack": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "editdp_fill": [ctypes.c_void_p] + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5,
+    "editdp_fill": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10
+    + [ctypes.c_void_p] * 5,
     "editdp_walk": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }

@@ -177,7 +177,7 @@ def editdp_batch(seed, b, lq, lt, *, per_row_targets=False, pad_from=None):
 
 def packed_max_diff(kern, codes8, qlens):
     """The largest difference between kernel C's packed codes [B, nseg,
-    steps, T] and the plain codes int8 [Lq, B, Lt] packed by
+    steps, T, 2] and the plain codes int8 [Lq, B, Lt] packed by
     cuda_editdp.pack_codes, over the words the kernel writes: rows x in
     [0, qlen). 0 when they are equal. chip_smoke.py loads this by path."""
     from repeatresolver_tpu_torch.ops import cuda_editdp as ce
@@ -210,12 +210,16 @@ def _fill_cases(dev, seed, b, lq, lt, per_row, pad_from=None,
 
 
 @pytest.mark.parametrize("seed,b,lq,lt,per_row,pad_from,expand", [
-    (0, 6, 200, 300, False, None, False),   # Lt not a multiple of 16
+    (0, 6, 200, 300, False, None, False),   # Lt not a multiple of 32
     (1, 6, 160, 320, False, None, False),   # 16-byte code stores
     (2, 5, 700, 90, False, None, False),    # Lq > Lt
-    (3, 4, 66, 9001, True, 5000, True),     # cut: two segments, pads
-    (4, 4, 150, 17000, False, None, False),  # three segments
+    (3, 4, 66, 9001, True, 5000, True),     # cut: pads, stride-0 queries
+    (4, 4, 150, 17000, False, None, False),  # 17 warps a row
     (5, 4, 37, 1, True, None, False),        # Lt = 1 (final rows)
+    (6, 3, 50, 33000, True, 20000, False),   # two segments
+    (9, 3, 50, 70000, True, 40000, False),   # three: carry buffers reused
+    (7, 64, 66, 25950, True, 13000, True),   # cut's shape
+    (8, 256, 13700, 4000, False, None, False),  # align's largest batch
 ])
 def test_editdp_fill_matches_plain(dev, seed, b, lq, lt, per_row, pad_from,
                                    expand):
@@ -240,6 +244,7 @@ def test_editdp_fill_matches_plain(dev, seed, b, lq, lt, per_row, pad_from,
 
 @pytest.mark.parametrize("seed,b,lq,lt", [
     (6, 6, 200, 300), (7, 5, 700, 90), (8, 4, 120, 9001), (9, 4, 40, 2),
+    (11, 256, 13700, 4000),                 # align's largest batch
 ])
 def test_editdp_walk_matches_plain(dev, seed, b, lq, lt):
     """Kernel D against walk_plain on the plain codes packed, and on
@@ -260,6 +265,39 @@ def test_editdp_walk_matches_plain(dev, seed, b, lq, lt):
     assert (ed.forward_plain.calls, ed.walk_plain.calls) == plain
     assert torch.equal(al_k, al_p) and torch.equal(fr_k, fr_p)
     assert (al_k[1] == -1).all()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("lt,nseg", [(33000, 2), (70000, 3)])
+def test_editdp_walk_across_segments(dev, lt, nseg):
+    """Kernel C's packed codes over two and three segments (the third
+    reuses the first's carry buffer) and kernel D's walk from the last
+    segment into the one before: queries are mutated copies of the
+    target around that segment border."""
+    from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    from repeatresolver_tpu_torch.ops import editdp as ed
+    lq, b = 3000, 3
+    threads, got, _ = ce.layout(lq, lt)
+    border = (nseg - 1) * threads * 32      # the last segment's first column
+    assert got == nseg
+    rng = np.random.default_rng(12)
+    t = rng.integers(0, 4, lt).astype(np.int16)
+    q = np.full((b, lq), 100, np.int16)
+    lens = np.array([lq, lq - 700, 0], np.int32)
+    for r in range(2):
+        src = t[border - lq // 2:border - lq // 2 + lens[r]].copy()
+        mut = rng.random(lens[r]) < 0.1
+        src[mut] = rng.integers(0, 4, int(mut.sum()))
+        q[r, :lens[r]] = src
+    q, lens, t = (torch.from_numpy(a).to(dev) for a in (q, lens, t))
+    codes_p = torch.empty((lq, b, lt), dtype=torch.int8, device=dev)
+    fr_p = ed.forward_plain(q, lens, t[None, :].expand(b, -1), codes_p)
+    al_p = ed.walk_plain(codes_p, lens, fr_p)
+    assert int(al_p[0].max()) >= border > int(al_p[0][al_p[0] >= 0].min())
+    fr, packed = ce.editdp_fill(q, lens, t, codes="packed")
+    assert torch.equal(fr, fr_p)
+    assert packed_max_diff(packed, codes_p, lens) == 0
+    assert torch.equal(ce.editdp_walk(packed, lens, fr), al_p)
     torch.cuda.synchronize()
 
 

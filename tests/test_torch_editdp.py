@@ -291,22 +291,26 @@ def test_card_route_reaches_the_kernels(card_route):
     queries (mode 0), align_with_codes (mode 1, int8 [Lq, B, Lt]) and
     align_on_device (mode 2 and the walk over its packed codes)."""
     fake, ce, _ = card_route
-    q, lens, t = _batch(8, 40, 9000)
+    q, lens, t = _batch(8, 40, 33000)              # two segments
     qd, ld, td = _cuda_typed(q, lens, t)
     n_fill, n_walk = ce.editdp_fill.launches, ce.editdp_walk.launches
     fr = ped.last_rows(qd[:1].expand(6, -1), ld, td)
-    assert fr.shape == (6, 9000) and fr.dtype == torch.int32
+    assert fr.shape == (6, 33000) and fr.dtype == torch.int32
     kind, a = fake.launches[-1]
-    # queries, stride(0), stride(1), qlens, targets, stride(0), stride(1),
-    # B, Lq, Lt, mode, threads, segments, steps
-    assert kind == "fill" and (a[1], a[2], a[5], a[6]) == (0, 1, 0, 1)
-    assert a[7:14] == (6, 40, 9000, 0, 288, 2, 40 + 287)
+    # query codes, qlens, target codes, target row stride (0: one row
+    # for the batch), B, Lq, Lt, mode, threads, rows a CTA, segments,
+    # steps, symbol table rows, int8 codes, packed codes, final rows,
+    # carries
+    assert kind == "fill" and a[3] == 0
+    assert a[4:13] == (6, 40, 33000, 0, 544, 1, 2, 40 + 543, 8)
+    assert a[13] is None and a[14] is None and a[16] is not None
     codes, _ = ped.align_with_codes(qd, ld, td)
-    assert fake.launches[-1][1][10] == 1 and codes.shape == (6, 40, 9000)
+    a = fake.launches[-1][1]
+    assert a[7] == 1 and codes.shape == (6, 40, 33000)
     al, _ = ped.align_on_device(qd, ld, td)
     (k1, fill), (k2, walk) = fake.launches[-2:]
-    assert (k1, fill[10], k2) == ("fill", 2, "walk") and al.shape == (6, 40)
-    assert walk[5:11] == (6, 40, 9000, 288, 2, 40 + 287)
+    assert (k1, fill[7], k2) == ("fill", 2, "walk") and al.shape == (6, 40)
+    assert walk[5:11] == (6, 40, 33000, 544, 2, 40 + 543)
     assert ce.editdp_fill.launches == n_fill + 3
     assert ce.editdp_walk.launches == n_walk + 1
 
@@ -333,31 +337,33 @@ def test_card_route_raises_on_launch_and_build_errors(card_route):
 
 def test_packed_layout():
     """cuda_editdp.pack_codes (the plain version of kernel C's packed
-    store) and packed_rows against the layout written out: word [b, seg,
-    x + k, k] holds the codes of columns 16*(seg*T + k) .. +15 at row x,
-    two bits each; and the layout of the widths the main path uses."""
+    store) and packed_rows against the layout written out: pair [b, seg,
+    x + k, k] holds the codes of columns 32*(seg*T + k) .. +31 at row x,
+    plane 0 their low bits and plane 1 their high bits, column 32*j + i
+    at bit i; and the layout of the widths the main path uses."""
     from repeatresolver_tpu_torch.ops import cuda_editdp as ce
-    assert ce.layout(13700, 4000) == (256, 1, 13955)
-    assert ce.layout(66, 25950) == (416, 4, 481)
-    assert ce.layout(30693, 30000) == (480, 4, 31172)
+    assert ce.layout(13700, 4000) == (128, 1, 13827)
+    assert ce.layout(66, 25950) == (832, 1, 897)
+    assert ce.layout(30693, 30000) == (960, 1, 31652)
     assert ce.layout(5, 1) == (32, 1, 36)
     rng = np.random.default_rng(3)
-    lq, b, lt = 3, 2, 8200                        # two segments
+    lq, b, lt = 3, 2, 33000                       # two segments
     threads, nseg, steps = ce.layout(lq, lt)
-    assert (threads, nseg, steps) == (288, 2, 290)
+    assert (threads, nseg, steps) == (544, 2, 546)
     codes = rng.integers(0, 4, (lq, b, lt)).astype(np.int8)
     got = ce.pack_codes(torch.from_numpy(codes)).numpy()
-    want = np.zeros((b, nseg, steps, threads), np.uint32)
-    for r in range(b):
-        for x in range(lq):
-            for y in range(lt):
-                j = y // 16
-                seg, k = divmod(j, threads)
-                want[r, seg, x + k, k] |= np.uint32(codes[x, r, y]) << (
-                    2 * (y % 16))
-    np.testing.assert_array_equal(got.view(np.uint32), want)
+    want = np.zeros((b, nseg, steps, threads, 2), np.uint64)
+    x, r, y = (a.ravel() for a in np.meshgrid(
+        np.arange(lq), np.arange(b), np.arange(lt), indexing="ij"))
+    seg, k = np.divmod(y // 32, threads)
+    for bit in (0, 1):
+        val = ((codes[x, r, y].astype(np.uint64) >> np.uint64(bit))
+               & np.uint64(1)) << (y % 32).astype(np.uint64)
+        np.add.at(want, (r, seg, x + k, k, bit), val)
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  want.astype(np.uint32))
     rows = ce.packed_rows(lq, lt).numpy()
     s, k = 7, 5
     assert rows.shape == (steps, threads) and rows[s, k] == s - k
-    assert ce.packed_bytes_per_row(13700, 4000) == 4 * 13955 * 256
+    assert ce.packed_bytes_per_row(13700, 4000) == 8 * 13827 * 128
     assert ped.code_bytes_per_row(13700, 4000, "cpu") == 13700 * 4000

@@ -183,3 +183,69 @@ print("NOJAX-OK")
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NOJAX-OK" in res.stdout
     assert "OverallScore:" in res.stdout
+
+
+def _anneal_in_fresh_interpreter(min_bs, out):
+    """Start a fresh interpreter that runs realign_batched with the
+    anneal (block 64 -> 16 -> 4 -> 1), in the JAX package (its resident
+    engine, Pallas in interpret mode) and in the port (the resident
+    engine's plain versions on the CPU), on one MSA, and saves both score
+    logs and final MSAs to `out`. RR_RESIDENT_MIN_BS (unless None) and
+    RR_FLUSH_CAP=4 (mid-sweep flushes, where the two engines of the
+    anneal differ) are set before either package is imported."""
+    code = f"""
+import sys
+sys.path.insert(0, {REPO!r})
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from repeatresolver_tpu.config import RealignerConfig as JCfg
+from repeatresolver_tpu.models import realigner as jr
+from repeatresolver_tpu.models.realigner_device import (
+    DeviceResidentRealigner as JD)
+from repeatresolver_tpu_torch.config import RealignerConfig
+from repeatresolver_tpu_torch.models import realigner as pr
+from repeatresolver_tpu_torch.models.realigner_device import (
+    DeviceResidentRealigner as PD)
+from tests.test_realigner_device import make_msa
+msa = make_msa(1, rows=72, tlen=240, d=0.2)
+log_j, log_p = [], []
+out_j = jr.realign_batched(msa.copy(), JCfg(bandwidth=48), block_rows=64,
+                           score_log=log_j, mode="staircase",
+                           kernel="pallas")
+out_p = pr.realign_batched(msa.copy(), RealignerConfig(bandwidth=48),
+                           block_rows=64, score_log=log_p, kernel="cuda",
+                           device="cpu")
+np.savez({out!r}, min_bs=[JD.RESIDENT_MIN_BS, PD.RESIDENT_MIN_BS],
+         log_j=log_j, log_p=log_p, out_j=out_j, out_p=out_p)
+"""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu", "RR_FLUSH_CAP": "4"}
+    env.pop("RR_RESIDENT_MIN_BS", None)
+    if min_bs is not None:
+        env["RR_RESIDENT_MIN_BS"] = str(min_bs)
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def test_resident_min_bs_read_from_environment(tmp_path):
+    """RR_RESIDENT_MIN_BS, the block size below which the anneal leaves
+    the resident engine for the host native engine, is read by the port
+    as by the JAX package: with it at 16 (block 16 stays resident) and
+    at its default of 32 (block 16 runs on the host), the port's score
+    log and final MSA equal the JAX package's. On this input the two
+    thresholds give different final MSAs, so a port that ignored the
+    variable would fail the first comparison."""
+    runs = {m: (_anneal_in_fresh_interpreter(m, str(tmp_path / f"{m}.npz")),
+                str(tmp_path / f"{m}.npz")) for m in (16, None)}
+    res = {}
+    for m, (proc, path) in runs.items():
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log[-3000:]
+        res[m] = dict(np.load(path))
+    for m, want in ((16, 16), (None, 32)):
+        r = res[m]
+        assert r["min_bs"].tolist() == [want, want]
+        np.testing.assert_array_equal(r["log_p"], r["log_j"])
+        np.testing.assert_array_equal(r["out_p"], r["out_j"])
+    assert not np.array_equal(res[16]["out_p"], res[None]["out_p"])

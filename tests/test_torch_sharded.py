@@ -227,26 +227,36 @@ def test_mesh_blocks_respect_memory_budget(ranks, monkeypatch):
 
 
 def test_mesh_widen_quirk_top_rung_against_exact_switch(ranks):
-    """Where no ladder rung covers a block's drift, the mesh step takes
-    the top rung (a window that does not cover the drift) while the
-    single-process step has switched the block to the exact band. The
-    port does what the JAX package does: its mesh run equals the JAX
-    mesh run. Whether the two steps disagree on this input is recorded
-    by the last assertion."""
+    """Where no ladder rung covers a block's drift, the port's mesh step
+    switches the block to the exact band, as its single-process step
+    does: the port's mesh run equals its single-process run and the JAX
+    package's single-process run, bit for bit. The JAX package's mesh
+    step takes the top rung instead (a window that does not cover the
+    drift); the last assertion records that its mesh run differs from
+    the three."""
+    from repeatresolver_tpu.config import RealignerConfig as JCfg
+    from repeatresolver_tpu.models import realigner as jr
     from repeatresolver_tpu_torch.models.realigner import (
         BatchedRealigner, chunk_drift, compact_rows)
     _, res = ranks
     msa = wide_drift_msa()
     _, ways, _ = compact_rows(msa)
     assert chunk_drift(ways, 256) > BatchedRealigner.WIDEN_LADDER[-1] * 256
-    log_j, out_j = _jax_mesh_run("wide_drift")
-    np.testing.assert_array_equal(res["wide_drift_log"], log_j)
-    np.testing.assert_array_equal(res["wide_drift_out"], out_j)
     log_s, out_s = run_scenario("wide_drift")
+    np.testing.assert_array_equal(res["wide_drift_log"], log_s)
+    np.testing.assert_array_equal(res["wide_drift_out"], out_s)
     log_e, out_e = run_scenario("wide_drift", mode="exact")
     np.testing.assert_array_equal(log_s, log_e)     # the exact switch
     np.testing.assert_array_equal(out_s, out_e)
-    assert res["wide_drift_log"].tolist() != log_s.tolist()
+    _, cfg_kw, kw = SCENARIOS["wide_drift"]
+    log_j: list = []
+    out_j = jr.realign_batched(msa, JCfg(**cfg_kw), score_log=log_j,
+                               **{**kw, "kernel": "xla"})
+    np.testing.assert_array_equal(res["wide_drift_log"],
+                                  np.array(log_j, np.int64))
+    np.testing.assert_array_equal(res["wide_drift_out"], out_j)
+    log_jm, _ = _jax_mesh_run("wide_drift")
+    assert log_jm.tolist() != res["wide_drift_log"].tolist()
 
 
 def test_mesh_maxcorrs_striped_scan(ranks):
