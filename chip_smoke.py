@@ -113,7 +113,18 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      inside C and D and the cells/s. Then the inputs recorded from the
      first cut call (whole) and from the first align call and the one
      with the most DP rows (three rows each, at the batch's Lq) go
-     through C and D and their plain versions, bit-equal.
+     through C and D and their plain versions, bit-equal;
+ 13. the paper-run driver (`python -m repeatresolver_tpu_torch.paper_run
+     ... --device cuda`) at -c 16 -n 8 -l 3000 -d 1 --seed 11, block 64:
+     once --until align and then resumed to the end, and once straight,
+     each in a process of its own with every count at 0. Each stage
+     must stand once in stage_times.json, the resume must leave the
+     earlier stages' files untouched and launch neither C nor D, and
+     every file must equal the straight run's (stage_times.json: the
+     same stages; .done: the same rounds; the realign checkpoint, an
+     npz whose zip members carry their write time: the same arrays).
+     Kernels A-D must each have launched, the plain edit-DP loop not at
+     all.
 
 Every process a phase starts gets a time limit and is stopped when it
 passes it; a rank that fails or hangs fails the phase, and so does a
@@ -431,6 +442,49 @@ def compare_editdp(q, lens, targets, timed=False):
     return (err_c, err_d), (ms_c, plain_c, ms_d, plain_d, walked.cpu())
 
 
+def replay_blocks(blocks, errs, what):
+    """Recorded block steps ({widen: (counts, rows, seqs, ways, lengths;
+    ncols; the fill's keywords)}) through kernels A and B and their plain
+    versions, bit-equal, into errs."""
+    for widen, (args, ncols, kw) in sorted(blocks.items()):
+        (ea, eb), _ = compare_block(args, ncols, kw["bandwidth"],
+                                    kw["chunk"], widen, args[1].shape[1])
+        errs["staircase_fill"] = max(errs["staircase_fill"], ea)
+        errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
+        b, lpad = args[2].shape
+        print(f"{what}: first block step at widen {widen} bit-equal to "
+              f"the plain versions: {b} rows x {lpad} bases, MSA width "
+              f"{ncols} of {args[1].shape[1]}, W2 "
+              f"{kw['bandwidth'] + widen * kw['chunk']}")
+
+
+def replay_editdp(kept, errs, what):
+    """Kernels C and D against their plain versions on recorded inputs:
+    cut's first batch whole (200-padded reads), and
+    three rows (the longest, the median, the shortest) of the first align
+    batch and of the one with the most DP rows, at the batch's Lq, so at
+    the kernels' layout of the main run; into errs."""
+    import torch
+    t0 = time.perf_counter()
+    q, ql, tg = kept["cut"]
+    (ec, _), _ = compare_editdp(q, ql, tg)
+    errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+    shapes = [f"cut {q.shape[0]} x {q.shape[1]} x {tg.shape[1]}"]
+    for key in ("align_first", "align_longest"):
+        q, ql, t = kept[key]
+        order = torch.argsort(ql.long(), stable=True)
+        rows = order[sorted({0, len(order) // 2, len(order) - 1})]
+        (ec, ewd), _ = compare_editdp(q[rows], ql[rows], t)
+        errs["editdp_fill"] = max(errs["editdp_fill"], ec)
+        errs["editdp_walk"] = max(errs["editdp_walk"], ewd)
+        shapes.append(f"{len(rows)} of {q.shape[0]} align rows x "
+                      f"{q.shape[1]} x {t.shape[0]} (qlens "
+                      f"{ql[rows].tolist()})")
+    print(f"{what}: kernels C and D bit-equal to their plain versions on "
+          f"its inputs ({'; '.join(shapes)}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def wide_band_check(card, msa, errs):
     """Phase 4's second run: the tpu_converge MSA at band 2600, block 64,
     2 rounds, where the default slack's window (2600 + 12 x 128) passes
@@ -489,16 +543,7 @@ def wide_band_check(card, msa, errs):
     if min(launches[k] for k in REALIGN_KERNELS) <= 0:
         raise AssertionError(f"band 2600: a kernel never launched: "
                              f"{launches}")
-    for widen, (args, ncols, kw) in sorted(blocks.items()):
-        (ea, eb), _ = compare_block(args, ncols, kw["bandwidth"],
-                                    kw["chunk"], widen, args[1].shape[1])
-        errs["staircase_fill"] = max(errs["staircase_fill"], ea)
-        errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
-        b, lpad = args[2].shape
-        print(f"band 2600: first block step at widen {widen} bit-equal to "
-              f"the plain versions: {b} rows x {lpad} bases, MSA width "
-              f"{ncols} of {args[1].shape[1]}, W2 "
-              f"{kw['bandwidth'] + widen * kw['chunk']}")
+    replay_blocks(blocks, errs, "band 2600")
     return launches
 
 
@@ -1208,28 +1253,8 @@ def paper_cut_align_phase(card, dev, errs):
         raise AssertionError(f"a kernel never launched: {launches}")
 
     # kernels C and D against their plain versions at this phase's own
-    # shapes: cut's first batch whole (stride-0 queries, 200-padded
-    # reads), and three rows (the longest, the median, the shortest) of
-    # the first align batch and of the one with the most DP rows, at the
-    # batch's Lq, so at the kernels' layout of the main run
-    t0 = time.perf_counter()
-    q, ql, tg = kept["cut"]
-    (ec, _), _ = compare_editdp(q, ql, tg)
-    errs["editdp_fill"] = max(errs["editdp_fill"], ec)
-    shapes = [f"cut {q.shape[0]} x {q.shape[1]} x {tg.shape[1]}"]
-    for key in ("align_first", "align_longest"):
-        q, ql, t = kept[key]
-        order = torch.argsort(ql.long(), stable=True)
-        rows = order[sorted({0, len(order) // 2, len(order) - 1})]
-        (ec, ewd), _ = compare_editdp(q[rows], ql[rows], t)
-        errs["editdp_fill"] = max(errs["editdp_fill"], ec)
-        errs["editdp_walk"] = max(errs["editdp_walk"], ewd)
-        shapes.append(f"{len(rows)} of {q.shape[0]} align rows x "
-                      f"{q.shape[1]} x {t.shape[0]} (qlens "
-                      f"{ql[rows].tolist()})")
-    print(f"kernels C and D bit-equal to their plain versions on this "
-          f"phase's inputs ({'; '.join(shapes)}) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    # shapes
+    replay_editdp(kept, errs, "cut and align at paper width")
 
     # a sample against the host native full DP (band 0)
     res = kept["res"]
@@ -1694,6 +1719,221 @@ def resolve_windows_phase(card):
     print(f"graft_entry on the card: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 13: the paper-run driver at a small configuration whose realign
+# runs on the resident engine (55 rows: one block of 64)
+DRIVER_ARGS = ["-c", "16", "-n", "8", "-l", "3000", "-d", "1", "--seed",
+               "11", "--band", "1000", "--block-rows", "64", "--device",
+               "cuda"]
+# a process of phase 13: the driver with every count at 0, then one line
+# of its launches, its plain-loop runs and any foreign module. With a
+# record path (argv[1], "-" for none), stand-ins for the kernels' modules
+# keep the inputs of the first block step at each slack, of the first
+# cut call and of the first and the largest align call, and save them
+# there (host copies) for the phase to replay
+DRIVER_CHILD = """
+import json, sys, types
+import torch
+from repeatresolver_tpu_torch import paper_run
+from repeatresolver_tpu_torch.models import initial_aligner, read_cutter
+from repeatresolver_tpu_torch.models import realigner_device
+from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
+from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+from repeatresolver_tpu_torch.ops import cuda_realign as cr
+from repeatresolver_tpu_torch.ops import editdp
+counters = dict(staircase_fill=cr.staircase_fill,
+                walk_backtrack=cb.backtrack_moves,
+                editdp_fill=ce.editdp_fill, editdp_walk=ce.editdp_walk)
+plain = (editdp.forward_plain, editdp.walk_plain)
+kept = {"blocks": {}}
+
+
+def host(args):
+    return [a.cpu() if torch.is_tensor(a) else a for a in args]
+
+
+def fill(*args, **kw):
+    if kw["widen"] not in kept["blocks"]:
+        kept["blocks"][kw["widen"]] = (host(args[:5]), host(args[5:])[0],
+                                       kw)
+    return cr.staircase_fill(*args, **kw)
+
+
+def last_rows(*args):
+    kept.setdefault("cut", host(args))
+    return editdp.last_rows(*args)
+
+
+def align(*args):
+    kept.setdefault("align_first", host(args))
+    if args[0].shape[1] > kept.get("lq", -1):
+        kept["lq"], kept["align_longest"] = args[0].shape[1], host(args)
+    return editdp.align_on_device(*args)
+
+
+if sys.argv[1] != "-":
+    realigner_device.cr = types.SimpleNamespace(
+        **{**vars(cr), "staircase_fill": fill})
+    read_cutter.editdp = types.SimpleNamespace(
+        **{**vars(editdp), "last_rows": last_rows})
+    initial_aligner.editdp = types.SimpleNamespace(
+        **{**vars(editdp), "align_on_device": align})
+for f in counters.values():
+    f.launches = 0
+for f in plain:
+    f.calls = 0
+paper_run.main(sys.argv[2:])
+if sys.argv[1] != "-":
+    torch.save(kept, sys.argv[1])
+print("DRIVER " + json.dumps(dict(
+    launches={k: f.launches for k, f in counters.items()},
+    plain=[f.calls for f in plain],
+    foreign=sorted(m for m in sys.modules
+                   if m.split(".")[0] in ("jax", "repeatresolver_tpu")))))
+"""
+
+
+def _driver_report(out, what):
+    line = [ln for ln in out.splitlines() if ln.startswith("DRIVER ")]
+    if not line:
+        raise AssertionError(f"{what}: no report\n{out[-2000:]}")
+    rep = json.loads(line[-1][len("DRIVER "):])
+    if rep["foreign"]:
+        raise AssertionError(f"{what} imported {rep['foreign']}")
+    if any(rep["plain"]):
+        raise AssertionError(f"{what}: the plain edit-DP loop ran "
+                             f"{rep['plain']}")
+    return rep["launches"]
+
+
+def _same_npz(a, b):
+    import numpy as np
+    with np.load(a) as za, np.load(b) as zb:
+        return (sorted(za.files) == sorted(zb.files)
+                and all(np.array_equal(za[k], zb[k]) for k in za.files))
+
+
+def paper_driver_phase(card, errs):
+    """Phase 13; returns the straight run's launches. The straight run
+    records the kernels' inputs, replayed here through each kernel and
+    its plain version; a third process cuts and aligns on the host
+    routes (--device cpu --align-band 0), whose files the straight run's
+    must equal."""
+    import hashlib
+
+    import torch
+    dirs = {k: os.path.join(WORK, "driver_" + k)
+            for k in ("resumed", "straight", "host")}
+    record = os.path.join(WORK, "driver_inputs.pt")
+
+    def cmd(d, *extra, rec="-"):
+        return [sys.executable, "-c", DRIVER_CHILD, rec, "--workdir", d] + \
+            DRIVER_ARGS + list(extra)
+
+    def state(d):
+        out = {}
+        for n in os.listdir(d):
+            p = os.path.join(d, n)
+            with open(p, "rb") as f:
+                out[n] = (hashlib.sha256(f.read()).hexdigest(),
+                          os.stat(p).st_mtime_ns)
+        return out
+
+    t0 = time.perf_counter()
+    out_a, out_s, out_h = run_processes(
+        [cmd(dirs["resumed"], "--until", "align"),
+         cmd(dirs["straight"], rec=record),
+         cmd(dirs["host"], "--device", "cpu", "--align-band", "0",
+             "--until", "align")],
+        "paper_run --until align, straight, and on the host routes")
+    t_first = time.perf_counter() - t0
+    first = _driver_report(out_a, "paper_run --until align")
+    straight = _driver_report(out_s, "paper_run straight")
+    _driver_report(out_h, "paper_run --device cpu")
+    host_files = sorted(set(os.listdir(dirs["host"]))
+                        - {"stage_times.json"})
+    for n in host_files:
+        with open(os.path.join(dirs["host"], n), "rb") as f1, \
+                open(os.path.join(dirs["straight"], n), "rb") as f2:
+            if f1.read() != f2.read():
+                raise AssertionError(f"{n}: the card's driver != --device "
+                                     "cpu --align-band 0")
+    before = state(dirs["resumed"])
+    del before["stage_times.json"]
+    t0 = time.perf_counter()
+    out_r, = run_processes([cmd(dirs["resumed"])], "paper_run resumed")
+    t_resume = time.perf_counter() - t0
+    resumed = _driver_report(out_r, "paper_run resumed")
+    after = state(dirs["resumed"])
+    touched = [n for n in before if after.get(n) != before[n]]
+    if touched:
+        raise AssertionError(f"the resume touched {touched}")
+    recs = {}
+    for k, d in dirs.items():
+        with open(os.path.join(d, "stage_times.json")) as f:
+            recs[k] = [json.loads(ln) for ln in f]
+    stages = [r["stage"] for r in recs["resumed"]]
+    if (len(set(stages)) != len(stages)
+            or stages != [r["stage"] for r in recs["straight"]]
+            or stages[:4] != ["simulate", "cut", "align", "realign"]
+            or stages[-1] != "assess"):
+        raise AssertionError(f"stages {stages} (straight: "
+                             f"{[r['stage'] for r in recs['straight']]})")
+    names = sorted(os.listdir(dirs["straight"]))
+    if sorted(os.listdir(dirs["resumed"])) != names:
+        raise AssertionError("the resumed run's files differ in name")
+    for n in names:
+        a, b = (os.path.join(dirs[k], n) for k in ("resumed", "straight"))
+        if n == "stage_times.json":
+            continue
+        if n.endswith(".done"):
+            with open(a) as fa, open(b) as fb:
+                same = json.load(fa)["rounds"] == json.load(fb)["rounds"]
+        elif n.endswith(".ckpt"):
+            # npz: its zip members carry their write time
+            same = _same_npz(a, b)
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                same = fa.read() == fb.read()
+        if not same:
+            raise AssertionError(f"{n}: resumed run != straight run")
+    dead = [k for k in KERNELS if not straight[k]]
+    if dead or not (first["editdp_fill"] and first["editdp_walk"]
+                    and resumed["staircase_fill"]
+                    and resumed["walk_backtrack"]):
+        raise AssertionError(f"kernels that did not launch: straight "
+                             f"{straight}, --until align {first}, resumed "
+                             f"{resumed}")
+    if resumed["editdp_fill"] or resumed["editdp_walk"]:
+        raise AssertionError(f"the resume cut or aligned again: {resumed}")
+    # the straight run's kernel inputs through each kernel and its plain
+    # version (launches not counted in the run above)
+    kept = torch.load(record, weights_only=False)
+
+    def to_card(x):
+        return x.cuda() if torch.is_tensor(x) else x
+    blocks = {w: ([to_card(a) for a in args], to_card(ncols), kw)
+              for w, (args, ncols, kw) in kept["blocks"].items()}
+    if not blocks:
+        raise AssertionError("the straight run recorded no block step")
+    replay_blocks(blocks, errs, "paper_run realign")
+    replay_editdp({k: [to_card(a) for a in kept[k]] for k in
+                   ("cut", "align_first", "align_longest")}, errs,
+                  "paper_run cut and align")
+    print("straight run's stages (s): " + ", ".join(
+        f"{r['stage']} {r['wall_s']:.2f}" for r in recs["straight"])
+        + f"; assessment {recs['straight'][-1]}")
+    print(f"cut and align files ({', '.join(host_files)}) byte-equal to "
+          f"--device cpu --align-band 0")
+    print(f"{len(names)} files equal between a straight run and --until "
+          f"align + resume (stage_times.json: the same {len(stages)} "
+          f"stages once each; .done: the same rounds; checkpoints: the "
+          f"same arrays); the resume left the earlier {len(before)} "
+          f"files untouched; launches straight {straight}, --until align "
+          f"{first}, resumed {resumed}; the first three processes "
+          f"{t_first:.1f} s, the resume {t_resume:.1f} s, on {card}")
+    return straight
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2007,16 +2247,20 @@ def main() -> int:
     with phase("12 main path: cut and align at paper width on the card"):
         cut_launches = paper_cut_align_phase(card, dev, errs)
 
+    with phase("13 main path: the paper-run driver, resumed after align"):
+        driver_launches = paper_driver_phase(card, errs)
+
     # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
     # and B, as in every earlier report; phase 6 for C and D); the counts
-    # of all six main paths stand in `launches_by_path` (the mesh path's
+    # of all seven main paths stand in `launches_by_path` (the mesh path's
     # is one rank's: both ranks launch the same number)
     by_path = {name: {"realign_tpu_converge": launches[name],
                       "pipeline_615": pipe_launches[name],
                       "realign_band_2600": band_launches[name],
                       "realign_paper_width": paper_launches[name],
                       "realign_mesh_2_ranks_per_rank": mesh_launches[name],
-                      "cut_align_paper_width": cut_launches[name]}
+                      "cut_align_paper_width": cut_launches[name],
+                      "paper_run_driver": driver_launches[name]}
                for name in KERNELS}
     report = [dict(name=name, route="cuda", **KERNELS[name],
                    launches=by_path[name][MAIN_PATH[name]],

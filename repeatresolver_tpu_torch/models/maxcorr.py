@@ -37,7 +37,7 @@ from ..utils.checkpoint import _atomic_write
 
 __all__ = ["MaxCorrConfig", "MaxCorrScan", "compute_maxcorrs",
            "compute_maxcorrs_device", "compute_maxcorrs_native",
-           "group_matrices", "run"]
+           "compute_maxcorrs_routed", "group_matrices", "run"]
 
 
 # ---- copied from repeatresolver_tpu/models/maxcorr.py: the host scans
@@ -389,6 +389,25 @@ def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
 
 
 compute_maxcorrs_device.calls = 0
+
+
+def compute_maxcorrs_routed(msa: np.ndarray, cfg: MaxCorrConfig, device,
+                            threads: int,
+                            checkpoint_path: str | None = None
+                            ) -> np.ndarray:
+    """The MaxCorrs stage of run_pipeline and of the paper driver, behind
+    the JAX package's gate: the device scan on a CUDA device at >= 512
+    rows and > 4M cells, where the rows make the pairwise products
+    large; else the host fast path, which wins on small problems and on
+    the CPU (identical significance decisions, exact values where
+    significant; `threads` workers striped over seed tiles, with its
+    checkpoint)."""
+    rows, cols = msa.shape
+    if (torch.device(device).type == "cuda" and rows >= 512
+            and rows * cols > 4_000_000):
+        return compute_maxcorrs_device(msa, cfg, device=device)
+    return compute_maxcorrs(msa, cfg, fast=True, threads=threads,
+                            checkpoint_path=checkpoint_path)
 
 
 def run(msa_path: str, cfg: MaxCorrConfig, out_path: str | None = None,

@@ -549,6 +549,7 @@ class BatchedRealigner:
     # their seconds, for reports
     host_sweeps = 0
     host_sweep_s = 0.0
+    host_sweep_s_by_bs: dict = {}     # the same seconds by block size
 
     def __init__(self, msa: np.ndarray, bandwidth: int = 1000,
                  block_rows: int = 8, mode: str = "exact",
@@ -642,8 +643,11 @@ class BatchedRealigner:
     def sweep(self) -> None:
         t0 = time.perf_counter()
         self._sweep()
+        dt = time.perf_counter() - t0
         BatchedRealigner.host_sweeps += 1
-        BatchedRealigner.host_sweep_s += time.perf_counter() - t0
+        BatchedRealigner.host_sweep_s += dt
+        by_bs = BatchedRealigner.host_sweep_s_by_bs
+        by_bs[self.block_rows] = by_bs.get(self.block_rows, 0.0) + dt
 
     def _sweep(self) -> None:
         r = self.msa.shape[0]
@@ -984,10 +988,12 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     """The realign main loop (PW_ReAligner.c:1681-1747): sweep until a
     round fails to improve the (mille, uno) score pair, keeping the best
     MSA. With checkpoint_path the state is saved atomically per
-    improving round (the reference's best-MSA-per-round semantics), and
-    resume=True restarts from it, also from a checkpoint the JAX package
-    wrote. score_log_path: one line a round, "round score width"
-    (OverallScorePrintF, PW_ReAligner.c:965-1007).
+    improving round (the reference's best-MSA-per-round semantics; on
+    the resident engine at most every RR_BEST_WRITE_S seconds, 600 by
+    default, as in the JAX package), and resume=True restarts from it,
+    also from a checkpoint the JAX package wrote. score_log_path: one
+    line a round, "round score width" (OverallScorePrintF,
+    PW_ReAligner.c:965-1007).
 
     mode "auto" is the staircase band (the exact band with kernel
     "native"); kernel "auto" is "cuda" for the staircase and, for the
@@ -1072,6 +1078,18 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     cells = 0
     t0 = time.perf_counter()
     writer: list = [None]         # in-flight best-MSA write thread
+
+    # an engine whose snapshots are costly (the resident engine: each
+    # write downloads and encodes the whole MSA) writes at most once
+    # every RR_BEST_WRITE_S seconds, the JAX package's variable and
+    # default; the files are crash recovery, and the final state is
+    # always written on return. Re-read a write: the anneal hands the
+    # tail to a host engine, whose snapshots are cheap
+    def _write_interval():
+        return (float(os.environ.get("RR_BEST_WRITE_S", "600"))
+                if getattr(eng, "SNAPSHOT_COSTLY", False) else 0.0)
+
+    last_write = [-float("inf")]
     write_stale = [False]         # best_msa newer than the last write
 
     def _eng_state():
@@ -1082,6 +1100,7 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     def _write_best(snapshot, pair, rnd, state):
         if not writes:
             return
+        tw = time.perf_counter()
         if out_path is not None:
             rio.write_msa(out_path, snapshot, upper=True)
         if checkpoint_path is not None:
@@ -1094,6 +1113,13 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
                 widen=ws[1] if ws else None,
                 exact_blocks=np.asarray(ws[2], np.int64) if ws
                 else None).save(checkpoint_path)
+        realign_batched.write_s.append(time.perf_counter() - tw)
+
+    def _join_writer():
+        if writer[0] is not None:
+            tj = time.perf_counter()
+            writer[0].join()
+            realign_batched.write_wait_s += time.perf_counter() - tj
 
     def check_improved(write=True):
         nonlocal best, best_msa
@@ -1110,10 +1136,13 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
             write_stale[0] = True
             if write and (out_path is not None
                           or checkpoint_path is not None):
+                if time.perf_counter() - last_write[0] \
+                        < _write_interval():
+                    return True
                 # overlap the best-MSA write with the next sweep; at
                 # most one write is in flight
-                if writer[0] is not None:
-                    writer[0].join()
+                _join_writer()
+                last_write[0] = time.perf_counter()
                 write_stale[0] = False
                 writer[0] = threading.Thread(
                     target=_write_best,
@@ -1148,11 +1177,10 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
             break
     eng.ent_al_gapper()
     check_improved()
-    if writer[0] is not None:     # files must be complete on return
-        writer[0].join()
+    _join_writer()                # files must be complete on return
     if write_stale[0] and best_msa is not None \
             and (out_path is not None or checkpoint_path is not None):
-        # the initial best was never superseded: write it
+        # a throttled (or the initial) best was never written: write it
         _write_best(best_msa, best, rounds, _eng_state())
     if stats is not None:
         dt = time.perf_counter() - t0
@@ -1160,6 +1188,13 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
                      cells_per_s=cells / dt if dt > 0 else 0.0)
     return (np.asarray(best_msa) if best_msa is not None
             else eng.msa)
+
+
+# seconds of each best-MSA write (MSA text and checkpoint, on the writer
+# thread) and seconds the loop waited for the write in flight, for
+# reports
+realign_batched.write_s = []
+realign_batched.write_wait_s = 0.0
 
 
 def realign(msa: np.ndarray, cfg: RealignerConfig,

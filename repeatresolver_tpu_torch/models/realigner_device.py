@@ -143,6 +143,9 @@ class DeviceResidentRealigner(BatchedRealigner):
     exact_blocks_run = 0
     exact_blocks_run_torch = 0
     resident_sweep_s = 0.0
+    # each best-MSA write downloads the whole MSA: realign_batched
+    # writes at most every RR_BEST_WRITE_S seconds
+    SNAPSHOT_COSTLY = True
 
     def __init__(self, msa: np.ndarray, bandwidth: int = 1000,
                  block_rows: int = 64, chunk: int = 256,

@@ -10,7 +10,8 @@ package takes on its backend, keyed here on the caller's `device`:
               "cpu": the native host kernels
   realign     realign_batched on `device` (kernels A and B on "cuda")
   MaxCorrs    the device scan on "cuda" at >= 512 rows and > 4M cells
-              (the JAX package's gate); the host fast path otherwise
+              (the JAX package's gate, maxcorr.compute_maxcorrs_routed,
+              shared with the paper driver); the host fast path otherwise
   resolve     the exact products above the devmm gate on `device`
 
 No stage falls back to the host when its device route fails.
@@ -135,18 +136,8 @@ def run_pipeline(cfg: PipelineConfig, workdir: str, progress=print,
     res.boundaries = bounds
     progress(f"[window] boundaries {bounds}")
 
-    # the device scan pays off once the rows make the pairwise products
-    # large; the host fast path wins on small problems and on the CPU
-    use_dev = (dev.type == "cuda" and msareal.shape[0] >= 512
-               and msareal.shape[1] * msareal.shape[0] > 4_000_000)
-    if use_dev:
-        mc = maxcorr.compute_maxcorrs_device(msareal, cfg.maxcorr,
-                                             device=dev)
-    else:
-        # mode-gated prefilter: identical significance decisions, exact
-        # values where significant; workers striped over seed tiles
-        mc = maxcorr.compute_maxcorrs(msareal, cfg.maxcorr, fast=True,
-                                      threads=min(4, os.cpu_count() or 1))
+    mc = maxcorr.compute_maxcorrs_routed(
+        msareal, cfg.maxcorr, dev, threads=min(4, os.cpu_count() or 1))
     mc_path = os.path.join(workdir,
                            "MaxCorrsOf_" + os.path.basename(msareal_path))
     rio.write_maxcorrs(mc_path, mc)

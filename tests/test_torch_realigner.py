@@ -249,3 +249,52 @@ def test_resident_min_bs_read_from_environment(tmp_path):
         np.testing.assert_array_equal(r["log_p"], r["log_j"])
         np.testing.assert_array_equal(r["out_p"], r["out_j"])
     assert not np.array_equal(res[16]["out_p"], res[None]["out_p"])
+
+
+@pytest.mark.parametrize("interval", ["0", None])
+def test_best_write_interval_matches_jax(tmp_path, monkeypatch, interval):
+    """RR_BEST_WRITE_S as the JAX package keys it: the resident engine
+    writes its best MSA at most once an interval (600 s unset), the
+    host engine of the anneal's tail every improving round, and the
+    final best always. The same checkpoints, in the same order, and the
+    same files as the JAX resident engine's run."""
+    from repeatresolver_tpu.models import realigner as jr
+    from repeatresolver_tpu.utils import checkpoint as jck
+    from repeatresolver_tpu_torch.models import realigner as pr
+    from repeatresolver_tpu_torch.utils import checkpoint as pck
+    if interval is None:
+        monkeypatch.delenv("RR_BEST_WRITE_S", raising=False)
+    else:
+        monkeypatch.setenv("RR_BEST_WRITE_S", interval)
+    saves = {"jax": [], "port": []}
+    for key, mod in (("jax", jck), ("port", pck)):
+        orig = mod.RealignCheckpoint.save
+
+        def save(self, path, key=key, orig=orig):
+            saves[key].append((self.round, self.best_mille, self.best_uno,
+                               self.block_rows))
+            orig(self, path)
+        monkeypatch.setattr(mod.RealignCheckpoint, "save", save)
+    msa = make_msa(11, rows=8, tlen=200)
+    cfg = RealignerConfig(bandwidth=96)
+    kw = {}
+    for key in ("jax", "port"):
+        (tmp_path / key).mkdir()
+        kw[key] = dict(out_path=str(tmp_path / key / "MSAreal"),
+                       checkpoint_path=str(tmp_path / key / "ckpt"),
+                       score_log_path=str(tmp_path / key / "scorelog"))
+    out_j = jr.realign_batched(msa.copy(), cfg, block_rows=4,
+                               mode="staircase", kernel="pallas", **kw["jax"])
+    out_p = pr.realign_batched(msa.copy(), cfg, block_rows=4, kernel="cuda",
+                               device="cpu", **kw["port"])
+    np.testing.assert_array_equal(out_p, out_j)
+    assert saves["port"] == saves["jax"]
+    rounds = [s[0] for s in saves["jax"]]
+    if interval is None:
+        # the first improving resident round, then the host tail's
+        assert 1 in rounds and 2 not in rounds
+    else:
+        assert rounds[:3] == [0, 1, 2]
+    for name in ("MSAreal", "scorelog"):
+        assert ((tmp_path / "port" / name).read_bytes()
+                == (tmp_path / "jax" / name).read_bytes())

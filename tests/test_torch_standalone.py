@@ -40,8 +40,8 @@ def _so_state():
 
 @pytest.fixture(scope="module")
 def standalone_run(tmp_path_factory):
-    """The tiny CPU pipeline through the port's CLI in a fresh
-    interpreter; returns (work directory, completed process,
+    """The tiny CPU pipeline through the port's CLI, then the paper
+    driver at a tiny configuration, in a fresh interpreter; returns (work directory, completed process,
     libhostops.so state before, after)."""
     work = tmp_path_factory.mktemp("standalone")
     code = f"""
@@ -58,6 +58,12 @@ print("PORT-MODULES", " ".join(sorted(mods)))
 from repeatresolver_tpu_torch import cli
 cli.main(["pipeline", "-c", "8", "-n", "4", "-l", "2000", "-b", "200",
           "-w", {str(work / "run")!r}, "--device", "cpu"])
+from repeatresolver_tpu_torch import paper_run
+paper_run.main(["--workdir", {str(work / "paper")!r}, "-c", "30", "-n", "4",
+                "-l", "2000", "-d", "2", "--seed", "7", "--band", "200",
+                "--block-rows", "16", "--align-band", "0", "--threads", "2",
+                "--device", "cpu"])
+print("PAPER-RUN", sorted(__import__("os").listdir({str(work / "paper")!r})))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "repeatresolver_tpu"))
 print("FOREIGN-MODULES", bad)
@@ -80,8 +86,11 @@ def test_fresh_interpreter_loads_no_jax_and_no_jax_package(standalone_run):
     assert "FOREIGN-MODULES []" in res.stdout, res.stdout[-500:]
     mods = next(ln for ln in res.stdout.splitlines()
                 if ln.startswith("PORT-MODULES")).split()[1:]
+    assert "assessment.json" in next(ln for ln in res.stdout.splitlines()
+                                     if ln.startswith("PAPER-RUN"))
     for name in ("parallel.sharded", "parallel.multihost", "graft_entry",
-                 "ops.myers", "ops.banded_realign"):
+                 "ops.myers", "ops.banded_realign", "paper_run",
+                 "paper_card"):
         assert "repeatresolver_tpu_torch." + name in mods, name
 
 
