@@ -7,7 +7,7 @@ Phases (each raises on failure, or when jax or any module of the JAX
 package repeatresolver_tpu was imported, so any failure exits non-zero):
 
   1. card and build: the card's name, power limit and SM clock, torch /
-     CUDA versions, the nvcc build of the four kernels from csrc/ (one
+     CUDA versions, the nvcc build of the five kernels from csrc/ (one
      nvcc each, started together) and the g++ build of the port's host
      library;
   2. kernels vs plain versions, small random blocks (gap-dense paths,
@@ -28,6 +28,11 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      kernels C and D at pipeline-615's largest align batch (256 pieces x
      Lq 13,700 x Lt 4,000) and C at cut's shape (64 x 66 x 25,950), the
      same way (all three modes of C checked), and their launches alone;
+     then kernel E (the MaxCorrs tile pass) at paper width: one tile pair
+     of phase 7's synthetic MSA (13,833 rows, tile 256, every seed
+     alive) against its plain version (identical decisions, max |dZ| <=
+     1e-5) and timed the same way, beside the four int8 products it
+     follows and both bounds;
   4. the main path: the runs/tpu_converge dataset (Tree, c=25, n=8,
      d=1%, l=4000, seed 11) built with the port's host stages, then the
      port's CLI `realign -b 1000 -B 64 --device cuda`. Its OverallScore
@@ -49,18 +54,22 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      so the MaxCorrs device scan's >= 512-row gate routes it to the
      card), with every resolver product sent to the card
      (RR_DEVICE_MM_MIN=0). The edit DP of cut and align (kernels C and
-     D), kernels A and B, the MaxCorrs scan and the resolver products
-     must each have run on the card, and the plain edit-DP loop not at
-     all; cut and align must write the host native route's files byte
+     D), kernels A and B, the MaxCorrs scan (kernel E) and the resolver
+     products must each have run on the card, and the plain edit-DP loop
+     and the plain tile pass not at all; cut and align must write the host native route's files byte
      for byte, MaxCorrs must make the host fast scan's decisions (within
      its tolerances), and one window's subdivisions must equal, byte for
      byte, a rerun with every product on the host. Prints each stage's
      seconds, each kernel's launches and seconds inside it (CUDA events)
      and the assessment;
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
-     of 13,833 rows x 131,072 columns from seed 0, a band of seed tiles
-     scanned on the card and by the native host scan, same decisions
-     within the same tolerances, with both times;
+     of 13,833 rows x 131,072 columns from seed 0; the band's first tile
+     pairs through kernel E and its plain version (identical decisions
+     and alive seeds, max |dZ| <= 1e-5); the band of seed tiles scanned
+     on the card (E launched once a pair scanned, the plain pass never)
+     and by the native host scan, same decisions within the same
+     tolerances, with both times, the pairs scanned and needed, the host
+     reads, and the ms a pair in the products and in E;
   8. the realign main path at the paper's repeat length: a Tree dataset
      with -l 30000 -d 1 (coverage 12, 8 copies: an MSA of 328 rows,
      more than three blocks of 64) built with the port's host stages,
@@ -97,7 +106,8 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      engine's padding) through both kernels and their plain versions,
      bit-equal. Then the MaxCorrs scan
      of phase 6's MSAreal striped over the two ranks: equal to phase
-     6's single scan, tolerance 0;
+     6's single scan, tolerance 0, kernel E launched in both ranks and
+     the plain tile pass in neither;
  11. `cli resolve-windows` on phase 6's files, two processes joined
      over gloo (`--coordinator 127.0.0.1:<port> --procs 2 --proc-id i
      --device cuda`): subdivision files byte-identical to a
@@ -164,11 +174,18 @@ KERNELS = {
     "editdp_walk": dict(
         source="repeatresolver_tpu_torch/csrc/editdp_walk.cu",
         replaces="repeatresolver_tpu/ops/editdp.py:135 (XLA)"),
+    # kernel E replaces the XLA body of the MaxCorrs tile step after its
+    # products and the significance's while loop
+    "maxcorr_tile": dict(
+        source="repeatresolver_tpu_torch/csrc/maxcorr_tile.cu",
+        replaces="repeatresolver_tpu/models/maxcorr.py:303-343 and "
+                 "repeatresolver_tpu/ops/hypergeom_device.py:81-159 (XLA)"),
 }
 # the path whose launches stand in a kernel's `launches`
 MAIN_PATH = {"staircase_fill": "realign_tpu_converge",
              "walk_backtrack": "realign_tpu_converge",
-             "editdp_fill": "pipeline_615", "editdp_walk": "pipeline_615"}
+             "editdp_fill": "pipeline_615", "editdp_walk": "pipeline_615",
+             "maxcorr_tile": "pipeline_615"}
 REALIGN_KERNELS = ("staircase_fill", "walk_backtrack")
 
 
@@ -204,10 +221,12 @@ def launch_counters():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
     from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr as cm
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
     return {"staircase_fill": cr.staircase_fill,
             "walk_backtrack": cb.backtrack_moves,
-            "editdp_fill": ce.editdp_fill, "editdp_walk": ce.editdp_walk}
+            "editdp_fill": ce.editdp_fill, "editdp_walk": ce.editdp_walk,
+            "maxcorr_tile": cm.maxcorr_tile}
 
 
 def reset_launches():
@@ -358,6 +377,35 @@ def one_window_ms(fn, reps):
     del out
     return (ev[0].elapsed_time(ev[1]) / reps,
             torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg0)
+
+
+# cycles the card spins (torch.cuda._sleep) before a queued timing
+# window: 1e8, about 50 ms at 1,980 MHz, while the host queues the runs
+QUEUE_SLEEP_CYCLES = 100_000_000
+
+
+def queued_ms(fn, reps):
+    """ms a run of reps runs of fn back to back under one pair of CUDA
+    events, after two warm-ups. The card spins first, so the host has
+    queued every run (its own work, the wrapper's checks included) before
+    the first starts, and the window holds the device's time alone; it
+    raises if the spin ended before the runs were queued."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    started = ev[0].query()
+    torch.cuda.synchronize()
+    if started:
+        raise AssertionError("the card reached the timing window before "
+                             f"the host had queued {reps} runs")
+    return ev[0].elapsed_time(ev[1]) / reps
 
 
 def sm_mhz_under(fn):
@@ -608,7 +656,7 @@ PIPE_ARGS = ["-c", "40", "-n", "24", "-d", "1", "-l", "4000", "-t", "Tree",
 PIPE_NAME = "Tree_1perc_4000kb"
 
 
-def pipeline_phase(card, dev):
+def pipeline_phase(card, dev, errs):
     """Phase 6; returns the kernels' launches in the pipeline run."""
     import numpy as np
     import torch
@@ -623,6 +671,7 @@ def pipeline_phase(card, dev):
     from repeatresolver_tpu_torch.ops import _build
     from repeatresolver_tpu_torch.ops import devmm
     from repeatresolver_tpu_torch.ops import editdp
+    from repeatresolver_tpu_torch.ops import maxcorr_tile
     from repeatresolver_tpu_torch.utils import io as rio
 
     pdir = os.path.join(WORK, "pipeline")
@@ -632,7 +681,8 @@ def pipeline_phase(card, dev):
         (editdp.last_rows, "calls"), (editdp.align_on_device, "calls"),
         (pmc.compute_maxcorrs_device, "calls"),
         (devmm.matmul_t, "device_calls")]
-    plain = (editdp.forward_plain, editdp.walk_plain)
+    plain = (editdp.forward_plain, editdp.walk_plain,
+             maxcorr_tile.tile_pass_plain)
     for fn, attr in counters + [(fn, "calls") for fn in plain]:
         setattr(fn, attr, 0)
     reset_exact_blocks()
@@ -654,6 +704,7 @@ def pipeline_phase(card, dev):
              getattr(fn, attr) for fn, attr in counters}
     launches = launches_now()
     plain_runs = [fn.calls for fn in plain]
+    scan = dict(pmc.compute_maxcorrs_device.last_stats)
     in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
                  for k, v in events.items()}
     stage_s: dict = {}
@@ -673,19 +724,42 @@ def pipeline_phase(card, dev):
     print("seconds inside the kernels (CUDA events around every launch): "
           + ", ".join(f"{k} {in_kernel.get(k, 0.0):.3f} ({n} launches)"
                       for k, n in launches.items())
-          + f"; plain edit-DP loop runs (forward_plain, walk_plain) "
-          f"{plain_runs}")
+          + f"; plain version runs (forward_plain, walk_plain, "
+          f"tile_pass_plain) {plain_runs}")
+    print(f"MaxCorrs device scan in the run: {scan['tile_pairs']} tile pairs"
+          f" scanned, {scan['tile_pairs_needed']} needed, "
+          f"{scan['host_reads']} host reads (groups of {scan['group']}), "
+          f"{scan['seconds']:.2f} s (host clock, the one-hot build and the "
+          f"result's copy included)")
     if min(fired.values()) <= 0:
         raise AssertionError(f"a device route never ran: {fired}")
     if any(plain_runs):
-        raise AssertionError(f"the plain edit-DP loop ran on the card: "
+        raise AssertionError(f"a plain version ran on the card: "
                              f"{plain_runs}")
+    if launches["maxcorr_tile"] != scan["tile_pairs"]:
+        raise AssertionError(f"{launches['maxcorr_tile']} launches of "
+                             f"kernel E for {scan['tile_pairs']} tile pairs")
     real_path = os.path.join(pdir, PIPE_NAME + "_MSAreal")
     real = rio.read_msa(real_path)
     print(f"MSAreal {real.shape}")
     if real.shape[0] < 512:
         raise AssertionError(f"{real.shape[0]} MSA rows: below the "
                              "MaxCorrs device gate of 512")
+    # kernel E on the run's own inputs: the scan's state for this
+    # MSAreal; the seed tile of the largest MaxCorr against itself and
+    # its neighbour, and the last (partial) tile against itself
+    sc = pmc.MaxCorrScan(real, MaxCorrConfig(), 256, dev)
+    mc_run = rio.read_maxcorrs(os.path.join(
+        pdir, "MaxCorrsOf_" + PIPE_NAME + "_MSAreal"))
+    k = int(np.argmax(mc_run)) // 5 // sc.t
+    pairs = list(dict.fromkeys([(k, k), (k, min(k + 1, sc.nt - 1)),
+                                (sc.nt - 1, sc.nt - 1)]))
+    worst, relevant, lines = check_tile_pairs(sc, pairs)
+    print("\n".join(lines))
+    if relevant == 0:
+        raise AssertionError(f"no relevant pair in the tile pairs {pairs}")
+    errs["maxcorr_tile"] = max(errs["maxcorr_tile"], worst)
+    del sc
 
     # cut and align: the host native route on the same reads
     for suffix in ("_Template.fasta", ".fasta"):
@@ -809,58 +883,155 @@ def synthetic_msa(rows, cols, seed=0):
     return msa
 
 
-def paper_scan_phase(card, dev):
+def check_tile_pairs(sc, pairs):
+    """Kernel E against its plain version on the tile pairs (seed tile,
+    partner tile) of the scan `sc` (models/maxcorr.MaxCorrScan on the
+    card), every seed of the seed tile alive, from a zero accumulator:
+    identical decisions and alive seeds and max |dZ| <= 1e-5, or it
+    raises. These launches count on no path. Returns (the largest
+    |dZ|, relevant pairs summed, a line a pair)."""
+    import torch
+    t = sc.t
+    zero = torch.zeros_like(sc.acc)
+    worst, relevant, lines = 0.0, 0, []
+    for ki, kj in pairs:
+        alive = sc.seed_ok[ki * t:(ki + 1) * t].any(dim=1)
+        dz, differ, same, work = kernel_tests().compare_maxcorr_tile(
+            sc, ki * t, kj * t, alive, zero)
+        if differ or not same or dz > 1e-5:
+            raise AssertionError(f"tile pair ({ki}, {kj}): kernel E != "
+                                 f"its plain version: {differ} decisions, "
+                                 f"alive equal {same}, max|dZ| {dz}")
+        worst, relevant = max(worst, dz), relevant + work[1]
+        lines.append(f"tile pair ({ki}, {kj}) of {sc.nt} at {sc.r} rows: "
+                     f"kernel E == plain version (decisions and alive "
+                     f"seeds identical, max|dZ| {dz:.3g}; {work[0]} "
+                     f"allowed pairs, {work[1]} relevant, {work[2]} tail "
+                     f"steps)")
+    return worst, relevant, lines
+
+
+def timed_scan(sc, tiles):
+    """(seconds, the scan's counters, ms inside each timed name: CUDA
+    events around every launch) of one scan of `sc`
+    (models/maxcorr.MaxCorrScan) over `tiles`, from a zero accumulator
+    and zero counters; the result stays in sc.acc. Phase 7 and
+    bench_maxcorr time their scans with it."""
+    import torch
+
+    from repeatresolver_tpu_torch.ops import _build
+    sc.acc.zero_()
+    sc.tile_pairs = sc.tile_pairs_needed = sc.host_reads = 0
+    sc.seed_tiles = 0
+    torch.cuda.synchronize()
+    _build.kernel_events = {}
+    t0 = time.perf_counter()
+    try:
+        sc.scan(tiles)
+        torch.cuda.synchronize()
+    finally:
+        events, _build.kernel_events = _build.kernel_events, None
+    secs = time.perf_counter() - t0
+    inside = {k: sum(a.elapsed_time(b) for a, b in v)
+              for k, v in events.items()}
+    return secs, sc.stats(), inside
+
+
+def host_band_check(msa, cfg, band, t, mc_d):
+    """The native host scan (all cores) of the seed tiles in `band` (of
+    t columns) against mc_d, the device scan's float64 MaxCorrs over the
+    same tiles: identical decisions at the MaxCorrs cutoff and, where
+    significant, rtol 2e-3 and atol 5e-3; raises if they differ or if no
+    value is significant. Returns the record (seconds, counts, max
+    |dZ|). Phase 7 and bench_maxcorr check their bands with it."""
+    import numpy as np
+
+    from repeatresolver_tpu_torch.utils import native
+    t0 = time.perf_counter()
+    bits = native.MaxCorrBitsets(msa)
+    bits_s = time.perf_counter() - t0
+    mc_h = np.zeros(msa.shape[1] * 5, np.float64)
+    t0 = time.perf_counter()
+    bits.scan(mc_h, band.start * t, band.stop * t, cfg.mincov,
+              cfg.min_col_gap, msa.shape[0], cfg.majority_filter, True,
+              os.cpu_count() or 1)
+    host_s = time.perf_counter() - t0
+    cutoff = cfg.resolved_cutoff(msa.shape[1])
+    sig = mc_h > cutoff
+    differ = int(((mc_d > cutoff) != sig).sum())
+    dz = np.abs(mc_d - mc_h)
+    rec = dict(tiles=[band.start, band.stop], host_s=host_s,
+               bitsets_s=bits_s, threads=os.cpu_count(),
+               significant=int(sig.sum()), decisions_differ=differ,
+               max_dz_significant=float(dz[sig].max()) if sig.any()
+               else 0.0, max_dz=float(dz.max()))
+    if differ:
+        raise AssertionError(f"decisions differ from the host scan: "
+                             f"{differ}")
+    if not sig.any():
+        raise AssertionError("no significant MaxCorrs in the band")
+    np.testing.assert_allclose(mc_d[sig], mc_h[sig], rtol=2e-3, atol=5e-3)
+    return rec
+
+
+def paper_scan_phase(card, dev, errs):
     """Phase 7."""
     import numpy as np
     import torch
 
     from repeatresolver_tpu_torch.config import MaxCorrConfig
     from repeatresolver_tpu_torch.models import maxcorr as pmc
-    from repeatresolver_tpu_torch.utils import native
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
 
-    t0 = time.perf_counter()
-    msa = synthetic_msa(PAPER_ROWS, PAPER_COLS)
-    print(f"synthetic MSA {msa.shape} in {time.perf_counter() - t0:.1f} s")
+    msa = paper_msa()
     cfg = MaxCorrConfig()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     sc = pmc.MaxCorrScan(msa, cfg, 256, dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
+    t = sc.t
     k0 = sc.nt // 2 - PAPER_BAND_TILES // 2
     band = range(k0, k0 + PAPER_BAND_TILES)
-    t0 = time.perf_counter()
-    acc = sc.scan(band)
-    torch.cuda.synchronize()
-    t_dev = time.perf_counter() - t0
-    mc_d = acc[:PAPER_COLS * 5].cpu().numpy().astype(np.float64)
+    # the band's first tile pairs through kernel E and its plain version
+    worst, _, lines = check_tile_pairs(sc, [(k0, kj)
+                                            for kj in range(k0, k0 + 3)])
+    print("\n".join(lines))
+    errs["maxcorr_tile"] = max(errs["maxcorr_tile"], worst)
+    # the band's scan, every launch of E counted and timed
+    e0 = cuda_maxcorr.maxcorr_tile.launches
+    plain0 = maxcorr_tile.tile_pass_plain.calls
+    t_dev, st, in_ms = timed_scan(sc, band)
+    launched = cuda_maxcorr.maxcorr_tile.launches - e0
+    if launched != st["tile_pairs"] or maxcorr_tile.tile_pass_plain.calls \
+            != plain0:
+        raise AssertionError(
+            f"{launched} launches of kernel E for {st['tile_pairs']} tile "
+            f"pairs; plain pass runs "
+            f"{maxcorr_tile.tile_pass_plain.calls - plain0}")
+    mc_d = sc.acc[:PAPER_COLS * 5].cpu().numpy().astype(np.float64)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    i0, i1 = band.start * 256, band.stop * 256
-    t0 = time.perf_counter()
-    bits = native.MaxCorrBitsets(msa)
-    t_bits = time.perf_counter() - t0
-    mc_h = np.zeros(PAPER_COLS * 5, np.float64)
-    t0 = time.perf_counter()
-    bits.scan(mc_h, i0, i1, cfg.mincov, cfg.min_col_gap, PAPER_ROWS,
-              cfg.majority_filter, True, os.cpu_count() or 1)
-    t_host = time.perf_counter() - t0
-    cutoff = cfg.resolved_cutoff(PAPER_COLS)
-    sig = mc_h > cutoff
-    if not np.array_equal(mc_d > cutoff, sig):
-        raise AssertionError(f"decisions differ: "
-                             f"{int(((mc_d > cutoff) != sig).sum())}")
-    np.testing.assert_allclose(mc_d[sig], mc_h[sig], rtol=2e-3, atol=5e-3)
-    dz = np.abs(mc_d - mc_h)
-    print(f"seed columns [{i0}, {i1}) ({PAPER_BAND_TILES} tiles of 256): "
-          f"{sc.tile_pairs} tile pairs, {int(sig.sum())} significant, "
-          f"decisions identical, max|dZ| {dz[sig].max() if sig.any() else 0:.3g}"
-          f" significant, {dz.max():.3g} overall")
-    print(f"device: one-hot build {t_build:.2f} s, band {t_dev:.2f} s, "
-          f"{t_dev / max(sc.tile_pairs, 1) * 1e3:.3f} ms per tile pair, "
-          f"peak {peak:.2f} GiB; host native scan {t_host:.2f} s "
-          f"({os.cpu_count()} threads; bitsets {t_bits:.1f} s) on {card}")
-    if sig.sum() == 0:
-        raise AssertionError("no significant MaxCorrs in the band")
+    rec = host_band_check(msa, cfg, band, t, mc_d)
+    pairs = max(st["tile_pairs"], 1)
+    print(f"seed columns [{band.start * t}, {band.stop * t}) "
+          f"({PAPER_BAND_TILES} tiles of {t}): "
+          f"{st['tile_pairs']} tile pairs scanned, {st['tile_pairs_needed']}"
+          f" needed (the break), {st['host_reads']} host reads (one a "
+          f"group of {st['group']} pairs); {rec['significant']} "
+          f"significant, decisions identical to the host scan, max|dZ| "
+          f"{rec['max_dz_significant']:.3g} significant, "
+          f"{rec['max_dz']:.3g} overall")
+    print(f"device: one-hot build {t_build:.2f} s, band {t_dev:.3f} s, "
+          f"{t_dev / pairs * 1e3:.4f} ms per tile pair (host clock; inside "
+          f"the products {in_ms.get('maxcorr_products', 0.0) / pairs:.4f} "
+          f"ms, inside kernel E {in_ms.get('maxcorr_tile', 0.0) / pairs:.4f}"
+          f" ms a pair, CUDA events), {launched} launches of E, peak "
+          f"{peak:.2f} GiB; host native scan {rec['host_s']:.2f} s "
+          f"({rec['threads']} threads; bitsets {rec['bitsets_s']:.1f} s) "
+          f"on {card}")
+    del sc
+    torch.cuda.empty_cache()
+    return launched
 
 
 # the card's rates for the bounds: memory rate and int32 lanes per SM
@@ -993,6 +1164,140 @@ def editdp_bounds(b, lq, lt, lens, walked, sm_count, sm_hz):
             f"{EDIT_WALK_OPS} operations at one a cycle = {chain_ms:.3f} ms"
             f", each step also waiting for its load"),
     }
+
+
+# the card's published peaks for kernel E's bound and for its products'
+# (NVIDIA's H100 SXM data sheet, dense): float32 outside the tensor cores
+# and int8 in them, operations a second
+FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+# float32 operations of kernel E (csrc/maxcorr_tile.cu), counted from its
+# source: every allowed (group, group) pair pays the relevance test (the
+# mode's three adds, mul and div, four compares: 9); a relevant pair the
+# nine TwoSum terms of log p(s) (10 each, one add after) and the epilogue
+# (log, add, neg, mul, the caps' compares and the F1 rule: 10); a tail
+# step 14 (sjv; two subs and a mul for num; three adds and a mul for
+# den; two compares, the max, the division, the mul, the add, the stop
+# compare)
+MAXCORR_PAIR_OPS = 9
+MAXCORR_RELEVANT_OPS = 101
+MAXCORR_STEP_OPS = 14
+
+
+def maxcorr_bounds(t, rows_p, nmax, work, sm_hz):
+    """The least time the card could take for one tile pair at tile t
+    over rows_p (padded) MSA rows, in ms, as kernel_bounds gives it:
+    (kernel E's, its four products'), each (ms, by, detail). E: the
+    float32 operations these inputs need (work: tile_pass_plain's
+    with_steps counts) over FP32_OPS_PER_S, against its bytes (the four
+    int32 count matrices, gates, sizes and the table in, the
+    accumulator's two slices read and written); beside it, not in the
+    bound, the floor of E's design: its busiest thread's operations in
+    series at one a cycle of the SM clock sm_hz. The products:
+    2 x rows_p x (6t)^2 int8 operations over INT8_OPS_PER_S, against
+    their int8 operands in and int32 results out."""
+    import torch
+    pairs, relevant, steps, per_thread = work
+    t5 = 5 * t
+    ops = (pairs * MAXCORR_PAIR_OPS + relevant * MAXCORR_RELEVANT_OPS
+           + steps * MAXCORR_STEP_OPS)
+    weights = torch.tensor([MAXCORR_PAIR_OPS, MAXCORR_RELEVANT_OPS,
+                            MAXCORR_STEP_OPS])
+    busiest = int((per_thread.cpu() * weights).sum(dim=2).max())
+    chain_ms = busiest / sm_hz * 1e3
+    e_bytes = (4 * (t * t + t5 * t5 + 2 * t5 * t) + 2 * t + 2 * t5
+               + 4 * 2 * t5 + 8 * (nmax + 1) + 2 * 4 * 2 * t5)
+    e_ops_ms = ops / FP32_OPS_PER_S * 1e3
+    e_bytes_ms = e_bytes / HBM_BYTES_PER_S * 1e3
+    p_ops = 2 * rows_p * (6 * t) ** 2
+    p_bytes = 2 * 6 * t * rows_p + 4 * (6 * t) ** 2
+    p_ops_ms = p_ops / INT8_OPS_PER_S * 1e3
+    p_bytes_ms = p_bytes / HBM_BYTES_PER_S * 1e3
+    return (
+        (max(e_ops_ms, e_bytes_ms),
+         "operations" if e_ops_ms >= e_bytes_ms else "bytes",
+         f"{pairs} allowed pairs x {MAXCORR_PAIR_OPS} + {relevant} "
+         f"relevant x {MAXCORR_RELEVANT_OPS} + {steps} tail steps x "
+         f"{MAXCORR_STEP_OPS} = {ops:.4g} float32 operations over 67 "
+         f"TFLOP/s = {e_ops_ms:.4f} ms; {e_bytes / 1e6:.2f} MB over 3.35 "
+         f"TB/s = {e_bytes_ms:.4f} ms; serial floor of a thread a column "
+         f"(not the bound): the busiest thread's {busiest} operations at "
+         f"one a cycle of {sm_hz / 1e6:.0f} MHz = {chain_ms:.4f} ms (a "
+         f"division and a log counted as one operation each)"),
+        (max(p_ops_ms, p_bytes_ms),
+         "operations" if p_ops_ms >= p_bytes_ms else "bytes",
+         f"{p_ops:.4g} int8 operations (shared, schnitt, gr1, gr2: "
+         f"{rows_p} rows x (6 x {t})^2 products) over 1,979 TOP/s = "
+         f"{p_ops_ms:.4f} ms; {p_bytes / 1e6:.2f} MB over 3.35 TB/s = "
+         f"{p_bytes_ms:.4f} ms"))
+
+
+_PAPER_MSA: list = []
+
+
+def paper_msa():
+    """Phase 7's synthetic MSA (made once, kept for phases 3 and 7)."""
+    if not _PAPER_MSA:
+        t0 = time.perf_counter()
+        _PAPER_MSA.append(synthetic_msa(PAPER_ROWS, PAPER_COLS))
+        print(f"synthetic MSA {_PAPER_MSA[0].shape} in "
+              f"{time.perf_counter() - t0:.1f} s")
+    return _PAPER_MSA[0]
+
+
+def maxcorr_tile_timed(card, dev, sm_hz):
+    """Phase 3's kernel E: one tile pair at paper width (the band's first
+    seed tile against the partner tile two tiles on, every seed alive)
+    through E and its plain version, then timed with the products (runs
+    queued back to back: queued_ms). Returns (max |dZ|, E ms, plain ms,
+    E's bound)."""
+    import torch
+
+    from repeatresolver_tpu_torch.config import MaxCorrConfig
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
+
+    sc = pmc.MaxCorrScan(paper_msa(), MaxCorrConfig(), 256, dev)
+    t = sc.t
+    i0 = (sc.nt // 2 - PAPER_BAND_TILES // 2) * t
+    j0 = i0 + 2 * t
+    alive = sc.seed_ok[i0:i0 + t].any(dim=1)
+    dz, differ, same, work = kernel_tests().compare_maxcorr_tile(
+        sc, i0, j0, alive, torch.zeros_like(sc.acc))
+    if differ or not same or dz > 1e-5:
+        raise AssertionError(f"kernel E != its plain version: {differ} "
+                             f"decisions, alive equal {same}, max|dZ| {dz}")
+    prods = sc.products(i0, j0)
+    out, acc = torch.empty_like(alive), torch.zeros_like(sc.acc)
+    args = (*prods, alive, out, sc.seed_ok, sc.partner_ok, sc.sizes, sc.lf,
+            acc, i0, j0)
+    kw = dict(gap=sc.gap, ncols=sc.c, mincov=sc.mincov)
+    reps = 4 * KERNEL_REPS
+    ms = queued_ms(lambda: cuda_maxcorr.maxcorr_tile(*args, **kw), reps)
+    _, one_ms = time_launches(
+        lambda: cuda_maxcorr.maxcorr_tile(*args, **kw), KERNEL_REPS,
+        "maxcorr_tile")
+    _, pms = time_launches(
+        lambda: maxcorr_tile.tile_pass_plain(*args, **kw), 1)
+    prod_ms = queued_ms(lambda: sc.products(i0, j0), reps)
+    (bms, by, detail), (pbms, pby, pdetail) = maxcorr_bounds(
+        t, sc.groups.shape[1], sc.r, work, sm_hz)
+    print(f"maxcorr_tile at {PAPER_ROWS} rows, tile {t}, columns "
+          f"[{i0}, {i0 + t}) x [{j0}, {j0 + t}): kernel {ms:.4f} ms a "
+          f"launch ({reps} queued back to back under one pair of events; "
+          f"a call alone on an idle stream, the wrapper's host work "
+          f"inside its events: {one_ms:.4f} ms, {spread('maxcorr_tile')}),"
+          f" plain {pms:.3f} ms on {card}; max|dZ| {dz:.3g}, decisions "
+          f"and alive seeds identical")
+    print(f"  bound {bms:.4f} ms by {by} ({bms / ms:.1%} of the kernel's "
+          f"time): {detail}; library call: none (no single PyTorch call "
+          "computes this function)")
+    print(f"  the four int8 products before it (torch._int_mm): "
+          f"{prod_ms:.4f} ms ({reps} queued); their bound {pbms:.4f} ms by "
+          f"{pby} ({pbms / prod_ms:.1%}): {pdetail}")
+    del sc, prods, args, acc
+    torch.cuda.empty_cache()
+    return dz, ms, pms, (bms, by, detail)
 
 
 PAPER_SIM = ["-c", "12", "-n", "8", "-d", "1", "-l", "30000", "-t", "Tree",
@@ -1505,19 +1810,41 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
         seconds=time.perf_counter() - t0)
     coll["s"], coll["calls"] = 0.0, 0
     real = rio.read_msa(real_path)
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
+    cuda_maxcorr.maxcorr_tile.launches = 0
+    maxcorr_tile.tile_pass_plain.calls = 0
     t0 = time.perf_counter()
     mc = pmc.compute_maxcorrs_device(real, MaxCorrConfig(), mesh=mesh)
     report["maxcorr_s"] = time.perf_counter() - t0
     report["maxcorr_collective_s"] = coll["s"]
+    report["maxcorr_scan"] = dict(
+        pmc.compute_maxcorrs_device.last_stats,
+        launches=cuda_maxcorr.maxcorr_tile.launches,
+        plain_runs=maxcorr_tile.tile_pass_plain.calls)
     np.save(os.path.join(outdir, f"maxcorrs_rank{rank}.npy"), mc)
+    if mesh.device.type == "cuda":
+        # kernel E on a tile pair of this rank's stripe (after the
+        # launches were read: these do not count): the stripe's last
+        # seed tile at or before the largest MaxCorr's, against itself
+        # (the stripe's first tiles hold the MSA's thin start, where no
+        # pair is allowed)
+        sc = pmc.MaxCorrScan(real, MaxCorrConfig(), 256, mesh.device)
+        k = int(np.argmax(mc)) // 5 // sc.t
+        k = max(k - (k - rank) % n, rank)
+        err, relevant, lines = check_tile_pairs(sc, [(k, k)])
+        report["maxcorr_stripe_pair"] = dict(pair=[k, k], err=err,
+                                             relevant=relevant,
+                                             line=lines[0])
+        del sc
     _no_foreign_modules()
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
 
 
 def mesh_phase(card, dev, msa_path, paper_lines, errs):
-    """Phase 10; returns a rank's launches of each kernel (every rank
-    must count the same)."""
+    """Phase 10; returns a rank's launches of each kernel in the realign
+    run (every rank must count the same) and kernel E's launches in the
+    striped MaxCorrs scan (both ranks)."""
     import numpy as np
     import torch
 
@@ -1621,12 +1948,31 @@ def mesh_phase(card, dev, msa_path, paper_lines, errs):
             raise AssertionError(
                 f"rank {rep['rank']}: striped MaxCorrs scan != single scan,"
                 f" max abs difference {np.abs(mc - ref).max()}")
+        ms = rep["maxcorr_scan"]
+        if ms["launches"] != ms["tile_pairs"] or ms["launches"] <= 0 \
+                or ms["plain_runs"]:
+            raise AssertionError(f"rank {rep['rank']}: {ms['launches']} "
+                                 f"launches of kernel E for "
+                                 f"{ms['tile_pairs']} tile pairs, plain pass "
+                                 f"runs {ms['plain_runs']}")
+        print(f"rank {rep['rank']}'s stripe: {ms['tile_pairs']} tile pairs "
+              f"({ms['tile_pairs_needed']} needed), {ms['launches']} "
+              f"launches of kernel E, {ms['host_reads']} host reads, plain "
+              f"pass runs {ms['plain_runs']}")
+        sp = rep["maxcorr_stripe_pair"]
+        if sp["relevant"] == 0:
+            raise AssertionError(f"rank {rep['rank']}: no relevant pair in"
+                                 f" tile pair {sp['pair']}")
+        errs["maxcorr_tile"] = max(errs["maxcorr_tile"], sp["err"])
+        print(f"rank {rep['rank']}'s {sp['line']}")
     print(f"MaxCorrs striped over 2 ranks == the single device scan "
           f"(tolerance 0, {len(ref)} values, {int((ref > 0).sum())} "
           f"nonzero): {reports[0]['maxcorr_s']:.2f} / "
           f"{reports[1]['maxcorr_s']:.2f} s a rank, of it the max-merge "
           f"{reports[0]['maxcorr_collective_s']:.3f} s, on {card}")
-    return reports[0]["launches"]
+    # and kernel E's launches in the striped scan, both ranks together
+    return reports[0]["launches"], sum(r["maxcorr_scan"]["launches"]
+                                       for r in reports)
 
 
 def run_processes(cmds, what, timeout=RANK_TIMEOUT_S):
@@ -1738,12 +2084,15 @@ from repeatresolver_tpu_torch.models import initial_aligner, read_cutter
 from repeatresolver_tpu_torch.models import realigner_device
 from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
 from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+from repeatresolver_tpu_torch.ops import cuda_maxcorr as cm
 from repeatresolver_tpu_torch.ops import cuda_realign as cr
-from repeatresolver_tpu_torch.ops import editdp
+from repeatresolver_tpu_torch.ops import editdp, maxcorr_tile
 counters = dict(staircase_fill=cr.staircase_fill,
                 walk_backtrack=cb.backtrack_moves,
-                editdp_fill=ce.editdp_fill, editdp_walk=ce.editdp_walk)
-plain = (editdp.forward_plain, editdp.walk_plain)
+                editdp_fill=ce.editdp_fill, editdp_walk=ce.editdp_walk,
+                maxcorr_tile=cm.maxcorr_tile)
+plain = (editdp.forward_plain, editdp.walk_plain,
+         maxcorr_tile.tile_pass_plain)
 kept = {"blocks": {}}
 
 
@@ -1800,7 +2149,7 @@ def _driver_report(out, what):
     if rep["foreign"]:
         raise AssertionError(f"{what} imported {rep['foreign']}")
     if any(rep["plain"]):
-        raise AssertionError(f"{what}: the plain edit-DP loop ran "
+        raise AssertionError(f"{what}: a plain version ran "
                              f"{rep['plain']}")
     return rep["launches"]
 
@@ -1896,7 +2245,9 @@ def paper_driver_phase(card, errs):
                 same = fa.read() == fb.read()
         if not same:
             raise AssertionError(f"{n}: resumed run != straight run")
-    dead = [k for k in KERNELS if not straight[k]]
+    # kernel E is not on this path: at 55 rows the MaxCorrs gate takes
+    # the host scan
+    dead = [k for k in KERNELS if not straight[k] and k != "maxcorr_tile"]
     if dead or not (first["editdp_fill"] and first["editdp_walk"]
                     and resumed["staircase_fill"]
                     and resumed["walk_backtrack"]):
@@ -2131,6 +2482,12 @@ def main() -> int:
               f"kernel {ms_cut:.3f} ms ({spread('editdp_fill')}; the "
               f"launch alone {kcut:.3f} ms), plain {plain_cut:.3f} ms on "
               f"{card}; bit-equal")
+        del q, ql, tg
+        # kernel E at paper width, beside the products it follows
+        dz, ms_e, plain_e, bounds["maxcorr_tile"] = maxcorr_tile_timed(
+            card, dev, sm_hz)
+        errs["maxcorr_tile"] = max(errs["maxcorr_tile"], dz)
+        times["maxcorr_tile"] = (ms_e, plain_e)
 
     with phase("4 main path: CLI realign on the tpu_converge dataset"):
         from repeatresolver_tpu_torch import cli
@@ -2225,10 +2582,10 @@ def main() -> int:
                                  f" recorded: {sorted(blocks)}")
 
     with phase("6 main path: CLI pipeline on the card"):
-        pipe_launches = pipeline_phase(card, dev)
+        pipe_launches = pipeline_phase(card, dev, errs)
 
     with phase("7 MaxCorrs scan at paper width"):
-        paper_scan_phase(card, dev)
+        scan_launches = paper_scan_phase(card, dev, errs)
 
     with phase("8 main path: realign at paper width"):
         paper_launches, paper_msa, paper_lines, paper_block = \
@@ -2238,8 +2595,8 @@ def main() -> int:
         exact_band_phase(card, dev, paper_block, msa_path)
 
     with phase("10 mesh path: two ranks sharing the card over gloo"):
-        mesh_launches = mesh_phase(card, dev, paper_msa, paper_lines,
-                                    errs)
+        mesh_launches, striped_launches = mesh_phase(
+            card, dev, paper_msa, paper_lines, errs)
 
     with phase("11 resolve-windows on two processes; graft entry"):
         resolve_windows_phase(card)
@@ -2251,14 +2608,20 @@ def main() -> int:
         driver_launches = paper_driver_phase(card, errs)
 
     # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
-    # and B, as in every earlier report; phase 6 for C and D); the counts
-    # of all seven main paths stand in `launches_by_path` (the mesh path's
-    # is one rank's: both ranks launch the same number)
+    # and B, as in every earlier report; phase 6 for C, D and E); the
+    # counts of all nine main paths stand in `launches_by_path` (the mesh
+    # realign's is one rank's: both ranks launch the same number; the
+    # striped MaxCorrs scan's is both ranks')
+    maxcorr_only = {name: name == "maxcorr_tile" for name in KERNELS}
     by_path = {name: {"realign_tpu_converge": launches[name],
                       "pipeline_615": pipe_launches[name],
                       "realign_band_2600": band_launches[name],
+                      "maxcorr_paper_width_band":
+                          scan_launches * maxcorr_only[name],
                       "realign_paper_width": paper_launches[name],
                       "realign_mesh_2_ranks_per_rank": mesh_launches[name],
+                      "maxcorr_striped_2_ranks":
+                          striped_launches * maxcorr_only[name],
                       "cut_align_paper_width": cut_launches[name],
                       "paper_run_driver": driver_launches[name]}
                for name in KERNELS}

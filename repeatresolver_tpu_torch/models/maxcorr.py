@@ -9,13 +9,17 @@ device scan is ported to torch.
 
 `compute_maxcorrs_device` keeps the MSA's one-hot groups [C*5, R] and
 coverage [C, R] as int8 on the device and runs the reference's threaded
-scan (MaxCorrelation.c:744-908) as a host loop over seed tiles: each
-seed tile sweeps its partner tiles in ascending order until the
-coverage break, and each tile pair is one `tile_step`: three exact int8
-products (ops/devmm.int_matmul_t), the float32 significance of every
-pair of the tile (ops/hypergeom_device) and the per-group max into both
-sides of the accumulator. Semantics are compute_maxcorrs's; Z values
-are float32 (~1e-5 where significant).
+scan (MaxCorrelation.c:744-908): each seed tile sweeps its partner tiles
+in ascending order until the coverage break, and each tile pair is one
+`tile_step`: four exact int8 products (ops/devmm.int_matmul_t), then one
+launch of kernel E (ops/cuda_maxcorr.py) for the masks, the break, the
+float32 significance of every allowed pair (ops/hypergeom_device's
+arithmetic) and the per-group maxima into both sides of the
+accumulator; on the CPU its plain version (ops/maxcorr_tile.py). The
+coverage break stays on the device, as in the JAX package's while_loop:
+the host reads the alive seeds once every GROUP tile pairs, not after
+every pair. Semantics are compute_maxcorrs's; Z values are float32
+(~1e-5 where significant).
 """
 from __future__ import annotations
 
@@ -27,10 +31,10 @@ import torch
 
 from ..config import MaxCorrConfig
 from ..device import resolve_device
+from ..ops import _build, cuda_maxcorr, maxcorr_tile
 from ..ops import hypergeom as hg
 from ..ops.devmm import int_matmul_t
-from ..ops.hypergeom_device import (log_factorial_table,
-                                    positive_significance_f32)
+from ..ops.hypergeom_device import log_factorial_table
 from ..utils import io as rio
 from ..utils import native as nat
 from ..utils.checkpoint import _atomic_write
@@ -249,6 +253,11 @@ def compute_maxcorrs_native(msa: np.ndarray, cfg: MaxCorrConfig,
 
 # ---- the device scan
 
+# partner tiles a seed tile queues between two host reads of its alive
+# seeds (MaxCorrScan.group)
+GROUP = 8
+
+
 def _row_sums(m: torch.Tensor, chunk: int = 1 << 14) -> torch.Tensor:
     """int32 row sums of an int8 matrix, in row chunks: a sum to int32
     widens its input, which for the paper-size one-hot groups (9 GB of
@@ -259,10 +268,15 @@ def _row_sums(m: torch.Tensor, chunk: int = 1 << 14) -> torch.Tensor:
 
 class MaxCorrScan:
     """The device state of one MSA's gated scan (one-hot groups,
-    coverage, sizes, gates, log-factorial tables) and the scan itself."""
+    coverage, sizes, gates, the log-factorial table) and the scan itself.
+
+    Counters, over the scans of this object: `tile_pairs` scanned,
+    `tile_pairs_needed` (those begun while a seed of the tile was alive:
+    the pairs a host read after every pair would scan), `host_reads`
+    (device-to-host reads), `seed_tiles` swept."""
 
     def __init__(self, msa: np.ndarray, cfg: MaxCorrConfig, tile: int,
-                 device: torch.device):
+                 device: torch.device, group: int = GROUP):
         msa = np.asarray(msa)
         r, c = msa.shape
         # every hypergeometric count is <= r: the table must cover r, as
@@ -270,9 +284,10 @@ class MaxCorrScan:
         lf_hi, lf_lo = log_factorial_table(r)
         if lf_hi.shape[0] - 1 < r:
             raise AssertionError("log-factorial table undersized")
-        self.lf_hi = torch.from_numpy(lf_hi).to(device)
-        self.lf_lo = torch.from_numpy(lf_lo).to(device)
+        self.lf = torch.from_numpy(np.stack([lf_hi, lf_lo], axis=1)).to(
+            device)                                        # [r + 1, 2]
         self.r, self.c, self.t = r, c, tile
+        self.group = group
         self.mincov = cfg.mincov
         self.gap = cfg.min_col_gap
         cpad = -(-c // tile) * tile
@@ -297,78 +312,96 @@ class MaxCorrScan:
         if cfg.majority_filter:
             self.seed_ok = self.seed_ok & (baseno > covcount // 2)[:, None]
         self.partner_ok = size_ok.view(cpad, 5)
-        self.iota = torch.arange(tile, device=device)
         self.acc = torch.zeros(cpad * 5, dtype=torch.float32, device=device)
-        self.tile_pairs = 0
+        self.tile_pairs = self.tile_pairs_needed = 0
+        self.host_reads = self.seed_tiles = 0
 
-    def tile_step(self, alive, i0, j0, gi, ci, sok, szi):
-        """One tile pair (MaxCorrelation.c:804-823): pairs at jj >= ii +
-        gap inside the MSA, cut at each seed's first partner whose shared
-        coverage drops below mincov; Z of every allowed (group, group)
-        pair; per-group max into both sides of the accumulator. Returns
-        the seeds still alive after this partner tile."""
+    def products(self, i0, j0):
+        """The four int8 products of a tile pair (ops/devmm.int_matmul_t):
+        shared [t, t], schnitt [t5, t5], gr1 [t5, t], gr2 [t, t5]."""
         t = self.t
+        gi = self.groups[i0 * 5:(i0 + t) * 5]
+        ci = self.coverage[i0:i0 + t]
         gj = self.groups[j0 * 5:(j0 + t) * 5]
         cj = self.coverage[j0:j0 + t]
-        shared = int_matmul_t(ci, cj)                       # [t, t]
-        ii = i0 + self.iota[:, None]
-        jj = j0 + self.iota[None, :]
-        valid = (jj >= ii + self.gap) & (jj < self.c)
-        fail = valid & (shared < self.mincov)
-        cumfail = torch.cumsum(fail.to(torch.int32), dim=1) > 0
-        allowed = valid & alive[:, None] & ~cumfail
-        alive_next = alive & ~cumfail[:, -1]
+        return (int_matmul_t(ci, cj), int_matmul_t(gi, gj),
+                int_matmul_t(gi, cj), int_matmul_t(ci, gj))
 
-        schnitt = int_matmul_t(gi, gj)                      # [t5, t5]
-        gr1 = int_matmul_t(gi, cj)                          # [t5, t]
-        gr2 = int_matmul_t(ci, gj)                          # [t, t5]
-        pok = self.partner_ok[j0:j0 + t]
-        szj = self.sizes[j0 * 5:(j0 + t) * 5]
-        pair_ok = (allowed[:, None, :, None] & sok[:, :, None, None]
-                   & pok[None, None, :, :]).reshape(t * 5, t * 5)
-        # pair (i*5+k, j*5+kk) reads gr1[i*5+k, j], gr2[i, j*5+kk] and
-        # shared[i, j]
-        g1 = gr1.repeat_interleave(5, dim=1)
-        g2 = gr2.repeat_interleave(5, dim=0)
-        cv = shared.repeat_interleave(5, dim=0).repeat_interleave(5, dim=1)
-        z = positive_significance_f32(schnitt, g1, g2, cv, szi[:, None],
-                                      szj[None, :], self.lf_hi, self.lf_lo)
-        z = torch.where(pair_ok, z, 0.0)
-        acc = self.acc
-        acc[i0 * 5:(i0 + t) * 5] = torch.maximum(
-            acc[i0 * 5:(i0 + t) * 5], z.max(dim=1).values)
-        acc[j0 * 5:(j0 + t) * 5] = torch.maximum(
-            acc[j0 * 5:(j0 + t) * 5], z.max(dim=0).values)
+    def tile_step(self, alive, alive_next, i0, j0):
+        """One tile pair (MaxCorrelation.c:804-823): its products, then
+        the tile pass (ops/maxcorr_tile.py) into the accumulator and
+        alive_next: kernel E on a CUDA device, the plain version on the
+        CPU. Nothing is read back to the host."""
+        ev = _build.launch_events("maxcorr_products")
+        if ev:
+            ev[0].record()
+        prods = self.products(i0, j0)
+        if ev:
+            ev[1].record()
+        args = (*prods, alive, alive_next, self.seed_ok, self.partner_ok,
+                self.sizes, self.lf, self.acc, i0, j0)
+        kw = dict(gap=self.gap, ncols=self.c, mincov=self.mincov)
+        if self.acc.device.type == "cuda":
+            cuda_maxcorr.maxcorr_tile(*args, **kw)
+        else:
+            maxcorr_tile.tile_pass_plain(*args, **kw)
         self.tile_pairs += 1
-        return alive_next
 
     def scan(self, i_tiles) -> torch.Tensor:
         """The gated scan of the seed tiles in i_tiles (entries >= the
         tile count are stride padding and scan nothing), max-merged into
-        the accumulator, which is returned ([Cp*5] float32)."""
+        the accumulator, which is returned ([Cp*5] float32).
+
+        A seed tile sweeps its partner tiles in ascending order until no
+        seed is alive (the coverage break, MaxCorrelation.c:804-810). The
+        host queues `group` tile pairs at a time, each writing its alive
+        seeds into its own row of a [group, t] buffer, and reads the
+        buffer once a group; pairs queued past the break change nothing
+        (no seed is alive there) and cost their products. One more read
+        skips the seed tiles without a seed."""
         t, nt = self.t, self.nt
-        for k in i_tiles:
-            k = int(k)
-            if k >= nt:
+        tiles = [int(k) for k in i_tiles if int(k) < nt]
+        if not tiles:
+            return self.acc
+        has_seed = self.seed_ok.view(nt, t * 5).any(dim=1).cpu()
+        self.host_reads += 1
+        for k in tiles:
+            if not has_seed[k]:
                 continue
+            self.seed_tiles += 1
             i0 = k * t
-            sok = self.seed_ok[i0:i0 + t]
-            alive = sok.any(dim=1)
-            gi = self.groups[i0 * 5:(i0 + t) * 5]
-            ci = self.coverage[i0:i0 + t]
-            szi = self.sizes[i0 * 5:(i0 + t) * 5]
+            alive = self.seed_ok[i0:i0 + t].any(dim=1)
             j = k
-            # one host read per tile pair: the coverage break
-            while j < nt and bool(alive.any()):
-                alive = self.tile_step(alive, i0, j * t, gi, ci, sok, szi)
-                j += 1
+            while j < nt:
+                m = min(self.group, nt - j)
+                out = torch.empty((m, t), dtype=torch.bool,
+                                  device=alive.device)
+                for q in range(m):
+                    self.tile_step(alive if q == 0 else out[q - 1], out[q],
+                                   i0, (j + q) * t)
+                left = out.any(dim=1).tolist()
+                self.host_reads += 1
+                self.tile_pairs_needed += 1 + sum(left[:-1])
+                if not left[-1]:
+                    break
+                alive = out[-1]
+                j += m
         return self.acc
+
+    def stats(self) -> dict:
+        return dict(tile_pairs=self.tile_pairs,
+                    tile_pairs_needed=self.tile_pairs_needed,
+                    host_reads=self.host_reads, seed_tiles=self.seed_tiles,
+                    group=self.group)
 
 
 def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
                             tile: int = 256, mesh=None,
                             device="cuda") -> np.ndarray:
     """MaxCorrs through the device scan on `device` -> float64 [C*5].
+    `compute_maxcorrs_device.last_stats` holds the scan's counters
+    (MaxCorrScan.stats) and its seconds, up to the result's copy to the
+    host.
 
     mesh: a parallel/sharded.Mesh. The seed tiles are striped round-robin
     over its ranks (the reference's pthread seed stripes,
@@ -377,6 +410,7 @@ def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
     :881-891): every rank returns the whole result, bit-equal to the
     single scan's (a max is exact)."""
     msa = np.asarray(msa)
+    t0 = time.perf_counter()
     if mesh is None:
         sc = MaxCorrScan(msa, cfg, tile, resolve_device(device))
         acc = sc.scan(range(sc.nt))
@@ -384,11 +418,15 @@ def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
         sc = MaxCorrScan(msa, cfg, tile, mesh.device)
         acc = mesh.all_reduce(
             sc.scan(range(mesh.rank, sc.nt, mesh.size)), "max")
+    out = acc[:msa.shape[1] * 5].cpu().numpy().astype(np.float64)
     compute_maxcorrs_device.calls += 1
-    return acc[:msa.shape[1] * 5].cpu().numpy().astype(np.float64)
+    compute_maxcorrs_device.last_stats = dict(
+        sc.stats(), seconds=time.perf_counter() - t0)
+    return out
 
 
 compute_maxcorrs_device.calls = 0
+compute_maxcorrs_device.last_stats = {}
 
 
 def compute_maxcorrs_routed(msa: np.ndarray, cfg: MaxCorrConfig, device,

@@ -38,6 +38,8 @@ _SIGNATURES = {
     + [ctypes.c_void_p] * 5,
     "editdp_walk": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    "maxcorr_tile": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
 }
 
 _libs: dict = {}

@@ -9,11 +9,12 @@ each in a process of its own (`--until STAGE`: the driver skips the
 stages whose files exist), and appends one JSON line a step to
 OUT/report.jsonl: the step's seconds, peak device memory (allocated and
 reserved), peak host RSS, each kernel's launches and seconds inside it
-(CUDA events around every launch), the plain edit-DP loop's runs, and
-for realign the resident sweeps, the host anneal tail by block size,
-the best-MSA writes and the waits for them, and the scorelog's line
-count over time. Between the stages it runs three checks on the run's
-own files:
+(CUDA events around every launch), the plain versions' runs (the edit-DP
+loop's and the MaxCorrs tile pass's), for the MaxCorrs device scan its
+tile pairs scanned and needed and its host reads, and for realign the
+resident sweeps, the host anneal tail by block size, the best-MSA writes
+and the waits for them, and the scorelog's line count over time.
+Between the stages it runs three checks on the run's own files:
 
   trajectory  after align: 2 rounds at the run's band and block of the
               resident engine on the card against the host native exact
@@ -22,8 +23,9 @@ own files:
               improving round (RR_BEST_WRITE_S=0, into WORKDIR/trajectory,
               removed after), so its write seconds stand beside the
               sweeps';
-  maxcorr     after maxcorr: the stage's MaxCorrs against the host fast
-              scan (compute_maxcorrs(fast=True)) on the same MSAreal:
+  maxcorr     after maxcorr (not beside it: the device scan is timed
+              alone): the stage's MaxCorrs against the host fast scan
+              (compute_maxcorrs(fast=True)) on the same MSAreal:
               identical significance decisions, both times;
   resolve     after resolve: the first window through the host route
               (device "cpu") against the stage's three subdivision
@@ -34,7 +36,7 @@ running at it is stopped (SIGTERM: a stopped stage still reports what it
 measured, after the best-MSA write in flight completes). With
 --realign-limit-s, realign is stopped so, and the MaxCorrs scan and the
 first window's resolve then run through the stages' own functions on
-the best MSA realign had written, beside their checks, into probe_*
+the best MSA realign had written, with their checks, into probe_*
 files (the driver's files stay unwritten; none, if realign had written
 no best MSA yet). Run again with the same --workdir and --out, it goes
 on where the files on disk say. The files' names and skip rules, the
@@ -59,15 +61,16 @@ import numpy as np
 from . import paper_run
 
 # the steps in order; a tuple's steps run side by side, its checks
-# waiting for the stage's records (the host scan and the host resolve
-# are CPU work beside the card's)
+# waiting for the stage's records (the host resolve is CPU work beside
+# the card's; the host MaxCorrs scan, on all cores but one, runs after
+# the device scan, which it would slow)
 PLAN = [("simulate",), ("cut",), ("align",), ("check:trajectory",),
-        ("realign",), ("maxcorr", "check:maxcorr"),
+        ("realign",), ("maxcorr",), ("check:maxcorr",),
         ("resolve", "check:resolve"), ("assess",)]
 # after a realign stopped at --realign-limit-s: the MaxCorrs scan and
 # the first window's resolve by the stages' own functions on the best
 # MSA written, into probe_* files (the driver's files stay unwritten)
-PROBE_PLAN = [("probe:maxcorr", "check:maxcorr"),
+PROBE_PLAN = [("probe:maxcorr",), ("check:maxcorr",),
               ("probe:resolve", "check:resolve")]
 STEPS = [s for group in PLAN + PROBE_PLAN for s in group]
 # seconds a step has between SIGTERM and SIGKILL: a best-MSA write in
@@ -77,7 +80,7 @@ PROBE = "probe_"
 PROG = "repeatresolver_tpu_torch.paper_card"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("staircase_fill", "walk_backtrack", "editdp_fill",
-           "editdp_walk")
+           "editdp_walk", "maxcorr_tile")
 
 
 def _driver(workdir, driver_args, until):
@@ -107,12 +110,15 @@ def _counters():
     from .models.realigner_device import DeviceResidentRealigner as Dev
     from .ops import cuda_backtrack as cb
     from .ops import cuda_editdp as ce
+    from .ops import cuda_maxcorr as cm
     from .ops import cuda_realign as cr
-    from .ops import devmm, editdp
+    from .ops import devmm, editdp, maxcorr_tile
     launch = dict(zip(KERNELS, (cr.staircase_fill, cb.backtrack_moves,
-                                ce.editdp_fill, ce.editdp_walk)))
+                                ce.editdp_fill, ce.editdp_walk,
+                                cm.maxcorr_tile)))
     return launch, dict(
-        plain=(editdp.forward_plain, editdp.walk_plain),
+        plain=(editdp.forward_plain, editdp.walk_plain,
+               maxcorr_tile.tile_pass_plain),
         maxcorr=maxcorr.compute_maxcorrs_device, devmm=devmm.matmul_t,
         rb=realigner.realign_batched, host=realigner.BatchedRealigner,
         dev=Dev)
@@ -137,6 +143,7 @@ def _measured(fn, dev_type):
     for f in c["plain"]:
         f.calls = 0
     c["maxcorr"].calls = 0
+    c["maxcorr"].last_stats = {}
     c["devmm"].device_calls = 0
     c["rb"].write_s = []
     c["rb"].write_wait_s = 0.0
@@ -164,6 +171,7 @@ def _measured(fn, dev_type):
                        for k, f in launch.items()},
            "plain_loop_runs": [f.calls for f in c["plain"]],
            "maxcorr_device_calls": c["maxcorr"].calls,
+           "maxcorr_scan": dict(c["maxcorr"].last_stats),
            "devmm_device_calls": c["devmm"].device_calls,
            "resident_sweep_s": c["dev"].resident_sweep_s,
            "host_sweep_s_by_bs": {str(k): v for k, v in

@@ -1,14 +1,16 @@
 """The port's CUDA kernels against their plain torch versions, on the GPU.
 
 Kernel A (csrc/staircase_fill.cu), kernel B (csrc/walk_backtrack.cu),
-kernel C (csrc/editdp_fill.cu) and kernel D (csrc/editdp_walk.cu) run
-through their wrappers on CUDA tensors; the plain versions run on the
-same CUDA tensors. Every output is an integer and must be equal
-(tolerance 0). Marked `cuda`: skipped, with the reason, where torch sees
-no GPU (the plain versions are held to the JAX package by
-tests/test_torch_ops.py and tests/test_torch_editdp.py on the CPU). The
-file imports no jax, so it also runs where JAX is absent, without the
-repository's conftest:
+kernel C (csrc/editdp_fill.cu), kernel D (csrc/editdp_walk.cu) and
+kernel E (csrc/maxcorr_tile.cu) run through their wrappers on CUDA
+tensors; the plain versions run on the same CUDA tensors. Every integer
+output must be equal (tolerance 0); E's float32 maxima within 1e-5
+absolute with identical decisions at the MaxCorrs cutoff (the two may
+round a log in another ulp). Marked `cuda`: skipped, with the reason,
+where torch sees no GPU (the plain versions are held to the JAX package
+by tests/test_torch_ops.py, tests/test_torch_editdp.py and
+tests/test_torch_maxcorr_tile.py on the CPU). The file imports no jax,
+so it also runs where JAX is absent, without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider \
         tests/test_torch_cuda_kernels.py -q
@@ -314,3 +316,130 @@ def test_editdp_wrappers_reject_bad_input(dev):
     fr, packed = ce.editdp_fill(q, lens, t[:1], codes="packed")
     with pytest.raises(ValueError, match="2 columns|packed layout"):
         ce.editdp_walk(packed, lens, fr)
+
+
+# ---- kernel E: one tile pair of the MaxCorrs device scan
+
+def maxcorr_msa(seed, rows=80, cols=300, copies=2, snp_every=37,
+                ragged=True):
+    """A small MaxCorrs input: `copies` copy groups told apart at every
+    snp_every-th column, 2% noise, 3% gaps, and, if ragged, each row
+    covering one interval (coverage gap 5 outside), so that partner
+    sweeps break. tests/test_torch_maxcorr_tile.py uses it too."""
+    rng = np.random.default_rng(seed)
+    consensus = rng.integers(0, 4, cols)
+    msa = np.tile(consensus, (rows, 1)).astype(np.int8)
+    group = np.arange(rows) % copies
+    for cc in range(5, cols, snp_every):
+        for g in range(1, copies):
+            msa[group == g, cc] = (consensus[cc] + g) % 4
+    noise = rng.random((rows, cols)) < 0.02
+    msa[noise] = rng.integers(0, 4, noise.sum())
+    msa[rng.random((rows, cols)) < 0.03] = 4
+    if not ragged:
+        return msa
+    lo = rng.integers(0, cols // 3, rows)
+    hi = rng.integers(2 * cols // 3, cols + 1, rows)
+    for r in range(rows):
+        msa[r, :lo[r]] = 5
+        msa[r, hi[r]:] = 5
+    return msa
+
+
+def compare_maxcorr_tile(sc, i0, j0, alive, acc0):
+    """Kernel E and its plain version on one tile pair of the scan `sc`
+    (models/maxcorr.MaxCorrScan on the card) from the same alive seeds
+    and accumulator: (max |dZ| over the accumulator, entries whose
+    decision at the scan's cutoff differs, alive_next equal, the plain
+    version's work: tile_pass_plain(with_steps=True)). chip_smoke.py
+    loads this by path."""
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
+    prods = sc.products(i0, j0)
+    outs, accs = [], []
+    for fn, kw in ((cuda_maxcorr.maxcorr_tile, {}),
+                   (maxcorr_tile.tile_pass_plain, dict(with_steps=True))):
+        acc, out = acc0.clone(), torch.empty_like(alive)
+        work = fn(*prods, alive, out, sc.seed_ok, sc.partner_ok, sc.sizes,
+                  sc.lf, acc, i0, j0, gap=sc.gap, ncols=sc.c,
+                  mincov=sc.mincov, **kw)
+        outs.append(out)
+        accs.append(acc)
+    torch.cuda.synchronize()
+    cutoff = -np.log10(1.0 / (5.0 * sc.c))
+    dz = float((accs[0] - accs[1]).abs().max())
+    differ = int(((accs[0] > cutoff) != (accs[1] > cutoff)).sum())
+    return dz, differ, bool(torch.equal(outs[0], outs[1])), work
+
+
+@pytest.mark.parametrize("seed,rows,cols,tile", [
+    (1, 80, 300, 32), (2, 600, 1200, 256), (3, 600, 1200, 64),
+    (4, 2000, 700, 128),
+    (5, 30000, 512, 128),                # a table of 240 KB
+])
+def test_maxcorr_tile_matches_plain(dev, seed, rows, cols, tile):
+    """Random tile pairs of a scan: the diagonal pair, its neighbour,
+    the last (partial) partner tile and a pair past the middle; all
+    seeds alive, a random half alive, and none."""
+    from repeatresolver_tpu_torch.config import MaxCorrConfig
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr
+    msa = maxcorr_msa(seed, rows, cols)
+    sc = pmc.MaxCorrScan(msa, MaxCorrConfig(mincov=rows // 3), tile, dev)
+    rng = np.random.default_rng(seed)
+    n0 = cuda_maxcorr.maxcorr_tile.launches
+    relevant = 0
+    for k, kj in ((0, 0), (0, 1), (0, sc.nt - 1),
+                  (sc.nt // 2, min(sc.nt - 1, sc.nt // 2 + 1))):
+        i0, j0 = k * tile, kj * tile
+        seeds = sc.seed_ok[i0:i0 + tile].any(dim=1)
+        half = torch.from_numpy(rng.random(tile) < 0.5).to(dev)
+        acc0 = torch.from_numpy(rng.random(sc.acc.shape[0]).astype(
+            np.float32) * 3).to(dev)
+        for alive in (seeds, seeds & half, torch.zeros_like(seeds)):
+            dz, differ, same_alive, work = compare_maxcorr_tile(
+                sc, i0, j0, alive, acc0)
+            assert dz <= 1e-5 and differ == 0 and same_alive, (k, kj, dz)
+            relevant += work[1]
+    assert relevant > 0
+    assert cuda_maxcorr.maxcorr_tile.launches == n0 + 12
+
+
+def test_maxcorr_scan_launches_e_only(dev):
+    """The device scan on the card launches kernel E once a tile pair
+    scanned and never runs the plain tile pass."""
+    from repeatresolver_tpu_torch.config import MaxCorrConfig
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
+    msa = maxcorr_msa(6, 200, 900)
+    plain0 = maxcorr_tile.tile_pass_plain.calls
+    n0 = cuda_maxcorr.maxcorr_tile.launches
+    sc = pmc.MaxCorrScan(msa, MaxCorrConfig(mincov=60), 64, dev)
+    acc = sc.scan(range(sc.nt))
+    torch.cuda.synchronize()
+    assert cuda_maxcorr.maxcorr_tile.launches - n0 == sc.tile_pairs > 0
+    assert maxcorr_tile.tile_pass_plain.calls == plain0
+    assert sc.tile_pairs_needed <= sc.tile_pairs
+    cpu = pmc.MaxCorrScan(msa, MaxCorrConfig(mincov=60), 64,
+                          torch.device("cpu")).scan(range(sc.nt))
+    np.testing.assert_allclose(acc.cpu().numpy(), cpu.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_maxcorr_tile_rejects_bad_input(dev):
+    from repeatresolver_tpu_torch.config import MaxCorrConfig
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr
+    sc = pmc.MaxCorrScan(maxcorr_msa(7), MaxCorrConfig(mincov=20), 32, dev)
+    prods = list(sc.products(0, 32))
+    alive = sc.seed_ok[:32].any(dim=1)
+    args = [alive, torch.empty_like(alive), sc.seed_ok, sc.partner_ok,
+            sc.sizes, sc.lf, sc.acc]
+    kw = dict(gap=sc.gap, ncols=sc.c, mincov=sc.mincov)
+    with pytest.raises(ValueError, match="schnitt"):
+        cuda_maxcorr.maxcorr_tile(prods[0], prods[1].to(torch.int64),
+                                  *prods[2:], *args, 0, 32, **kw)
+    with pytest.raises(ValueError, match="alive_next must not be alive"):
+        cuda_maxcorr.maxcorr_tile(*prods, alive, alive, *args[2:], 0, 32,
+                                  **kw)
+    with pytest.raises(ValueError, match="do not lie"):
+        cuda_maxcorr.maxcorr_tile(*prods, *args, 0, sc.nt * 32, **kw)
