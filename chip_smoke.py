@@ -28,11 +28,13 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      kernels C and D at pipeline-615's largest align batch (256 pieces x
      Lq 13,700 x Lt 4,000) and C at cut's shape (64 x 66 x 25,950), the
      same way (all three modes of C checked), and their launches alone;
-     then kernel E (the MaxCorrs tile pass) at paper width: one tile pair
-     of phase 7's synthetic MSA (13,833 rows, tile 256, every seed
-     alive) against its plain version (identical decisions, max |dZ| <=
-     1e-5) and timed the same way, beside the four int8 products it
-     follows and both bounds;
+     then kernel E (the MaxCorrs group pass) at paper width: one group
+     of phase 7's synthetic MSA (13,833 rows, tile 256, a seed tile
+     against the 8 partner tiles from its diagonal, every seed alive)
+     against its plain version (bit-equal: max |dZ| 0, the same alive
+     seeds after each tile), E and the one int8 product it follows (over
+     the seed tile's row window) timed queued (queued_ms), beside both
+     bounds;
   4. the main path: the runs/tpu_converge dataset (Tree, c=25, n=8,
      d=1%, l=4000, seed 11) built with the port's host stages, then the
      port's CLI `realign -b 1000 -B 64 --device cuda`. Its OverallScore
@@ -54,22 +56,27 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      so the MaxCorrs device scan's >= 512-row gate routes it to the
      card), with every resolver product sent to the card
      (RR_DEVICE_MM_MIN=0). The edit DP of cut and align (kernels C and
-     D), kernels A and B, the MaxCorrs scan (kernel E) and the resolver
-     products must each have run on the card, and the plain edit-DP loop
-     and the plain tile pass not at all; cut and align must write the host native route's files byte
-     for byte, MaxCorrs must make the host fast scan's decisions (within
-     its tolerances), and one window's subdivisions must equal, byte for
-     byte, a rerun with every product on the host. Prints each stage's
-     seconds, each kernel's launches and seconds inside it (CUDA events)
+     D), kernels A and B, the MaxCorrs scan (one product and one call
+     of kernel E a group queued, the groups' tiles summing to the tile
+     pairs scanned) and the resolver products must each have run on the
+     card, and the plain edit-DP loop and the plain group pass not at
+     all; kernel E must equal its plain version bit for bit on groups of
+     the run's MSAreal; cut and align must write the host native
+     route's files byte for byte, MaxCorrs must make the host fast
+     scan's decisions (within its tolerances), and one window's
+     subdivisions must equal, byte for byte, a rerun with every product
+     on the host. Prints each stage's seconds, each kernel's launches
+     and seconds inside it (CUDA events)
      and the assessment;
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
-     of 13,833 rows x 131,072 columns from seed 0; the band's first tile
-     pairs through kernel E and its plain version (identical decisions
-     and alive seeds, max |dZ| <= 1e-5); the band of seed tiles scanned
-     on the card (E launched once a pair scanned, the plain pass never)
-     and by the native host scan, same decisions within the same
-     tolerances, with both times, the pairs scanned and needed, the host
-     reads, and the ms a pair in the products and in E;
+     of 13,833 rows x 131,072 columns from seed 0; the band's first
+     groups through kernel E and its plain version (bit-equal: max |dZ|
+     0, the same alive seeds); the band of seed tiles scanned on the card
+     (one product and one call of E a group queued, the groups' tiles
+     summing to the pairs scanned, the plain pass never) and by the
+     native host scan, same decisions within the same tolerances, with
+     both times, the pairs scanned and needed, the host reads, and the
+     ms a pair in the product and in E;
   8. the realign main path at the paper's repeat length: a Tree dataset
      with -l 30000 -d 1 (coverage 12, 8 copies: an MSA of 328 rows,
      more than three blocks of 64) built with the port's host stages,
@@ -106,8 +113,9 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      engine's padding) through both kernels and their plain versions,
      bit-equal. Then the MaxCorrs scan
      of phase 6's MSAreal striped over the two ranks: equal to phase
-     6's single scan, tolerance 0, kernel E launched in both ranks and
-     the plain tile pass in neither;
+     6's single scan, tolerance 0, one product and one call of kernel E
+     a group queued in both ranks and the plain group pass in neither,
+     and E bit-equal to its plain version on a group of each stripe;
  11. `cli resolve-windows` on phase 6's files, two processes joined
      over gloo (`--coordinator 127.0.0.1:<port> --procs 2 --proc-id i
      --device cuda`): subdivision files byte-identical to a
@@ -175,7 +183,8 @@ KERNELS = {
         source="repeatresolver_tpu_torch/csrc/editdp_walk.cu",
         replaces="repeatresolver_tpu/ops/editdp.py:135 (XLA)"),
     # kernel E replaces the XLA body of the MaxCorrs tile step after its
-    # products and the significance's while loop
+    # products and the significance's while loop (a group of tile pairs a
+    # call)
     "maxcorr_tile": dict(
         source="repeatresolver_tpu_torch/csrc/maxcorr_tile.cu",
         replaces="repeatresolver_tpu/models/maxcorr.py:303-343 and "
@@ -226,7 +235,7 @@ def launch_counters():
     return {"staircase_fill": cr.staircase_fill,
             "walk_backtrack": cb.backtrack_moves,
             "editdp_fill": ce.editdp_fill, "editdp_walk": ce.editdp_walk,
-            "maxcorr_tile": cm.maxcorr_tile}
+            "maxcorr_tile": cm.maxcorr_group}
 
 
 def reset_launches():
@@ -669,6 +678,7 @@ def pipeline_phase(card, dev, errs):
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.models.window import window_boundaries
     from repeatresolver_tpu_torch.ops import _build
+    from repeatresolver_tpu_torch.ops import cuda_maxcorr
     from repeatresolver_tpu_torch.ops import devmm
     from repeatresolver_tpu_torch.ops import editdp
     from repeatresolver_tpu_torch.ops import maxcorr_tile
@@ -682,9 +692,10 @@ def pipeline_phase(card, dev, errs):
         (pmc.compute_maxcorrs_device, "calls"),
         (devmm.matmul_t, "device_calls")]
     plain = (editdp.forward_plain, editdp.walk_plain,
-             maxcorr_tile.tile_pass_plain)
+             maxcorr_tile.group_pass_plain)
     for fn, attr in counters + [(fn, "calls") for fn in plain]:
         setattr(fn, attr, 0)
+    cuda_maxcorr.maxcorr_group.tiles = 0
     reset_exact_blocks()
     # every resolver product to the card: at 615 rows no product reaches
     # the JAX package's 3e9-op gate
@@ -704,6 +715,7 @@ def pipeline_phase(card, dev, errs):
              getattr(fn, attr) for fn, attr in counters}
     launches = launches_now()
     plain_runs = [fn.calls for fn in plain]
+    e_tiles = cuda_maxcorr.maxcorr_group.tiles
     scan = dict(pmc.compute_maxcorrs_device.last_stats)
     in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
                  for k, v in events.items()}
@@ -725,10 +737,12 @@ def pipeline_phase(card, dev, errs):
           + ", ".join(f"{k} {in_kernel.get(k, 0.0):.3f} ({n} launches)"
                       for k, n in launches.items())
           + f"; plain version runs (forward_plain, walk_plain, "
-          f"tile_pass_plain) {plain_runs}")
+          f"group_pass_plain) {plain_runs}")
     print(f"MaxCorrs device scan in the run: {scan['tile_pairs']} tile pairs"
           f" scanned, {scan['tile_pairs_needed']} needed, "
-          f"{scan['host_reads']} host reads (groups of {scan['group']}), "
+          f"{scan['host_reads']} host reads, {scan['groups_queued']} groups "
+          f"of up to {scan['group']} tiles ({scan['product_launches']} "
+          f"products, {e_tiles} tiles in kernel E's calls), "
           f"{scan['seconds']:.2f} s (host clock, the one-hot build and the "
           f"result's copy included)")
     if min(fired.values()) <= 0:
@@ -736,9 +750,7 @@ def pipeline_phase(card, dev, errs):
     if any(plain_runs):
         raise AssertionError(f"a plain version ran on the card: "
                              f"{plain_runs}")
-    if launches["maxcorr_tile"] != scan["tile_pairs"]:
-        raise AssertionError(f"{launches['maxcorr_tile']} launches of "
-                             f"kernel E for {scan['tile_pairs']} tile pairs")
+    check_group_counts(launches["maxcorr_tile"], e_tiles, scan)
     real_path = os.path.join(pdir, PIPE_NAME + "_MSAreal")
     real = rio.read_msa(real_path)
     print(f"MSAreal {real.shape}")
@@ -746,18 +758,19 @@ def pipeline_phase(card, dev, errs):
         raise AssertionError(f"{real.shape[0]} MSA rows: below the "
                              "MaxCorrs device gate of 512")
     # kernel E on the run's own inputs: the scan's state for this
-    # MSAreal; the seed tile of the largest MaxCorr against itself and
-    # its neighbour, and the last (partial) tile against itself
+    # MSAreal; the groups from the seed tile of the largest MaxCorr's
+    # diagonal and from its neighbour, and the last (partial) tile
+    # against itself
     sc = pmc.MaxCorrScan(real, MaxCorrConfig(), 256, dev)
     mc_run = rio.read_maxcorrs(os.path.join(
         pdir, "MaxCorrsOf_" + PIPE_NAME + "_MSAreal"))
     k = int(np.argmax(mc_run)) // 5 // sc.t
-    pairs = list(dict.fromkeys([(k, k), (k, min(k + 1, sc.nt - 1)),
-                                (sc.nt - 1, sc.nt - 1)]))
-    worst, relevant, lines = check_tile_pairs(sc, pairs)
+    groups = list(dict.fromkeys([(k, k), (k, min(k + 1, sc.nt - 1)),
+                                 (sc.nt - 1, sc.nt - 1)]))
+    worst, relevant, lines, _ = check_groups(sc, groups)
     print("\n".join(lines))
     if relevant == 0:
-        raise AssertionError(f"no relevant pair in the tile pairs {pairs}")
+        raise AssertionError(f"no relevant pair in the groups {groups}")
     errs["maxcorr_tile"] = max(errs["maxcorr_tile"], worst)
     del sc
 
@@ -883,32 +896,51 @@ def synthetic_msa(rows, cols, seed=0):
     return msa
 
 
-def check_tile_pairs(sc, pairs):
-    """Kernel E against its plain version on the tile pairs (seed tile,
-    partner tile) of the scan `sc` (models/maxcorr.MaxCorrScan on the
-    card), every seed of the seed tile alive, from a zero accumulator:
-    identical decisions and alive seeds and max |dZ| <= 1e-5, or it
-    raises. These launches count on no path. Returns (the largest
-    |dZ|, relevant pairs summed, a line a pair)."""
+def check_groups(sc, groups):
+    """Kernel E against its plain version on the groups (seed tile,
+    first partner tile) of the scan `sc` (models/maxcorr.MaxCorrScan on
+    the card), each of the scan's group size or up to the last tile,
+    every seed of the seed tile alive, from a zero accumulator: bit for
+    bit (max |dZ| 0, identical decisions and alive seeds after each
+    tile), or it raises. These launches count on no path. Returns (the
+    largest |dZ|, relevant pairs summed, a line a group, the plain
+    version's work on each group: group_pass_plain(with_steps=True))."""
     import torch
     t = sc.t
     zero = torch.zeros_like(sc.acc)
-    worst, relevant, lines = 0.0, 0, []
-    for ki, kj in pairs:
+    worst, relevant, lines, works = 0.0, 0, [], []
+    for ki, kj in groups:
+        m = min(sc.group, sc.nt - kj)
         alive = sc.seed_ok[ki * t:(ki + 1) * t].any(dim=1)
-        dz, differ, same, work = kernel_tests().compare_maxcorr_tile(
-            sc, ki * t, kj * t, alive, zero)
-        if differ or not same or dz > 1e-5:
-            raise AssertionError(f"tile pair ({ki}, {kj}): kernel E != "
-                                 f"its plain version: {differ} decisions, "
-                                 f"alive equal {same}, max|dZ| {dz}")
+        dz, differ, same, work, cut = kernel_tests().compare_maxcorr_group(
+            sc, ki * t, kj * t, m, alive, zero)
+        if differ or not same or dz != 0:
+            raise AssertionError(f"group ({ki}, {kj}, {m} tiles): kernel E"
+                                 f" != its plain version: {differ} "
+                                 f"decisions, alive equal {same}, max|dZ| "
+                                 f"{dz}")
         worst, relevant = max(worst, dz), relevant + work[1]
-        lines.append(f"tile pair ({ki}, {kj}) of {sc.nt} at {sc.r} rows: "
-                     f"kernel E == plain version (decisions and alive "
-                     f"seeds identical, max|dZ| {dz:.3g}; {work[0]} "
+        works.append(work)
+        lines.append(f"group of seed tile {ki} with partner tiles "
+                     f"[{kj}, {kj + m}) of {sc.nt} at {sc.r} rows: kernel "
+                     f"E == plain version (max|dZ| {dz:.3g}, decisions and "
+                     f"alive seeds after each tile identical; {work[0]} "
                      f"allowed pairs, {work[1]} relevant, {work[2]} tail "
-                     f"steps)")
-    return worst, relevant, lines
+                     f"steps, {cut} seeds cut inside the group)")
+    return worst, relevant, lines, works
+
+
+def check_group_counts(calls, tiles, st):
+    """A scan on the card ran one product and one call of kernel E a
+    group queued, and the tiles of those calls are the tile pairs
+    scanned (calls and tiles: cuda_maxcorr.maxcorr_group's counts over
+    the scan; st: its MaxCorrScan.stats), or it raises."""
+    if not (calls == st["groups_queued"] == st["product_launches"] > 0) \
+            or tiles != st["tile_pairs"]:
+        raise AssertionError(
+            f"{calls} calls of kernel E over {tiles} tiles, "
+            f"{st['product_launches']} products, for {st['groups_queued']}"
+            f" groups queued and {st['tile_pairs']} tile pairs scanned")
 
 
 def timed_scan(sc, tiles):
@@ -922,7 +954,7 @@ def timed_scan(sc, tiles):
     from repeatresolver_tpu_torch.ops import _build
     sc.acc.zero_()
     sc.tile_pairs = sc.tile_pairs_needed = sc.host_reads = 0
-    sc.seed_tiles = 0
+    sc.seed_tiles = sc.groups_queued = sc.product_launches = 0
     torch.cuda.synchronize()
     _build.kernel_events = {}
     t0 = time.perf_counter()
@@ -993,22 +1025,27 @@ def paper_scan_phase(card, dev, errs):
     t = sc.t
     k0 = sc.nt // 2 - PAPER_BAND_TILES // 2
     band = range(k0, k0 + PAPER_BAND_TILES)
-    # the band's first tile pairs through kernel E and its plain version
-    worst, _, lines = check_tile_pairs(sc, [(k0, kj)
-                                            for kj in range(k0, k0 + 3)])
+    # the band's first groups through kernel E and its plain version:
+    # the first seed tile's first two, as its scan queues them, and the
+    # next seed tile's first
+    worst, relevant, lines, _ = check_groups(
+        sc, [(k0, k0), (k0, k0 + sc.group), (k0 + 1, k0 + 1)])
     print("\n".join(lines))
+    if relevant == 0:
+        raise AssertionError("no relevant pair in the band's groups")
     errs["maxcorr_tile"] = max(errs["maxcorr_tile"], worst)
-    # the band's scan, every launch of E counted and timed
-    e0 = cuda_maxcorr.maxcorr_tile.launches
-    plain0 = maxcorr_tile.tile_pass_plain.calls
+    # the band's scan, every call of E counted and timed
+    e0 = cuda_maxcorr.maxcorr_group.launches
+    tiles0 = cuda_maxcorr.maxcorr_group.tiles
+    plain0 = maxcorr_tile.group_pass_plain.calls
     t_dev, st, in_ms = timed_scan(sc, band)
-    launched = cuda_maxcorr.maxcorr_tile.launches - e0
-    if launched != st["tile_pairs"] or maxcorr_tile.tile_pass_plain.calls \
-            != plain0:
-        raise AssertionError(
-            f"{launched} launches of kernel E for {st['tile_pairs']} tile "
-            f"pairs; plain pass runs "
-            f"{maxcorr_tile.tile_pass_plain.calls - plain0}")
+    launched = cuda_maxcorr.maxcorr_group.launches - e0
+    check_group_counts(launched, cuda_maxcorr.maxcorr_group.tiles - tiles0,
+                       st)
+    if maxcorr_tile.group_pass_plain.calls != plain0:
+        raise AssertionError(f"the plain group pass ran "
+                             f"{maxcorr_tile.group_pass_plain.calls - plain0}"
+                             " times on the card")
     mc_d = sc.acc[:PAPER_COLS * 5].cpu().numpy().astype(np.float64)
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = host_band_check(msa, cfg, band, t, mc_d)
@@ -1017,15 +1054,16 @@ def paper_scan_phase(card, dev, errs):
           f"({PAPER_BAND_TILES} tiles of {t}): "
           f"{st['tile_pairs']} tile pairs scanned, {st['tile_pairs_needed']}"
           f" needed (the break), {st['host_reads']} host reads (one a "
-          f"group of {st['group']} pairs); {rec['significant']} "
+          f"group of up to {st['group']} pairs: {st['groups_queued']} "
+          f"groups); {rec['significant']} "
           f"significant, decisions identical to the host scan, max|dZ| "
           f"{rec['max_dz_significant']:.3g} significant, "
           f"{rec['max_dz']:.3g} overall")
     print(f"device: one-hot build {t_build:.2f} s, band {t_dev:.3f} s, "
           f"{t_dev / pairs * 1e3:.4f} ms per tile pair (host clock; inside "
-          f"the products {in_ms.get('maxcorr_products', 0.0) / pairs:.4f} "
+          f"the product {in_ms.get('maxcorr_products', 0.0) / pairs:.4f} "
           f"ms, inside kernel E {in_ms.get('maxcorr_tile', 0.0) / pairs:.4f}"
-          f" ms a pair, CUDA events), {launched} launches of E, peak "
+          f" ms a pair, CUDA events), {launched} calls of E, peak "
           f"{peak:.2f} GiB; host native scan {rec['host_s']:.2f} s "
           f"({rec['threads']} threads; bitsets {rec['bitsets_s']:.1f} s) "
           f"on {card}")
@@ -1178,39 +1216,34 @@ INT8_OPS_PER_S = 1979e12
 # (log, add, neg, mul, the caps' compares and the F1 rule: 10); a tail
 # step 14 (sjv; two subs and a mul for num; three adds and a mul for
 # den; two compares, the max, the division, the mul, the add, the stop
-# compare)
+# compare). The int32 sums that derive the counts from the product (24
+# adds a 5 x 5 block) are left out: a bound counts float32 work only.
 MAXCORR_PAIR_OPS = 9
 MAXCORR_RELEVANT_OPS = 101
 MAXCORR_STEP_OPS = 14
 
 
-def maxcorr_bounds(t, rows_p, nmax, work, sm_hz):
-    """The least time the card could take for one tile pair at tile t
-    over rows_p (padded) MSA rows, in ms, as kernel_bounds gives it:
-    (kernel E's, its four products'), each (ms, by, detail). E: the
-    float32 operations these inputs need (work: tile_pass_plain's
-    with_steps counts) over FP32_OPS_PER_S, against its bytes (the four
-    int32 count matrices, gates, sizes and the table in, the
-    accumulator's two slices read and written); beside it, not in the
-    bound, the floor of E's design: its busiest thread's operations in
-    series at one a cycle of the SM clock sm_hz. The products:
-    2 x rows_p x (6t)^2 int8 operations over INT8_OPS_PER_S, against
-    their int8 operands in and int32 results out."""
-    import torch
-    pairs, relevant, steps, per_thread = work
-    t5 = 5 * t
+def maxcorr_bounds(t, m, rows_p, nmax, work):
+    """The least time the card could take for one group (a seed tile of
+    t columns against m partner tiles) over rows_p MSA rows (the seed
+    tile's row window), in ms, as kernel_bounds gives it: (kernel E's,
+    its product's), each (ms, by, detail). E: the float32 operations
+    these inputs need (work: group_pass_plain's with_steps counts) over
+    FP32_OPS_PER_S, against its bytes (the group's int32 product, the
+    gates, sizes and the table in, the alive seeds in and out, the
+    accumulator's two slices read and written). The product: 2 x rows_p
+    x 5t x 5mt int8 operations over INT8_OPS_PER_S, against its int8
+    operands in and its int32 result out."""
+    pairs, relevant, steps = work
+    t5, w5 = 5 * t, 5 * m * t
     ops = (pairs * MAXCORR_PAIR_OPS + relevant * MAXCORR_RELEVANT_OPS
            + steps * MAXCORR_STEP_OPS)
-    weights = torch.tensor([MAXCORR_PAIR_OPS, MAXCORR_RELEVANT_OPS,
-                            MAXCORR_STEP_OPS])
-    busiest = int((per_thread.cpu() * weights).sum(dim=2).max())
-    chain_ms = busiest / sm_hz * 1e3
-    e_bytes = (4 * (t * t + t5 * t5 + 2 * t5 * t) + 2 * t + 2 * t5
-               + 4 * 2 * t5 + 8 * (nmax + 1) + 2 * 4 * 2 * t5)
+    e_bytes = (4 * t5 * w5 + t + m * t + t5 + w5 + 4 * (t5 + w5)
+               + 8 * (nmax + 1) + 2 * 4 * (t5 + w5))
     e_ops_ms = ops / FP32_OPS_PER_S * 1e3
     e_bytes_ms = e_bytes / HBM_BYTES_PER_S * 1e3
-    p_ops = 2 * rows_p * (6 * t) ** 2
-    p_bytes = 2 * 6 * t * rows_p + 4 * (6 * t) ** 2
+    p_ops = 2 * rows_p * t5 * w5
+    p_bytes = (t5 + w5) * rows_p + 4 * t5 * w5
     p_ops_ms = p_ops / INT8_OPS_PER_S * 1e3
     p_bytes_ms = p_bytes / HBM_BYTES_PER_S * 1e3
     return (
@@ -1219,17 +1252,14 @@ def maxcorr_bounds(t, rows_p, nmax, work, sm_hz):
          f"{pairs} allowed pairs x {MAXCORR_PAIR_OPS} + {relevant} "
          f"relevant x {MAXCORR_RELEVANT_OPS} + {steps} tail steps x "
          f"{MAXCORR_STEP_OPS} = {ops:.4g} float32 operations over 67 "
-         f"TFLOP/s = {e_ops_ms:.4f} ms; {e_bytes / 1e6:.2f} MB over 3.35 "
-         f"TB/s = {e_bytes_ms:.4f} ms; serial floor of a thread a column "
-         f"(not the bound): the busiest thread's {busiest} operations at "
-         f"one a cycle of {sm_hz / 1e6:.0f} MHz = {chain_ms:.4f} ms (a "
-         f"division and a log counted as one operation each)"),
+         f"TFLOP/s = {e_ops_ms:.4f} ms; {e_bytes / 1e6:.2f} MB (the "
+         f"product [{t5} x {w5}] int32 read once) over 3.35 TB/s = "
+         f"{e_bytes_ms:.4f} ms"),
         (max(p_ops_ms, p_bytes_ms),
          "operations" if p_ops_ms >= p_bytes_ms else "bytes",
-         f"{p_ops:.4g} int8 operations (shared, schnitt, gr1, gr2: "
-         f"{rows_p} rows x (6 x {t})^2 products) over 1,979 TOP/s = "
-         f"{p_ops_ms:.4f} ms; {p_bytes / 1e6:.2f} MB over 3.35 TB/s = "
-         f"{p_bytes_ms:.4f} ms"))
+         f"{p_ops:.4g} int8 operations ([{t5} x {rows_p}] x [{rows_p} x "
+         f"{w5}]) over 1,979 TOP/s = {p_ops_ms:.4f} ms; "
+         f"{p_bytes / 1e6:.2f} MB over 3.35 TB/s = {p_bytes_ms:.4f} ms"))
 
 
 _PAPER_MSA: list = []
@@ -1245,12 +1275,12 @@ def paper_msa():
     return _PAPER_MSA[0]
 
 
-def maxcorr_tile_timed(card, dev, sm_hz):
-    """Phase 3's kernel E: one tile pair at paper width (the band's first
-    seed tile against the partner tile two tiles on, every seed alive)
-    through E and its plain version, then timed with the products (runs
-    queued back to back: queued_ms). Returns (max |dZ|, E ms, plain ms,
-    E's bound)."""
+def maxcorr_group_timed(card, dev):
+    """Phase 3's kernel E: one group at paper width (the band's first
+    seed tile against the scan's group size of partner tiles from its
+    diagonal, every seed alive) through E and its plain version, bit for
+    bit, then E and the group's product timed (runs queued back to back:
+    queued_ms). Returns (max |dZ|, E ms, plain ms, E's bound)."""
     import torch
 
     from repeatresolver_tpu_torch.config import MaxCorrConfig
@@ -1258,44 +1288,41 @@ def maxcorr_tile_timed(card, dev, sm_hz):
     from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
 
     sc = pmc.MaxCorrScan(paper_msa(), MaxCorrConfig(), 256, dev)
-    t = sc.t
-    i0 = (sc.nt // 2 - PAPER_BAND_TILES // 2) * t
-    j0 = i0 + 2 * t
+    t, m = sc.t, sc.group
+    k0 = sc.nt // 2 - PAPER_BAND_TILES // 2
+    dz, relevant, lines, (work,) = check_groups(sc, [(k0, k0)])
+    if relevant == 0:
+        raise AssertionError("no relevant pair in phase 3's group")
+    i0 = j0 = k0 * t
+    schnitt = sc.product(i0, j0, m)
     alive = sc.seed_ok[i0:i0 + t].any(dim=1)
-    dz, differ, same, work = kernel_tests().compare_maxcorr_tile(
-        sc, i0, j0, alive, torch.zeros_like(sc.acc))
-    if differ or not same or dz > 1e-5:
-        raise AssertionError(f"kernel E != its plain version: {differ} "
-                             f"decisions, alive equal {same}, max|dZ| {dz}")
-    prods = sc.products(i0, j0)
-    out, acc = torch.empty_like(alive), torch.zeros_like(sc.acc)
-    args = (*prods, alive, out, sc.seed_ok, sc.partner_ok, sc.sizes, sc.lf,
-            acc, i0, j0)
+    out = torch.empty((m, t), dtype=torch.bool, device=dev)
+    args = (schnitt, alive, out, sc.seed_ok, sc.partner_ok, sc.sizes, sc.lf,
+            torch.zeros_like(sc.acc), i0, j0)
     kw = dict(gap=sc.gap, ncols=sc.c, mincov=sc.mincov)
     reps = 4 * KERNEL_REPS
-    ms = queued_ms(lambda: cuda_maxcorr.maxcorr_tile(*args, **kw), reps)
-    _, one_ms = time_launches(
-        lambda: cuda_maxcorr.maxcorr_tile(*args, **kw), KERNEL_REPS,
-        "maxcorr_tile")
+    ms = queued_ms(lambda: cuda_maxcorr.maxcorr_group(*args, **kw), reps)
     _, pms = time_launches(
-        lambda: maxcorr_tile.tile_pass_plain(*args, **kw), 1)
-    prod_ms = queued_ms(lambda: sc.products(i0, j0), reps)
+        lambda: maxcorr_tile.group_pass_plain(*args, **kw), 1)
+    prod_ms = queued_ms(lambda: sc.product(i0, j0, m), reps)
+    lo, hi = sc.windows[k0]
     (bms, by, detail), (pbms, pby, pdetail) = maxcorr_bounds(
-        t, sc.groups.shape[1], sc.r, work, sm_hz)
-    print(f"maxcorr_tile at {PAPER_ROWS} rows, tile {t}, columns "
-          f"[{i0}, {i0 + t}) x [{j0}, {j0 + t}): kernel {ms:.4f} ms a "
-          f"launch ({reps} queued back to back under one pair of events; "
-          f"a call alone on an idle stream, the wrapper's host work "
-          f"inside its events: {one_ms:.4f} ms, {spread('maxcorr_tile')}),"
-          f" plain {pms:.3f} ms on {card}; max|dZ| {dz:.3g}, decisions "
-          f"and alive seeds identical")
+        t, m, hi - lo, sc.r, work)
+    print(lines[0])
+    print(f"maxcorr_tile (kernel E, one call: two launches) at {PAPER_ROWS} "
+          f"rows, tile {t}, seed columns [{i0}, {i0 + t}) x partner "
+          f"columns [{j0}, {j0 + m * t}) ({m} tiles): {ms:.4f} ms a group, "
+          f"{ms / m:.4f} ms a tile pair ({reps} queued back to back under "
+          f"one pair of events), plain {pms:.3f} ms on {card}")
     print(f"  bound {bms:.4f} ms by {by} ({bms / ms:.1%} of the kernel's "
           f"time): {detail}; library call: none (no single PyTorch call "
           "computes this function)")
-    print(f"  the four int8 products before it (torch._int_mm): "
-          f"{prod_ms:.4f} ms ({reps} queued); their bound {pbms:.4f} ms by "
-          f"{pby} ({pbms / prod_ms:.1%}): {pdetail}")
-    del sc, prods, args, acc
+    print(f"  the group's one int8 product before it (torch._int_mm over "
+          f"the seed tile's row window [{lo}, {hi}) of "
+          f"{sc.groups.shape[1]} rows): {prod_ms:.4f} ms a group, "
+          f"{prod_ms / m:.4f} ms a tile pair ({reps} queued); its bound "
+          f"{pbms:.4f} ms by {pby} ({pbms / prod_ms:.1%}): {pdetail}")
+    del sc, schnitt, args
     torch.cuda.empty_cache()
     return dz, ms, pms, (bms, by, detail)
 
@@ -1811,27 +1838,29 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
     coll["s"], coll["calls"] = 0.0, 0
     real = rio.read_msa(real_path)
     from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
-    cuda_maxcorr.maxcorr_tile.launches = 0
-    maxcorr_tile.tile_pass_plain.calls = 0
+    cuda_maxcorr.maxcorr_group.launches = 0
+    cuda_maxcorr.maxcorr_group.tiles = 0
+    maxcorr_tile.group_pass_plain.calls = 0
     t0 = time.perf_counter()
     mc = pmc.compute_maxcorrs_device(real, MaxCorrConfig(), mesh=mesh)
     report["maxcorr_s"] = time.perf_counter() - t0
     report["maxcorr_collective_s"] = coll["s"]
     report["maxcorr_scan"] = dict(
         pmc.compute_maxcorrs_device.last_stats,
-        launches=cuda_maxcorr.maxcorr_tile.launches,
-        plain_runs=maxcorr_tile.tile_pass_plain.calls)
+        launches=cuda_maxcorr.maxcorr_group.launches,
+        tiles=cuda_maxcorr.maxcorr_group.tiles,
+        plain_runs=maxcorr_tile.group_pass_plain.calls)
     np.save(os.path.join(outdir, f"maxcorrs_rank{rank}.npy"), mc)
     if mesh.device.type == "cuda":
-        # kernel E on a tile pair of this rank's stripe (after the
-        # launches were read: these do not count): the stripe's last
-        # seed tile at or before the largest MaxCorr's, against itself
-        # (the stripe's first tiles hold the MSA's thin start, where no
-        # pair is allowed)
+        # kernel E on a group of this rank's stripe (after the launches
+        # were read: these do not count): the stripe's last seed tile at
+        # or before the largest MaxCorr's, against the partner tiles
+        # from its diagonal (the stripe's first tiles hold the MSA's thin
+        # start, where no pair is allowed)
         sc = pmc.MaxCorrScan(real, MaxCorrConfig(), 256, mesh.device)
         k = int(np.argmax(mc)) // 5 // sc.t
         k = max(k - (k - rank) % n, rank)
-        err, relevant, lines = check_tile_pairs(sc, [(k, k)])
+        err, relevant, lines, _ = check_groups(sc, [(k, k)])
         report["maxcorr_stripe_pair"] = dict(pair=[k, k], err=err,
                                              relevant=relevant,
                                              line=lines[0])
@@ -1949,20 +1978,19 @@ def mesh_phase(card, dev, msa_path, paper_lines, errs):
                 f"rank {rep['rank']}: striped MaxCorrs scan != single scan,"
                 f" max abs difference {np.abs(mc - ref).max()}")
         ms = rep["maxcorr_scan"]
-        if ms["launches"] != ms["tile_pairs"] or ms["launches"] <= 0 \
-                or ms["plain_runs"]:
-            raise AssertionError(f"rank {rep['rank']}: {ms['launches']} "
-                                 f"launches of kernel E for "
-                                 f"{ms['tile_pairs']} tile pairs, plain pass "
+        check_group_counts(ms["launches"], ms["tiles"], ms)
+        if ms["plain_runs"]:
+            raise AssertionError(f"rank {rep['rank']}: plain group pass "
                                  f"runs {ms['plain_runs']}")
         print(f"rank {rep['rank']}'s stripe: {ms['tile_pairs']} tile pairs "
               f"({ms['tile_pairs_needed']} needed), {ms['launches']} "
-              f"launches of kernel E, {ms['host_reads']} host reads, plain "
-              f"pass runs {ms['plain_runs']}")
+              f"calls of kernel E ({ms['groups_queued']} groups, "
+              f"{ms['product_launches']} products), {ms['host_reads']} host "
+              f"reads, plain pass runs {ms['plain_runs']}")
         sp = rep["maxcorr_stripe_pair"]
         if sp["relevant"] == 0:
             raise AssertionError(f"rank {rep['rank']}: no relevant pair in"
-                                 f" tile pair {sp['pair']}")
+                                 f" the group from {sp['pair']}")
         errs["maxcorr_tile"] = max(errs["maxcorr_tile"], sp["err"])
         print(f"rank {rep['rank']}'s {sp['line']}")
     print(f"MaxCorrs striped over 2 ranks == the single device scan "
@@ -2090,9 +2118,9 @@ from repeatresolver_tpu_torch.ops import editdp, maxcorr_tile
 counters = dict(staircase_fill=cr.staircase_fill,
                 walk_backtrack=cb.backtrack_moves,
                 editdp_fill=ce.editdp_fill, editdp_walk=ce.editdp_walk,
-                maxcorr_tile=cm.maxcorr_tile)
+                maxcorr_tile=cm.maxcorr_group)
 plain = (editdp.forward_plain, editdp.walk_plain,
-         maxcorr_tile.tile_pass_plain)
+         maxcorr_tile.group_pass_plain)
 kept = {"blocks": {}}
 
 
@@ -2484,8 +2512,8 @@ def main() -> int:
               f"{card}; bit-equal")
         del q, ql, tg
         # kernel E at paper width, beside the products it follows
-        dz, ms_e, plain_e, bounds["maxcorr_tile"] = maxcorr_tile_timed(
-            card, dev, sm_hz)
+        dz, ms_e, plain_e, bounds["maxcorr_tile"] = maxcorr_group_timed(
+            card, dev)
         errs["maxcorr_tile"] = max(errs["maxcorr_tile"], dz)
         times["maxcorr_tile"] = (ms_e, plain_e)
 

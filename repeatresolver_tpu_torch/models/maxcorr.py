@@ -7,19 +7,22 @@ copied from that module, same arithmetic; where the native library
 cannot be built they raise instead of taking the numpy path. The
 device scan is ported to torch.
 
-`compute_maxcorrs_device` keeps the MSA's one-hot groups [C*5, R] and
-coverage [C, R] as int8 on the device and runs the reference's threaded
-scan (MaxCorrelation.c:744-908): each seed tile sweeps its partner tiles
-in ascending order until the coverage break, and each tile pair is one
-`tile_step`: four exact int8 products (ops/devmm.int_matmul_t), then one
-launch of kernel E (ops/cuda_maxcorr.py) for the masks, the break, the
-float32 significance of every allowed pair (ops/hypergeom_device's
-arithmetic) and the per-group maxima into both sides of the
-accumulator; on the CPU its plain version (ops/maxcorr_tile.py). The
-coverage break stays on the device, as in the JAX package's while_loop:
-the host reads the alive seeds once every GROUP tile pairs, not after
-every pair. Semantics are compute_maxcorrs's; Z values are float32
-(~1e-5 where significant).
+`compute_maxcorrs_device` keeps the MSA's one-hot groups [C*5, R] as int8
+on the device and runs the reference's threaded scan
+(MaxCorrelation.c:744-908): each seed tile sweeps its partner tiles in
+ascending order until the coverage break, GROUP partner tiles at a time.
+A group is one `group_step`: one exact int8 product of the seed tile's
+groups with the group's (ops/devmm.int_matmul_t), over the window of the
+MSA's rows (sorted by their first covered column) that cover the seed
+tile, from which every other count of the JAX package's four products is
+a sum (ops/maxcorr_tile.py), then one call of kernel E (ops/cuda_maxcorr.py)
+for the masks, the break across the group, the float32 significance of
+every allowed pair (ops/hypergeom_device's arithmetic) and the per-group
+maxima into both sides of the accumulator; on the CPU its plain version
+(ops/maxcorr_tile.py). The coverage break stays on the device, as in the
+JAX package's while_loop: the host reads the alive seeds once a group,
+not after every pair. Semantics are compute_maxcorrs's; Z values are
+float32 (~1e-5 where significant).
 """
 from __future__ import annotations
 
@@ -254,8 +257,12 @@ def compute_maxcorrs_native(msa: np.ndarray, cfg: MaxCorrConfig,
 # ---- the device scan
 
 # partner tiles a seed tile queues between two host reads of its alive
-# seeds (MaxCorrScan.group)
+# seeds, in one product and one call of kernel E (MaxCorrScan.group)
 GROUP = 8
+# the one-hot groups' rows (the products' depth) are padded to a multiple
+# of this, and each seed tile's row window starts and ends on one, so that
+# a product over the window starts on an aligned address
+ROW_ALIGN = 128
 
 
 def _row_sums(m: torch.Tensor, chunk: int = 1 << 14) -> torch.Tensor:
@@ -266,19 +273,70 @@ def _row_sums(m: torch.Tensor, chunk: int = 1 << 14) -> torch.Tensor:
                       for i in range(0, m.shape[0], chunk)])
 
 
+def _covered_span(rows: torch.Tensor, chunk: int = 1 << 12):
+    """(first, last) covered column (code < 5) of each MSA row of rows
+    [R, C], int64; C and -1 for a row that covers none. In row chunks."""
+    c = rows.shape[1]
+    first, last = [], []
+    for i in range(0, rows.shape[0], chunk):
+        cov = rows[i:i + chunk] < 5
+        some = cov.any(dim=1)
+        cov = cov.to(torch.uint8)
+        first.append(torch.where(some, cov.argmax(dim=1), c))
+        last.append(torch.where(some, c - 1 - cov.flip(1).argmax(dim=1), -1))
+    return torch.cat(first), torch.cat(last)
+
+
+def _row_windows(first, last, tile, nt, rp):
+    """[(lo, hi)] for each seed tile: a window of the rows, sorted by their
+    first covered column (first, last: of the sorted rows), that holds
+    every row covering one of the tile's columns, its ends rounded out to
+    ROW_ALIGN within rp rows. A covering row has first < the tile's end
+    (below hi) and last >= its start (at or past lo, the first row whose
+    running maximum of last reaches the start)."""
+    x0 = torch.arange(nt, device=first.device, dtype=torch.int64) * tile
+    hi = torch.searchsorted(first, x0 + tile).tolist()
+    lo = torch.searchsorted(torch.cummax(last, dim=0).values, x0).tolist()
+    out = []
+    for a, b in zip(lo, hi):
+        a = min(a // ROW_ALIGN * ROW_ALIGN, rp - ROW_ALIGN)
+        b = min(max(-(-b // ROW_ALIGN) * ROW_ALIGN, a + ROW_ALIGN), rp)
+        out.append((a, b))
+    return out
+
+
 class MaxCorrScan:
-    """The device state of one MSA's gated scan (one-hot groups,
-    coverage, sizes, gates, the log-factorial table) and the scan itself.
+    """The device state of one MSA's gated scan (one-hot groups, sizes,
+    gates, the log-factorial table) and the scan itself.
+
+    The MSA's rows are sorted by their first covered column (`row_order`:
+    the sorted position's MSA row); every count is a sum over rows, so the
+    order changes none. The rows covering a seed tile's columns then lie
+    in one window of the sorted rows (`windows`), and a group's product
+    runs over that window alone: the other rows are zero in every one of
+    the seed tile's groups.
 
     Counters, over the scans of this object: `tile_pairs` scanned,
     `tile_pairs_needed` (those begun while a seed of the tile was alive:
     the pairs a host read after every pair would scan), `host_reads`
-    (device-to-host reads), `seed_tiles` swept."""
+    (device-to-host reads), `seed_tiles` swept, `groups_queued` (group
+    steps: calls of kernel E or its plain version) and
+    `product_launches` (the int8 products, one a group)."""
 
     def __init__(self, msa: np.ndarray, cfg: MaxCorrConfig, tile: int,
                  device: torch.device, group: int = GROUP):
         msa = np.asarray(msa)
         r, c = msa.shape
+        rows = torch.from_numpy(np.ascontiguousarray(msa, dtype=np.int8)).to(
+            device)                                        # [R, C]
+        # coverage (code < 5) is the sum of the five one-hot groups only
+        # where no code is negative: the group pass derives every count
+        # from the groups' product (ops/maxcorr_tile.py)
+        low = int(rows.min()) if rows.numel() else 0
+        if low < 0:
+            raise ValueError(f"MaxCorrScan: the MSA holds a negative code "
+                             f"({low}); codes are 0-4 (symbols and gap) "
+                             "and 5 (uncovered)")
         # every hypergeometric count is <= r: the table must cover r, as
         # the gathers clamp out-of-range indices silently
         lf_hi, lf_lo = log_factorial_table(r)
@@ -292,21 +350,26 @@ class MaxCorrScan:
         self.gap = cfg.min_col_gap
         cpad = -(-c // tile) * tile
         self.nt = cpad // tile
-        # rows padded to a multiple of 8 (the int8 product's depth) with
-        # coverage gaps: zero groups and coverage, so no count changes
-        rp = -(-r // 8) * 8
+        # rows padded to a multiple of ROW_ALIGN (the int8 product's
+        # depth) with coverage gaps: zero groups, so no count changes
+        rp = -(-r // ROW_ALIGN) * ROW_ALIGN
+        first, last = _covered_span(rows)
+        order = torch.argsort(first, stable=True)
+        self.row_order = order.cpu().numpy()
+        self.windows = _row_windows(first[order], last[order], tile,
+                                    self.nt, rp)
         msa_d = torch.full((cpad, rp), 5, dtype=torch.int8, device=device)
-        msa_d[:c, :r] = torch.from_numpy(
-            np.ascontiguousarray(msa, dtype=np.int8)).to(device).t()
+        msa_d[:c, :r] = rows[order].t()
+        del rows, first, last, order
         groups = torch.empty((cpad, 5, rp), dtype=torch.int8, device=device)
         for s in range(5):
             groups[:, s, :] = msa_d == s
-        self.groups = groups.view(cpad * 5, rp)            # [Cp*5, Rp]
-        self.coverage = (msa_d < 5).to(torch.int8)         # [Cp, Rp]
         del msa_d
+        self.groups = groups.view(cpad * 5, rp)            # [Cp*5, Rp]
         self.sizes = _row_sums(self.groups)
-        covcount = _row_sums(self.coverage)
-        baseno = self.sizes.view(cpad, 5)[:, 0:4].sum(dim=1)
+        by_col = self.sizes.view(cpad, 5)
+        covcount = by_col.sum(dim=1)
+        baseno = by_col[:, 0:4].sum(dim=1)
         size_ok = (self.sizes > self.mincov // 4) & (self.sizes < r)
         self.seed_ok = size_ok.view(cpad, 5)
         if cfg.majority_filter:
@@ -315,37 +378,42 @@ class MaxCorrScan:
         self.acc = torch.zeros(cpad * 5, dtype=torch.float32, device=device)
         self.tile_pairs = self.tile_pairs_needed = 0
         self.host_reads = self.seed_tiles = 0
+        self.groups_queued = self.product_launches = 0
 
-    def products(self, i0, j0):
-        """The four int8 products of a tile pair (ops/devmm.int_matmul_t):
-        shared [t, t], schnitt [t5, t5], gr1 [t5, t], gr2 [t, t5]."""
+    def product(self, i0, j0, m):
+        """The group's one int8 product (ops/devmm.int_matmul_t): the seed
+        tile at column i0 (a multiple of the tile) against the m partner
+        tiles from column j0, whose one-hot rows are one slice, over the
+        seed tile's row window -> schnitt int32 [5t, m*5t]."""
         t = self.t
-        gi = self.groups[i0 * 5:(i0 + t) * 5]
-        ci = self.coverage[i0:i0 + t]
-        gj = self.groups[j0 * 5:(j0 + t) * 5]
-        cj = self.coverage[j0:j0 + t]
-        return (int_matmul_t(ci, cj), int_matmul_t(gi, gj),
-                int_matmul_t(gi, cj), int_matmul_t(ci, gj))
+        lo, hi = self.windows[i0 // t]
+        self.product_launches += 1
+        return int_matmul_t(self.groups[i0 * 5:(i0 + t) * 5, lo:hi],
+                            self.groups[j0 * 5:(j0 + m * t) * 5, lo:hi]
+                            ).contiguous()
 
-    def tile_step(self, alive, alive_next, i0, j0):
-        """One tile pair (MaxCorrelation.c:804-823): its products, then
-        the tile pass (ops/maxcorr_tile.py) into the accumulator and
-        alive_next: kernel E on a CUDA device, the plain version on the
-        CPU. Nothing is read back to the host."""
+    def group_step(self, alive, alive_out, i0, j0):
+        """The tile pairs of the seed tile at i0 with the m =
+        alive_out.shape[0] partner tiles from j0 (MaxCorrelation.c:
+        804-823): their product, then the group pass (ops/maxcorr_tile.py)
+        into the accumulator and alive_out: kernel E on a CUDA device, the
+        plain version on the CPU. Nothing is read back to the host."""
+        m = alive_out.shape[0]
         ev = _build.launch_events("maxcorr_products")
         if ev:
             ev[0].record()
-        prods = self.products(i0, j0)
+        schnitt = self.product(i0, j0, m)
         if ev:
             ev[1].record()
-        args = (*prods, alive, alive_next, self.seed_ok, self.partner_ok,
+        args = (schnitt, alive, alive_out, self.seed_ok, self.partner_ok,
                 self.sizes, self.lf, self.acc, i0, j0)
         kw = dict(gap=self.gap, ncols=self.c, mincov=self.mincov)
         if self.acc.device.type == "cuda":
-            cuda_maxcorr.maxcorr_tile(*args, **kw)
+            cuda_maxcorr.maxcorr_group(*args, **kw)
         else:
-            maxcorr_tile.tile_pass_plain(*args, **kw)
-        self.tile_pairs += 1
+            maxcorr_tile.group_pass_plain(*args, **kw)
+        self.groups_queued += 1
+        self.tile_pairs += m
 
     def scan(self, i_tiles) -> torch.Tensor:
         """The gated scan of the seed tiles in i_tiles (entries >= the
@@ -354,11 +422,12 @@ class MaxCorrScan:
 
         A seed tile sweeps its partner tiles in ascending order until no
         seed is alive (the coverage break, MaxCorrelation.c:804-810). The
-        host queues `group` tile pairs at a time, each writing its alive
-        seeds into its own row of a [group, t] buffer, and reads the
-        buffer once a group; pairs queued past the break change nothing
-        (no seed is alive there) and cost their products. One more read
-        skips the seed tiles without a seed."""
+        host queues `group` tile pairs at a time as one group step, which
+        writes the seeds alive after each tile into a row of a [group, t]
+        buffer, and reads the buffer once a group; pairs queued past the
+        break change nothing (no seed is alive there) and cost their share
+        of the product. One more read skips the seed tiles without a
+        seed."""
         t, nt = self.t, self.nt
         tiles = [int(k) for k in i_tiles if int(k) < nt]
         if not tiles:
@@ -376,9 +445,7 @@ class MaxCorrScan:
                 m = min(self.group, nt - j)
                 out = torch.empty((m, t), dtype=torch.bool,
                                   device=alive.device)
-                for q in range(m):
-                    self.tile_step(alive if q == 0 else out[q - 1], out[q],
-                                   i0, (j + q) * t)
+                self.group_step(alive, out, i0, j * t)
                 left = out.any(dim=1).tolist()
                 self.host_reads += 1
                 self.tile_pairs_needed += 1 + sum(left[:-1])
@@ -392,6 +459,8 @@ class MaxCorrScan:
         return dict(tile_pairs=self.tile_pairs,
                     tile_pairs_needed=self.tile_pairs_needed,
                     host_reads=self.host_reads, seed_tiles=self.seed_tiles,
+                    groups_queued=self.groups_queued,
+                    product_launches=self.product_launches,
                     group=self.group)
 
 

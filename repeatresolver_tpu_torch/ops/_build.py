@@ -38,7 +38,7 @@ _SIGNATURES = {
     + [ctypes.c_void_p] * 5,
     "editdp_walk": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    "maxcorr_tile": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    "maxcorr_tile": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
 }
 

@@ -67,7 +67,11 @@ def int_matmul_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         a = F.pad(a, (0, kp - k, 0, mp - m))
     if (np_, kp) != (n, k):
         b = F.pad(b, (0, kp - k, 0, np_ - n))
-    out = torch._int_mm(a.contiguous(), b.contiguous().t())
+    # a view of a window of the depth (rows with a stride) goes in as it
+    # is: both operand layouts take a leading dimension
+    a = a if a.stride(1) == 1 else a.contiguous()
+    b = b if b.stride(1) == 1 else b.contiguous()
+    out = torch._int_mm(a, b.t())
     return out[:m, :n]
 
 

@@ -1,38 +1,50 @@
-"""One tile pair of the MaxCorrs device scan, after its four products.
+"""A group of tile pairs of the MaxCorrs device scan, after its product.
 
 Counterpart of the JAX package's `tile_step`
 (repeatresolver_tpu/models/maxcorr.py:303-343) and its significance
-(ops/hypergeom_device.py:81-159), from the products on: seed columns
-i0 + i and partner columns j0 + j of one tile each (t columns, t5 = 5t
-groups, group i5 = 5i + k of column i holding symbol k), given
+(ops/hypergeom_device.py:81-159), from the products on, for one seed
+tile and m partner tiles in a row: seed columns i0 + i (t columns, t5 =
+5t groups, group 5i + k of column i holding symbol k) and partner
+columns j0 + c, c < m*t, given the one product
 
-  shared  int32 [t, t]    rows covering both columns i and j
-  schnitt int32 [t5, t5]  rows in group i5 and in group j5
-  gr1     int32 [t5, t]   rows in group i5 covering column j
-  gr2     int32 [t, t5]   rows covering column i in group j5
+  schnitt int32 [t5, m*t5]  rows in seed group 5i + k and in partner
+                            group 5c + kk
 
-it computes, as the reference's threaded scan (MaxCorrelation.c:804-823)
-does: `valid` pairs (jj >= ii + gap, jj inside the MSA), `fail` where
-their shared coverage is below mincov, the cut at each seed's first
-fail along its row (`cumfail`), the pairs `allowed` for seeds still
-alive, the seeds alive after the tile, the Z of every allowed pair of
-a seed group and a partner group that pass their size gates, and the
-per-group maxima of Z into both sides of the accumulator.
+Every other count of the JAX package's four products is a sum of it,
+exactly: coverage is the sum of the five one-hot groups (an MSA code is
+0-4, a symbol or gap, or >= 5, uncovered; MaxCorrScan rejects negative
+codes), so (`derived_counts`)
 
-`tile_pass_plain` is the plain version, in torch ops on any device.
-It indexes the four products directly (no [t5, t5] expansion of gr1,
-gr2 and shared) and takes Z only for the allowed pairs, with the
-per-pair stop rule (hypergeom_device.positive_significance_f32_each):
-the same bits as the JAX package's arithmetic on the whole tile.
-Kernel E (csrc/maxcorr_tile.cu, ops/cuda_maxcorr.py) computes the same
-on the card; `models/maxcorr.MaxCorrScan.tile_step` sends CUDA tensors
-there and CPU tensors here. `tile_pass_plain.calls` counts its runs.
+  gr1[5i+k, c]  = sum_kk schnitt[5i+k, 5c+kk]   rows in group 5i + k
+                                                covering column c
+  gr2[i, 5c+kk] = sum_k  schnitt[5i+k, 5c+kk]   rows covering column i
+                                                in group 5c + kk
+  shared[i, c]  = sum_k sum_kk schnitt[...]     rows covering both
+
+From them it computes, as the reference's threaded scan
+(MaxCorrelation.c:804-823) does along a seed's row of partner columns:
+`valid` pairs (j0 + c >= i0 + i + gap, j0 + c inside the MSA), `fail`
+where their shared coverage is below mincov, the cut at each seed's
+first fail across the m tiles in order (`cumfail`), the pairs `allowed`
+for seeds still alive, the seeds alive after each tile, the Z of every
+allowed pair of a seed group and a partner group that pass their size
+gates, and the per-group maxima of Z into both sides of the accumulator.
+That is the chain of the m tile steps, pair for pair.
+
+`group_pass_plain` is the plain version, in torch ops on any device. It
+takes Z only for the allowed pairs, with the per-pair stop rule
+(hypergeom_device.positive_significance_f32_each): the same bits as the
+JAX package's arithmetic on the whole tile. Kernel E (csrc/maxcorr_tile.cu,
+ops/cuda_maxcorr.py) computes the same on the card;
+`models/maxcorr.MaxCorrScan.group_step` sends CUDA tensors there and CPU
+tensors here. `group_pass_plain.calls` counts its runs.
 
 Shared arguments of both versions: alive bool [t] (seeds not yet cut),
-alive_next bool [t] (written), seed_ok and partner_ok bool [Cp, 5],
-sizes int32 [Cp*5], acc float32 [Cp*5] (maxima, updated in place, all
-entries >= 0), lf float32 [nmax + 1, 2] (log_factorial_table's hi and
-lo side by side, nmax >= every count), ints i0, j0, gap, ncols, mincov.
+alive_out bool [m, t] (written: row q holds the seeds alive after tile
+q), seed_ok and partner_ok bool [Cp, 5], sizes int32 [Cp*5], acc float32
+[Cp*5] (maxima, updated in place, all entries >= 0), lf float32
+[nmax + 1, 2] (log_factorial_table's hi and lo side by side, nmax >=
+every count), ints i0, j0, gap, ncols, mincov.
 """
 from __future__ import annotations
 
@@ -40,51 +52,51 @@ import torch
 
 from .hypergeom_device import positive_significance_f32_each
 
-# kernel E's threads a CTA: thread j % THREADS of seed column i's CTA
-# takes the pairs of partner column j (csrc/maxcorr_tile.cu)
-THREADS = 256
+
+def derived_counts(schnitt):
+    """(shared [t, m*t], gr1 [t, 5, m*t], gr2 [t, m*t, 5]), int32, from
+    the group's product schnitt [5t, m*5t] (module docstring)."""
+    t5, w5 = schnitt.shape
+    blk = schnitt.view(t5 // 5, 5, w5 // 5, 5)
+    gr1 = blk.sum(dim=3, dtype=torch.int32)
+    gr2 = blk.sum(dim=1, dtype=torch.int32)
+    return gr2.sum(dim=2, dtype=torch.int32), gr1, gr2
 
 
-def tile_pass_plain(shared, schnitt, gr1, gr2, alive, alive_next, seed_ok,
-                    partner_ok, sizes, lf, acc, i0, j0, *, gap, ncols,
-                    mincov, with_steps=False):
-    """The tile pass in torch ops (module docstring). with_steps: return
-    (allowed (group, group) pairs, relevant pairs, tail steps summed,
-    the same three counts for each of kernel E's threads as an int64
-    [t, THREADS, 3] tensor), the work kernel E does for these inputs;
-    else None."""
-    t = shared.shape[0]
-    iota = torch.arange(t, device=shared.device)
-    ii = i0 + iota[:, None]
-    jj = j0 + iota[None, :]
+def group_pass_plain(schnitt, alive, alive_out, seed_ok, partner_ok, sizes,
+                     lf, acc, i0, j0, *, gap, ncols, mincov,
+                     with_steps=False):
+    """The group pass in torch ops (module docstring). with_steps:
+    return (allowed (group, group) pairs, relevant pairs, tail steps
+    summed), the work kernel E does for these inputs; else None."""
+    t, m = alive.shape[0], alive_out.shape[0]
+    nc = m * t
+    shared, gr1, gr2 = derived_counts(schnitt)
+    dev = schnitt.device
+    ii = i0 + torch.arange(t, device=dev)[:, None]
+    jj = j0 + torch.arange(nc, device=dev)[None, :]
     valid = (jj >= ii + gap) & (jj < ncols)
     fail = valid & (shared < mincov)
     cumfail = torch.cumsum(fail.to(torch.int32), dim=1) > 0
     allowed = valid & alive[:, None] & ~cumfail
-    alive_next.copy_(alive & ~cumfail[:, -1])
-    tile_pass_plain.calls += 1
+    alive_out.copy_((alive[:, None] & ~cumfail[:, t - 1::t]).t())
+    group_pass_plain.calls += 1
     pair_ok = (allowed[:, None, :, None]
                & seed_ok[i0:i0 + t][:, :, None, None]
-               & partner_ok[j0:j0 + t][None, None, :, :])
-    pi, pk, pj, pkk = pair_ok.nonzero(as_tuple=True)
-    i5, j5 = pi * 5 + pk, pj * 5 + pkk
+               & partner_ok[j0:j0 + nc][None, None, :, :])
+    pi, pk, pc, pkk = pair_ok.nonzero(as_tuple=True)
+    i5, c5 = pi * 5 + pk, pc * 5 + pkk
     z, steps = positive_significance_f32_each(
-        schnitt[i5, j5], gr1[i5, pj], gr2[pi, j5], shared[pi, pj],
-        sizes[i0 * 5 + i5], sizes[j0 * 5 + j5], lf[:, 0], lf[:, 1],
+        schnitt[i5, c5], gr1[pi, pk, pc], gr2[pi, pc, pkk], shared[pi, pc],
+        sizes[i0 * 5 + i5], sizes[j0 * 5 + c5], lf[:, 0], lf[:, 1],
         with_steps=True)
     # acc >= 0 throughout, so the zeros of the JAX package's masked tile
     # never win a maximum and the allowed pairs alone decide it
     acc.scatter_reduce_(0, i0 * 5 + i5, z, "amax")
-    acc.scatter_reduce_(0, j0 * 5 + j5, z, "amax")
+    acc.scatter_reduce_(0, j0 * 5 + c5, z, "amax")
     if not with_steps:
         return None
-    per = torch.zeros((t * THREADS, 3), dtype=torch.int64,
-                      device=shared.device)
-    per.index_add_(0, pi * THREADS + pj % THREADS,
-                   torch.stack([torch.ones_like(steps), steps > 0, steps],
-                               dim=1).to(torch.int64))
-    return (int(pi.numel()), int((steps > 0).sum()), int(steps.sum()),
-            per.view(t, THREADS, 3))
+    return int(pi.numel()), int((steps > 0).sum()), int(steps.sum())
 
 
-tile_pass_plain.calls = 0
+group_pass_plain.calls = 0

@@ -115,10 +115,10 @@ def _counters():
     from .ops import devmm, editdp, maxcorr_tile
     launch = dict(zip(KERNELS, (cr.staircase_fill, cb.backtrack_moves,
                                 ce.editdp_fill, ce.editdp_walk,
-                                cm.maxcorr_tile)))
+                                cm.maxcorr_group)))
     return launch, dict(
         plain=(editdp.forward_plain, editdp.walk_plain,
-               maxcorr_tile.tile_pass_plain),
+               maxcorr_tile.group_pass_plain),
         maxcorr=maxcorr.compute_maxcorrs_device, devmm=devmm.matmul_t,
         rb=realigner.realign_batched, host=realigner.BatchedRealigner,
         dev=Dev)

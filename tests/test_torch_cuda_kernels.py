@@ -318,7 +318,7 @@ def test_editdp_wrappers_reject_bad_input(dev):
         ce.editdp_walk(packed, lens, fr)
 
 
-# ---- kernel E: one tile pair of the MaxCorrs device scan
+# ---- kernel E: a group of tile pairs of the MaxCorrs device scan
 
 def maxcorr_msa(seed, rows=80, cols=300, copies=2, snp_every=37,
                 ragged=True):
@@ -346,20 +346,24 @@ def maxcorr_msa(seed, rows=80, cols=300, copies=2, snp_every=37,
     return msa
 
 
-def compare_maxcorr_tile(sc, i0, j0, alive, acc0):
-    """Kernel E and its plain version on one tile pair of the scan `sc`
-    (models/maxcorr.MaxCorrScan on the card) from the same alive seeds
-    and accumulator: (max |dZ| over the accumulator, entries whose
-    decision at the scan's cutoff differs, alive_next equal, the plain
-    version's work: tile_pass_plain(with_steps=True)). chip_smoke.py
-    loads this by path."""
+def compare_maxcorr_group(sc, i0, j0, m, alive, acc0):
+    """Kernel E and its plain version on the group of m tile pairs of the
+    scan `sc` (models/maxcorr.MaxCorrScan on the card) at seed column i0
+    and partner column j0, on the group's one product, from the same
+    alive seeds and accumulator: (max |dZ| over the accumulator, entries
+    whose decision at the scan's cutoff differs, the alive seeds after
+    every tile equal, the plain version's work:
+    group_pass_plain(with_steps=True), the seeds alive on entry and cut
+    inside the group). chip_smoke.py loads this by path."""
     from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
-    prods = sc.products(i0, j0)
+    schnitt = sc.product(i0, j0, m)
     outs, accs = [], []
-    for fn, kw in ((cuda_maxcorr.maxcorr_tile, {}),
-                   (maxcorr_tile.tile_pass_plain, dict(with_steps=True))):
-        acc, out = acc0.clone(), torch.empty_like(alive)
-        work = fn(*prods, alive, out, sc.seed_ok, sc.partner_ok, sc.sizes,
+    for fn, kw in ((cuda_maxcorr.maxcorr_group, {}),
+                   (maxcorr_tile.group_pass_plain, dict(with_steps=True))):
+        acc = acc0.clone()
+        out = torch.empty((m, alive.shape[0]), dtype=torch.bool,
+                          device=alive.device)
+        work = fn(schnitt, alive, out, sc.seed_ok, sc.partner_ok, sc.sizes,
                   sc.lf, acc, i0, j0, gap=sc.gap, ncols=sc.c,
                   mincov=sc.mincov, **kw)
         outs.append(out)
@@ -368,7 +372,8 @@ def compare_maxcorr_tile(sc, i0, j0, alive, acc0):
     cutoff = -np.log10(1.0 / (5.0 * sc.c))
     dz = float((accs[0] - accs[1]).abs().max())
     differ = int(((accs[0] > cutoff) != (accs[1] > cutoff)).sum())
-    return dz, differ, bool(torch.equal(outs[0], outs[1])), work
+    cut = int((alive & ~outs[1][-1]).sum())
+    return dz, differ, bool(torch.equal(outs[0], outs[1])), work, cut
 
 
 @pytest.mark.parametrize("seed,rows,cols,tile", [
@@ -377,47 +382,52 @@ def compare_maxcorr_tile(sc, i0, j0, alive, acc0):
     (5, 30000, 512, 128),                # a table of 240 KB
 ])
 def test_maxcorr_tile_matches_plain(dev, seed, rows, cols, tile):
-    """Random tile pairs of a scan: the diagonal pair, its neighbour,
-    the last (partial) partner tile and a pair past the middle; all
-    seeds alive, a random half alive, and none."""
+    """Random groups of a scan (GROUP partner tiles, or up to the last):
+    from the diagonal tile, from its neighbour, the last (partial)
+    partner tile alone and a group past the middle; all seeds alive, a
+    random half alive, and none. Some group cuts a seed inside it."""
     from repeatresolver_tpu_torch.config import MaxCorrConfig
     from repeatresolver_tpu_torch.models import maxcorr as pmc
     from repeatresolver_tpu_torch.ops import cuda_maxcorr
     msa = maxcorr_msa(seed, rows, cols)
     sc = pmc.MaxCorrScan(msa, MaxCorrConfig(mincov=rows // 3), tile, dev)
     rng = np.random.default_rng(seed)
-    n0 = cuda_maxcorr.maxcorr_tile.launches
-    relevant = 0
+    n0 = cuda_maxcorr.maxcorr_group.launches
+    relevant = cut = 0
     for k, kj in ((0, 0), (0, 1), (0, sc.nt - 1),
                   (sc.nt // 2, min(sc.nt - 1, sc.nt // 2 + 1))):
         i0, j0 = k * tile, kj * tile
+        m = min(pmc.GROUP, sc.nt - kj)
         seeds = sc.seed_ok[i0:i0 + tile].any(dim=1)
         half = torch.from_numpy(rng.random(tile) < 0.5).to(dev)
         acc0 = torch.from_numpy(rng.random(sc.acc.shape[0]).astype(
             np.float32) * 3).to(dev)
         for alive in (seeds, seeds & half, torch.zeros_like(seeds)):
-            dz, differ, same_alive, work = compare_maxcorr_tile(
-                sc, i0, j0, alive, acc0)
-            assert dz <= 1e-5 and differ == 0 and same_alive, (k, kj, dz)
+            dz, differ, same_alive, work, c = compare_maxcorr_group(
+                sc, i0, j0, m, alive, acc0)
+            assert dz == 0 and differ == 0 and same_alive, (k, kj, dz)
             relevant += work[1]
-    assert relevant > 0
-    assert cuda_maxcorr.maxcorr_tile.launches == n0 + 12
+            cut += c
+    assert relevant > 0 and cut > 0
+    assert cuda_maxcorr.maxcorr_group.launches == n0 + 12
 
 
 def test_maxcorr_scan_launches_e_only(dev):
-    """The device scan on the card launches kernel E once a tile pair
-    scanned and never runs the plain tile pass."""
+    """The device scan on the card runs one product and one call of
+    kernel E a group queued, and never the plain group pass."""
     from repeatresolver_tpu_torch.config import MaxCorrConfig
     from repeatresolver_tpu_torch.models import maxcorr as pmc
     from repeatresolver_tpu_torch.ops import cuda_maxcorr, maxcorr_tile
     msa = maxcorr_msa(6, 200, 900)
-    plain0 = maxcorr_tile.tile_pass_plain.calls
-    n0 = cuda_maxcorr.maxcorr_tile.launches
+    plain0 = maxcorr_tile.group_pass_plain.calls
+    n0 = cuda_maxcorr.maxcorr_group.launches
     sc = pmc.MaxCorrScan(msa, MaxCorrConfig(mincov=60), 64, dev)
     acc = sc.scan(range(sc.nt))
     torch.cuda.synchronize()
-    assert cuda_maxcorr.maxcorr_tile.launches - n0 == sc.tile_pairs > 0
-    assert maxcorr_tile.tile_pass_plain.calls == plain0
+    assert cuda_maxcorr.maxcorr_group.launches - n0 == sc.groups_queued \
+        == sc.product_launches > 0
+    assert sc.groups_queued <= sc.tile_pairs <= pmc.GROUP * sc.groups_queued
+    assert maxcorr_tile.group_pass_plain.calls == plain0
     assert sc.tile_pairs_needed <= sc.tile_pairs
     cpu = pmc.MaxCorrScan(msa, MaxCorrConfig(mincov=60), 64,
                           torch.device("cpu")).scan(range(sc.nt))
@@ -430,16 +440,16 @@ def test_maxcorr_tile_rejects_bad_input(dev):
     from repeatresolver_tpu_torch.models import maxcorr as pmc
     from repeatresolver_tpu_torch.ops import cuda_maxcorr
     sc = pmc.MaxCorrScan(maxcorr_msa(7), MaxCorrConfig(mincov=20), 32, dev)
-    prods = list(sc.products(0, 32))
+    schnitt = sc.product(0, 32, 2)
     alive = sc.seed_ok[:32].any(dim=1)
-    args = [alive, torch.empty_like(alive), sc.seed_ok, sc.partner_ok,
-            sc.sizes, sc.lf, sc.acc]
+    out = torch.empty((2, 32), dtype=torch.bool, device=dev)
+    args = [sc.seed_ok, sc.partner_ok, sc.sizes, sc.lf, sc.acc]
     kw = dict(gap=sc.gap, ncols=sc.c, mincov=sc.mincov)
     with pytest.raises(ValueError, match="schnitt"):
-        cuda_maxcorr.maxcorr_tile(prods[0], prods[1].to(torch.int64),
-                                  *prods[2:], *args, 0, 32, **kw)
-    with pytest.raises(ValueError, match="alive_next must not be alive"):
-        cuda_maxcorr.maxcorr_tile(*prods, alive, alive, *args[2:], 0, 32,
-                                  **kw)
+        cuda_maxcorr.maxcorr_group(schnitt.to(torch.int64), alive, out,
+                                   *args, 0, 32, **kw)
+    with pytest.raises(ValueError, match="alive must not lie"):
+        cuda_maxcorr.maxcorr_group(schnitt, out[1], out, *args, 0, 32, **kw)
     with pytest.raises(ValueError, match="do not lie"):
-        cuda_maxcorr.maxcorr_tile(*prods, *args, 0, sc.nt * 32, **kw)
+        cuda_maxcorr.maxcorr_group(schnitt, alive, out, *args, 0,
+                                   (sc.nt - 1) * 32, **kw)
