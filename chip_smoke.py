@@ -7,7 +7,7 @@ Phases (each raises on failure, or when jax or any module of the JAX
 package repeatresolver_tpu was imported, so any failure exits non-zero):
 
   1. card and build: the card's name, power limit and SM clock, torch /
-     CUDA versions, the nvcc build of the five kernels from csrc/ (one
+     CUDA versions, the nvcc build of the seven kernels from csrc/ (one
      nvcc each, started together) and the g++ build of the port's host
      library;
   2. kernels vs plain versions, small random blocks (gap-dense paths,
@@ -18,6 +18,12 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      walks of align batches (shared target, Lq > Lt, two segments),
      final rows of cut batches (stride-0 queries, 200-padded targets,
      two and three segments), bit-equal to forward_plain / walk_plain;
+     for kernels F and G (the exact band), blocks with shifts past the
+     band, rows of length 0 and 1, padding columns, a row ending at the
+     last column and bands 16 to 2,600: codes, band and band start, moves,
+     entry and best bit-equal to their plain versions; and a row of more
+     inserts than MAX_INSERTS, whose rows, best and insert lists equal
+     the host native engine's;
   3. the same at the production dispatch shape (64 rows x 32,768 bases,
      band 1000, chunk 128, widen 6, MSA width 139,264), with the times
      (a kernel's: the median of KERNEL_REPS runs after two warm-ups, with
@@ -44,9 +50,11 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      (block 64, 2 rounds), past kernel A's 4,096-lane window at the
      default slack: the resident engine on the card must equal the
      port's host native exact engine line for line, with both kernels
-     launched (counts set to 0 just before that run), and the first
-     block step at each slack it ran (W2 up to 3,880) goes through both
-     kernels and their plain versions, bit-equal;
+     launched (counts set to 0 just before that run; its exact blocks
+     through kernels F and G at band 2600), and the first block step at
+     each slack it ran (W2 up to 3,880) goes through both kernels and
+     their plain versions, bit-equal. Both runs print the exact blocks by
+     route; on the card the host library's and the torch loop's count 0;
   5. kernels vs plain versions on the main path's own blocks: the fill
      inputs of the first block step at each slack (widen 12 first)
      recorded during phase 4, replayed through both kernels and their
@@ -67,7 +75,8 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      subdivisions must equal, byte for byte, a rerun with every product
      on the host. Prints each stage's seconds, each kernel's launches
      and seconds inside it (CUDA events)
-     and the assessment;
+     and the assessment, and the exact blocks by route (the host
+     library's and the torch loop's must count 0);
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
      of 13,833 rows x 131,072 columns from seed 0; the band's first
      groups through kernel E and its plain version (bit-equal: max |dZ|
@@ -84,22 +93,27 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      8 rounds so that only resident rounds run. Prints rows x columns,
      rounds, launches, the seconds in resident sweeps and, from CUDA
      events around both kernels' launches, the seconds inside kernel A,
-     inside kernel B and in the rest of the sweeps (torch ops and the
-     per-block host read). The score after every round must equal the
+     inside kernel B, inside kernels F and G and in the rest of the
+     sweeps (torch ops and the per-block host read), the exact blocks by
+     route (the host library's and the torch loop's must count 0) and
+     each sweep's seconds beside its exact blocks' seconds by route. The
+     score after every round must equal the
      same capped run at the same block size through the host native
      engine (exact band, independent of both kernels; RR_FLUSH_CAP high
      so that both flush once a sweep), and the first block's recorded
      inputs go through both kernels and their plain versions, bit-equal;
   9. the exact band on the card: phase 8's first block (64 rows, band
-     1000) through the torch exact band (ops/banded_realign:
-     banded_fill + entry_and_backtrack) on CUDA tensors; rows, best and
-     insert lists bit-equal to the kernels' result for the same block
-     and to the host native engine's, with the seconds of each. Then
-     the resident engine on phase 4's MSA with the host library made
-     unavailable to its exact blocks and every block forced onto the
-     exact route (an insert fetch of one slot): the torch route must
-     have run, counted apart from the native one, and the score after
-     each sweep must equal the native route's;
+     1000) four ways: kernels F and G (block_dp's exact branch), the
+     torch loop (ops/banded_realign: banded_fill + entry_and_backtrack)
+     on CUDA tensors, kernels A and B, and the host native engine; rows,
+     best and insert lists bit-equal, with the seconds of each. F and G
+     against their plain versions on the block, bit-equal, and timed (the
+     median of KERNEL_REPS runs) beside their bounds. Then the resident
+     engine on phase 4's MSA with every block forced onto the exact route
+     (an insert fetch of one slot) and the host library made unavailable:
+     kernels F and G must have run (counts set to 0 just before), the
+     host and torch-loop routes not at all, and the score after each
+     sweep must equal the host native engine's;
  10. the mesh path: two processes sharing the card, joined over gloo
      (collectives staged through pinned host memory). Each runs
      `realign_batched(mesh=..., mode="staircase", kernel="cuda")` on
@@ -111,7 +125,8 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      counts are set to 0 just before the run and must be equal, and
      each rank replays its first shard (32 rows at the non-resident
      engine's padding) through both kernels and their plain versions,
-     bit-equal. Then the MaxCorrs scan
+     bit-equal; the torch loop of the exact band must not run in a rank.
+     Then the MaxCorrs scan
      of phase 6's MSAreal striped over the two ranks: equal to phase
      6's single scan, tolerance 0, one product and one call of kernel E
      a group queued in both ranks and the plain group pass in neither,
@@ -141,8 +156,8 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      every file must equal the straight run's (stage_times.json: the
      same stages; .done: the same rounds; the realign checkpoint, an
      npz whose zip members carry their write time: the same arrays).
-     Kernels A-D must each have launched, the plain edit-DP loop not at
-     all.
+     Kernels A-D must each have launched, the plain edit-DP loop and the
+     exact band's torch loop not at all.
 
 Every process a phase starts gets a time limit and is stopped when it
 passes it; a rank that fails or hangs fails the phase, and so does a
@@ -189,12 +204,23 @@ KERNELS = {
         source="repeatresolver_tpu_torch/csrc/maxcorr_tile.cu",
         replaces="repeatresolver_tpu/models/maxcorr.py:303-343 and "
                  "repeatresolver_tpu/ops/hypergeom_device.py:81-159 (XLA)"),
+    # kernels F and G replace the XLA exact band: the fill's scans, the
+    # entry scan and the walk's while loop
+    "exact_fill": dict(
+        source="repeatresolver_tpu_torch/csrc/exact_fill.cu",
+        replaces="repeatresolver_tpu/ops/banded_realign.py:54-208 (XLA)"),
+    "exact_walk": dict(
+        source="repeatresolver_tpu_torch/csrc/exact_walk.cu",
+        replaces="repeatresolver_tpu/ops/banded_realign.py:210-244, "
+                 ":247-401 (XLA)"),
 }
 # the path whose launches stand in a kernel's `launches`
 MAIN_PATH = {"staircase_fill": "realign_tpu_converge",
              "walk_backtrack": "realign_tpu_converge",
              "editdp_fill": "pipeline_615", "editdp_walk": "pipeline_615",
-             "maxcorr_tile": "pipeline_615"}
+             "maxcorr_tile": "pipeline_615",
+             "exact_fill": "realign_forced_exact",
+             "exact_walk": "realign_forced_exact"}
 REALIGN_KERNELS = ("staircase_fill", "walk_backtrack")
 
 
@@ -230,12 +256,14 @@ def launch_counters():
     """Each kernel's wrapper, whose `launches` counts its launches."""
     from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
     from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+    from repeatresolver_tpu_torch.ops import cuda_exact as cx
     from repeatresolver_tpu_torch.ops import cuda_maxcorr as cm
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
     return {"staircase_fill": cr.staircase_fill,
             "walk_backtrack": cb.backtrack_moves,
             "editdp_fill": ce.editdp_fill, "editdp_walk": ce.editdp_walk,
-            "maxcorr_tile": cm.maxcorr_group}
+            "maxcorr_tile": cm.maxcorr_group, "exact_fill": cx.exact_fill,
+            "exact_walk": cx.exact_walk}
 
 
 def reset_launches():
@@ -568,7 +596,7 @@ def wide_band_check(card, msa, errs):
                                    kw)
         return cr.staircase_fill(*args, **kw)
 
-    ex0 = exact_blocks()
+    reset_exact_blocks()
     os.environ["RR_FLUSH_CAP"] = str(1 << 30)
     prd.cr = types.SimpleNamespace(
         **{**vars(cr), "staircase_fill": recording_fill})
@@ -580,6 +608,7 @@ def wide_band_check(card, msa, errs):
                                     device="cuda")
         t1 = time.perf_counter()
         launches = launches_now()
+        ex = exact_blocks()
         prd.cr = cr
         log_h: list = []
         out_h = prt.realign_batched(msa.copy(), cfg, score_log=log_h,
@@ -589,11 +618,11 @@ def wide_band_check(card, msa, errs):
     finally:
         prd.cr = cr
         del os.environ["RR_FLUSH_CAP"]
-    ex1 = exact_blocks()
     print(f"band 2600: {len(log_d)} score lines, {log_d[-1]}; resident "
-          f"engine on {card} {t1 - t0:.2f} s (launches {launches}, "
-          f"{ex1[0] - ex0[0]} exact blocks through the host library), "
-          f"host native exact engine {t2 - t1:.2f} s")
+          f"engine on {card} {t1 - t0:.2f} s (launches {launches}, exact "
+          f"blocks by route {ex}), host native exact engine "
+          f"{t2 - t1:.2f} s")
+    check_exact_routes("band 2600", ex)
     if log_d != log_h or not np.array_equal(out_d, out_h):
         raise AssertionError(f"band 2600: resident {log_d} != host native "
                              f"exact {log_h}")
@@ -605,17 +634,35 @@ def wide_band_check(card, msa, errs):
 
 
 def exact_blocks():
-    """The resident engine's exact blocks so far, by route: (through the
-    host library, through the torch exact band)."""
+    """The exact band's blocks so far: the resident engine's by route
+    (kernels F and G, the host library, the torch exact band) and the
+    torch exact band's runs (banded_fill.calls: the plain loop, which
+    only CPU tensors take)."""
     from repeatresolver_tpu_torch.models.realigner_device import \
         DeviceResidentRealigner as eng
-    return eng.exact_blocks_run, eng.exact_blocks_run_torch
+    from repeatresolver_tpu_torch.ops import banded_realign as br
+    return {**eng.exact_blocks_run, "plain_band_runs": br.banded_fill.calls}
 
 
 def reset_exact_blocks():
     from repeatresolver_tpu_torch.models.realigner_device import \
         DeviceResidentRealigner as eng
-    eng.exact_blocks_run = eng.exact_blocks_run_torch = 0
+    from repeatresolver_tpu_torch.ops import banded_realign as br
+    eng.exact_blocks_run = dict.fromkeys(eng.ROUTES, 0)
+    eng.exact_block_s = dict.fromkeys(eng.ROUTES, 0.0)
+    eng.sweep_log = []
+    br.banded_fill.calls = 0
+
+
+def check_exact_routes(what, routes):
+    """On the card every exact-band block runs kernels F and G: the host
+    library's and the torch exact band's routes, and the plain loop,
+    count 0."""
+    off = {k: routes[k] for k in ("native", "torch", "plain_band_runs")
+           if routes[k]}
+    if off:
+        raise AssertionError(f"{what}: exact blocks off the card's route: "
+                             f"{routes}")
 
 
 def build_dataset(work):
@@ -727,9 +774,10 @@ def pipeline_phase(card, dev, errs):
             stage = line[1:].split("]")[0].split()[0]
             stage_s[stage] = stage_s.get(stage, 0.0) + t - t_prev
             t_prev = t
+    ex = exact_blocks()
     print(f"device routes fired in the pipeline run: {fired}; "
-          f"exact-fallback blocks (host library, torch exact band) "
-          f"{exact_blocks()}")
+          f"exact blocks by route {ex}")
+    check_exact_routes("pipeline-615", ex)
     print("stage seconds (host clock, on " + card + "): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
           + f"; total {t_prev - t0:.2f}")
@@ -1414,17 +1462,24 @@ def paper_realign_phase(card, dev, errs):
             raise AssertionError(f"a kernel never launched: {launches}")
         sa = in_kernel.get("staircase_fill", 0.0)
         sb = in_kernel.get("walk_backtrack", 0.0)
+        sfg = in_kernel.get("exact_fill", 0.0) \
+            + in_kernel.get("exact_walk", 0.0)
+        ex = exact_blocks()
         print(f"realign_batched on {card}: {PAPER_ROUNDS} rounds at block "
               f"64, wall {wall:.2f} s, "
               f"{PAPER_ROUNDS * bases * 1000 / wall:.4g} cells/s; launches "
-              f"{launches}, exact-fallback blocks (host library, torch "
-              f"exact band) {exact_blocks()}")
+              f"{launches}, exact blocks by route {ex}")
+        check_exact_routes("realign at paper width", ex)
         print(f"resident sweeps {res_s:.3f} s: inside kernel A {sa:.3f} s "
               f"({sa / launches['staircase_fill'] * 1e3:.3f} ms a launch), "
               f"inside kernel B {sb:.3f} s "
               f"({sb / launches['walk_backtrack'] * 1e3:.3f} ms a launch), "
+              f"inside kernels F and G {sfg:.3f} s, "
               f"rest (torch ops, per-block host read) "
-              f"{res_s - sa - sb:.3f} s")
+              f"{res_s - sa - sb - sfg:.3f} s")
+        for i, rec in enumerate(prd.DeviceResidentRealigner.sweep_log):
+            print(f"  sweep {i + 1}: {rec['s']:.3f} s, exact blocks "
+                  f"{rec['exact_blocks']} in {rec['exact_block_s']} s")
 
         # the same capped run through the host native engine
         t0 = time.perf_counter()
@@ -1629,20 +1684,96 @@ MESH_ROUNDS = 3
 RANK_TIMEOUT_S = 420.0
 
 
-def exact_band_phase(card, dev, block, converge_msa_path):
-    """Phase 9."""
+def compare_exact(args, starts, ncols, w, cpad):
+    """Kernels F and G against their plain versions on one block of GPU
+    tensors (counts, rows, seqs, ways, lengths; starts: anf_full,
+    entry_bound): F's codes, band and band start against the torch exact
+    band's, packed; G's moves, entry and best against exact_walk_plain
+    on F's codes. Returns (max abs difference of F, of G)."""
+    from repeatresolver_tpu_torch.ops import cuda_exact as cx
+    anf, eb = starts
+    kern = cx.exact_fill(*args, ncols, bandwidth=w)
+    plain = cx.exact_fill_plain(*args, ncols, bandwidth=w)
+    err_f = max(int((k.long() - p.long()).abs().max())
+                for k, p in zip(kern, plain))
+    walk = cx.exact_walk(*kern, eb, anf, args[4], ncols, cpad=cpad)
+    walk_p = cx.exact_walk_plain(*kern, eb, anf, args[4], ncols, cpad=cpad)
+    err_g = max(int((k.long() - p.long()).abs().max())
+                for k, p in zip(walk, walk_p))
+    if err_f or err_g:
+        raise AssertionError(f"kernels F, G != plain versions: max abs err "
+                             f"{err_f}, {err_g}")
+    return err_f, err_g
+
+
+# int32 operations of the entry scan a column (the band read's select,
+# the compare with the running best, the tie's select); kernel G's walk
+# is counted as kernel B's (WALK_CHAIN_OPS a step)
+ENTRY_OPS_PER_COLUMN = 3
+
+
+def exact_kernel_bounds(b, l, c, cpad, w, lengths, sm_count, sm_hz):
+    """The least time the card could take for kernels F's and G's work
+    on this block, in ms: {name: (bound_ms, bound_by, detail)}, as
+    kernel_bounds counts A's and B's: F's band cells (every position of
+    the block, as F emits codes for each) x FILL_OPS_PER_CELL int32
+    operations, its bytes each input read once and each output written
+    once; G's bytes the final band and one 32-byte sector of codes a
+    word-row walked, the band starts of the walked positions and the
+    records out, its operations the entry scan's and the walk's."""
+    nw = -(-l // 16)
+    int_rate = sm_count * INT32_LANES_PER_SM * sm_hz
+    cells = b * l * w
+    bytes_f = (c * 6 * 4 + b * c + b * l + b * l * 4 + b * 4
+               + nw * b * w * 4 + b * w * 4 + b * 4)
+    tf_ops = FILL_OPS_PER_CELL * cells / int_rate * 1e3
+    tf_bytes = bytes_f / HBM_BYTES_PER_S * 1e3
+    steps = int(sum(int(x) for x in lengths))
+    rows_walked = int(sum(-(-int(x) // 16) for x in lengths))
+    bytes_g = (b * w * 4 + rows_walked * 32 + steps * 4 + b * 12
+               + nw * b * 16 * 4 + b * 8)
+    ops_g = ENTRY_OPS_PER_COLUMN * b * cpad + WALK_CHAIN_OPS * steps
+    tg_ops, tg_bytes = ops_g / int_rate * 1e3, bytes_g / HBM_BYTES_PER_S * 1e3
+    chain_ms = max(int(x) for x in lengths) * WALK_CHAIN_OPS / sm_hz * 1e3
+    return {
+        "exact_fill": (
+            max(tf_ops, tf_bytes),
+            "operations" if tf_ops >= tf_bytes else "bytes",
+            f"{cells:.4g} band cells x {FILL_OPS_PER_CELL} int32 operations"
+            f" over {sm_count} SMs x {INT32_LANES_PER_SM} lanes x "
+            f"{sm_hz / 1e6:.0f} MHz = {tf_ops:.3f} ms; {bytes_f / 1e6:.1f} MB"
+            f" over 3.35 TB/s = {tf_bytes:.3f} ms"),
+        "exact_walk": (
+            max(tg_ops, tg_bytes),
+            "operations" if tg_ops >= tg_bytes else "bytes",
+            f"final band, {rows_walked} word-rows walked x 32 B, band "
+            f"starts and records = {bytes_g / 1e6:.2f} MB over 3.35 TB/s = "
+            f"{tg_bytes:.4f} ms; {b} x {cpad} columns scanned x "
+            f"{ENTRY_OPS_PER_COLUMN} + {steps} steps x {WALK_CHAIN_OPS} "
+            f"operations = {tg_ops:.5f} ms; serial-chain floor (not the "
+            f"bound): {max(lengths)} dependent steps x {WALK_CHAIN_OPS} "
+            f"operations at one a cycle = {chain_ms:.3f} ms"),
+    }
+
+
+def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
+                     errs):
+    """Phase 9; returns the kernels' launches in the forced-exact
+    resident run, F's and G's times (ms, plain ms) and their bounds."""
     import numpy as np
     import torch
 
     from repeatresolver_tpu_torch.models import realigner as prt
     from repeatresolver_tpu_torch.models import realigner_device as prd
     from repeatresolver_tpu_torch.ops import banded_realign as br
+    from repeatresolver_tpu_torch.ops import cuda_exact as cx
     from repeatresolver_tpu_torch.utils import io as rio
     from repeatresolver_tpu_torch.utils import native
 
     args, ncols, kw = block
     counts, rows_old, seqs, ways, lengths = args
     w, t, widen = kw["bandwidth"], kw["chunk"], kw["widen"]
+    cpad = rows_old.shape[1]
     ways_h, len_h = ways.cpu().numpy(), lengths.cpu().numpy()
 
     def timed(fn):
@@ -1657,94 +1788,144 @@ def exact_band_phase(card, dev, block, converge_msa_path):
             ways_h, len_h, w, t, stair)]
 
     common = dict(bandwidth=w, chunk=t, widen=widen)
-    prt.block_dp(*args, *starts(True), ncols, staircase=True, kernel="cuda",
-                 **common)               # warm-up
-    out_k, s_k = timed(lambda: prt.block_dp(
-        *args, *starts(True), ncols, staircase=True, kernel="cuda",
-        **common))
+    stair_starts = starts(True)
     anf, eb = starts(False)
+
+    def through(stair):
+        return prt.block_dp(*args, *(stair_starts if stair else (anf, eb)),
+                            ncols, staircase=stair, kernel="cuda", **common)
+
+    through(True)                        # warm-ups
+    through(False)
+    out_k, s_k = timed(lambda: through(True))
+    out_fg, s_fg = timed(lambda: through(False))
+    # F and G alone, the median of KERNEL_REPS runs each
+    (codes, band, fanf), ms_f = time_launches(
+        lambda: cx.exact_fill(*args, ncols, bandwidth=w), KERNEL_REPS,
+        "exact_fill")
+    (moves, wayin, best), ms_g = time_launches(
+        lambda: cx.exact_walk(codes, band, fanf, eb, anf, lengths, ncols,
+                              cpad=cpad), KERNEL_REPS, "exact_walk")
+    # the plain versions: F's, the torch loop with its codes packed; G's,
+    # the entry scan and the walk in torch ops over F's codes
     torch.cuda.reset_peak_memory_stats()
     fill, s_fill = timed(lambda: br.banded_fill(*args, ncols, bandwidth=w))
+    packed, s_pack = timed(lambda: cx.pack_codes(fill[0]))
+    err_f = max(int((k.long() - p.long()).abs().max()) for k, p in
+                zip((codes, band, fanf), (packed, fill[1], fill[2])))
     out_t, s_bt = timed(lambda: br.entry_and_backtrack(
-        *fill, seqs, anf, eb, lengths, ncols, cpad=rows_old.shape[1],
-        bandwidth=w))
+        *fill, seqs, anf, eb, lengths, ncols, cpad=cpad, bandwidth=w))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    del fill
+    del fill, packed
+    walk_p, s_walk = timed(lambda: cx.exact_walk_plain(
+        codes, band, fanf, eb, anf, lengths, ncols, cpad=cpad))
+    err_g = max(int((k.long() - p.long()).abs().max()) for k, p in
+                zip((moves, wayin, best), walk_p))
+    errs["exact_fill"] = max(errs["exact_fill"], err_f)
+    errs["exact_walk"] = max(errs["exact_walk"], err_g)
+    if err_f or err_g:
+        raise AssertionError(f"paper-width block: kernels F, G != plain "
+                             f"versions, max abs err {err_f}, {err_g}")
     t0 = time.perf_counter()
     out_n = prt.realign_block_native(
         native, counts[:ncols].cpu().numpy(),
         np.ascontiguousarray(rows_old[:, :ncols].cpu().numpy()),
         seqs.cpu().numpy(), ways_h, len_h, w)
     s_n = time.perf_counter() - t0
-    out_k = [x.cpu().numpy() for x in out_k]
-    out_t = [x.cpu().numpy() for x in out_t]
-    _same_block_result("torch exact band vs kernels A + B", out_t, out_k,
-                       ncols)
-    _same_block_result("torch exact band vs host native engine", out_t,
-                       out_n, ncols)
+    out_fg = [x.cpu().numpy() for x in out_fg]
+    for what, ref in (("kernels A + B", out_k), ("the torch loop", out_t),
+                      ("the host native engine", out_n)):
+        ref = [x.cpu().numpy() if torch.is_tensor(x) else x for x in ref]
+        _same_block_result(f"kernels F + G vs {what}", out_fg, ref, ncols)
     b, lpad = seqs.shape
     print(f"block of {b} rows x {lpad} bases (longest {int(len_h.max())}), "
-          f"band {w}, MSA width {ncols}: rows, best and "
-          f"{int(out_t[4].sum())} inserts bit-equal between the torch exact "
-          f"band, kernels A + B and the host native engine")
-    print(f"seconds for the block on {card}: torch exact band "
+          f"band {w}, MSA width {ncols} of {cpad}: rows, best and "
+          f"{int(out_fg[4].sum())} inserts (most a row "
+          f"{int(out_fg[4].max())}) bit-equal between kernels F + G, the "
+          f"torch loop, kernels A + B and the host native engine; F and G "
+          f"bit-equal to their plain versions (codes, band, band start; "
+          f"moves, entry, best)")
+    print(f"seconds for the block on {card}: kernels F + G with their "
+          f"torch ops {s_fg:.4f} (F {ms_f:.3f} ms, {spread('exact_fill')};"
+          f" G {ms_g:.3f} ms, {spread('exact_walk')}), the torch loop "
           f"{s_fill + s_bt:.2f} (banded_fill {s_fill:.2f}, "
-          f"entry_and_backtrack {s_bt:.2f}; peak {peak:.2f} GiB), kernels "
-          f"A + B with their torch ops {s_k:.4f}, host native engine "
-          f"{s_n:.2f} ({os.cpu_count()} threads)")
+          f"entry_and_backtrack {s_bt:.2f}; peak {peak:.2f} GiB), G's plain"
+          f" walk {s_walk:.2f}, kernels A + B with their torch ops "
+          f"{s_k:.4f}, host native engine {s_n:.2f} ({os.cpu_count()} "
+          f"threads)")
+    times = {"exact_fill": (ms_f, (s_fill + s_pack) * 1e3),
+             "exact_walk": (ms_g, s_walk * 1e3)}
+    bounds = exact_kernel_bounds(b, lpad, rows_old.shape[1], cpad, w, len_h,
+                                 sm_count, sm_hz)
+    for name in times:
+        bms, by, detail = bounds[name]
+        print(f"{name}: bound {bms:.4f} ms by {by} ({bms / times[name][0]:.1%}"
+              f" of the kernel's time): {detail}; library call: none (no "
+              "single PyTorch call computes this function)")
 
-    # the resident engine's exact blocks without the host library
+    # the resident engine with every block forced onto the exact route
+    # (an insert fetch of one slot), the host library made unavailable:
+    # the card's route takes kernels F and G and never asks for it
     msa = rio.read_msa(converge_msa_path)
     cls = prd.DeviceResidentRealigner
-
-    def resident_run():
-        eng = cls(msa, bandwidth=1000, block_rows=64, device=dev)
-        eng._maxf = 1                    # every insert list overflows
-        eng.ent_al_gapper()
-        log = [eng.overall_pair()]
-        for _ in range(2):
-            eng.sweep()
-            log.append(eng.overall_pair())
-        return log, eng._overflow_events
-
-    cls.exact_blocks_run = cls.exact_blocks_run_torch = 0
-    (log_n, overflows), s_native = timed(resident_run)
-    native_blocks = (cls.exact_blocks_run, cls.exact_blocks_run_torch)
 
     def no_library():
         raise native.NativeBuildError(
             "native host library: made unavailable")
 
+    os.environ["RR_FLUSH_CAP"] = str(1 << 30)
     prd._native = no_library
     try:
+        reset_launches()
+        reset_exact_blocks()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            (log_t, _), s_torch = timed(resident_run)
+            t0 = time.perf_counter()
+            eng = cls(msa, bandwidth=1000, block_rows=64, device=dev)
+            eng._maxf = 1                # every insert list overflows
+            eng.ent_al_gapper()
+            log_d = [eng.overall_pair()]
+            for _ in range(2):
+                eng.sweep()
+                log_d.append(eng.overall_pair())
+            torch.cuda.synchronize()
+            s_d = time.perf_counter() - t0
+        launches = launches_now()
+        ex = exact_blocks()
+        sweeps = list(cls.sweep_log)
+        prd._native = prt._native
+        t0 = time.perf_counter()
+        host = prt.BatchedRealigner(msa, bandwidth=1000, block_rows=64)
+        host.ent_al_gapper()
+        log_h = [host.overall_pair()]
+        for _ in range(2):
+            host.sweep()
+            log_h.append(host.overall_pair())
+        s_h = time.perf_counter() - t0
     finally:
         prd._native = prt._native
-    said = [str(c.message) for c in caught
-            if "torch exact band" in str(c.message)]
-    if len(said) != 1:
-        raise AssertionError("the degrade route must warn once an engine: "
-                             f"{said}")
-    print(f"  warning of the degrade route: {said[0]}")
-    torch_blocks = (cls.exact_blocks_run - native_blocks[0],
-                    cls.exact_blocks_run_torch)
-    print(f"resident engine, 2 sweeps at block 64 on MSA {msa.shape}, "
-          f"{overflows} insert-fetch overflows: exact blocks (native, "
-          f"torch) {native_blocks} in {s_native:.2f} s with the host "
-          f"library, {torch_blocks} in {s_torch:.2f} s without it, on "
-          f"{card}")
-    for m, u in log_t:
+        del os.environ["RR_FLUSH_CAP"]
+    if [str(c.message) for c in caught if "exact band" in str(c.message)]:
+        raise AssertionError("the card's exact route asked for the host "
+                             "library")
+    print(f"resident engine, 2 sweeps at block 64 on MSA {msa.shape}, every "
+          f"block forced exact ({eng._overflow_events} insert-fetch "
+          f"overflows), host library unavailable: exact blocks by route "
+          f"{ex} in {s_d:.2f} s; launches {launches}; host native engine "
+          f"{s_h:.2f} s, on {card}")
+    for i, rec in enumerate(sweeps):
+        print(f"  sweep {i + 1}: {rec['s']:.3f} s, exact blocks "
+              f"{rec['exact_blocks']} in {rec['exact_block_s']} s")
+    for m, u in log_d:
         print(f"  OverallScore: {m}{u:06d}")
-    if native_blocks[0] <= 0 or native_blocks[1] != 0 \
-            or torch_blocks != (0, native_blocks[0]):
-        raise AssertionError("the exact route's two implementations were "
-                             f"not counted apart: {native_blocks}, "
-                             f"{torch_blocks}")
-    if log_t != log_n:
-        raise AssertionError(f"torch exact route {log_t} != native exact "
-                             f"route {log_n}")
+    check_exact_routes("forced-exact resident run", ex)
+    if ex["cuda"] <= 0 or min(launches["exact_fill"],
+                              launches["exact_walk"]) <= 0:
+        raise AssertionError(f"kernels F and G never ran: {ex}, {launches}")
+    if log_d != log_h:
+        raise AssertionError(f"forced-exact resident run {log_d} != host "
+                             f"native engine {log_h}")
+    return launches, times, bounds
 
 
 def _no_foreign_modules():
@@ -1801,6 +1982,7 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
     prt.cr = types.SimpleNamespace(staircase_fill=recording_fill,
                                    MAX_W2=cr.MAX_W2)
     reset_launches()
+    reset_exact_blocks()
     sync()
     t0 = time.perf_counter()
     try:
@@ -1822,7 +2004,7 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
         sweeps=prt.BatchedRealigner.host_sweeps,
         launches=launches, kernel_s=in_kernel, collective_s=coll["s"],
         collectives=coll["calls"], staged=mesh.staged,
-        built_here=sorted(_build.build_info))
+        exact=exact_blocks(), built_here=sorted(_build.build_info))
     # kernels A and B against their plain versions on that shard (after
     # the launches were read: these do not count)
     args, ncols, kw = first["block"]
@@ -1923,6 +2105,8 @@ def mesh_phase(card, dev, msa_path, paper_lines, errs):
         if rep["built_here"]:
             raise AssertionError(f"rank {rep['rank']} ran nvcc again: "
                                  f"{rep['built_here']}")
+        print(f"rank {rep['rank']}: exact blocks by route {rep['exact']}")
+        check_exact_routes(f"mesh rank {rep['rank']}", rep["exact"])
         ka = rep["kernel_s"].get("staircase_fill", 0.0)
         kb = rep["kernel_s"].get("walk_backtrack", 0.0)
         print(f"rank {rep['rank']} on {card}: {MESH_ROUNDS} rounds, wall "
@@ -2110,17 +2294,20 @@ import torch
 from repeatresolver_tpu_torch import paper_run
 from repeatresolver_tpu_torch.models import initial_aligner, read_cutter
 from repeatresolver_tpu_torch.models import realigner_device
+from repeatresolver_tpu_torch.ops import banded_realign as br
 from repeatresolver_tpu_torch.ops import cuda_backtrack as cb
 from repeatresolver_tpu_torch.ops import cuda_editdp as ce
+from repeatresolver_tpu_torch.ops import cuda_exact as cx
 from repeatresolver_tpu_torch.ops import cuda_maxcorr as cm
 from repeatresolver_tpu_torch.ops import cuda_realign as cr
 from repeatresolver_tpu_torch.ops import editdp, maxcorr_tile
 counters = dict(staircase_fill=cr.staircase_fill,
                 walk_backtrack=cb.backtrack_moves,
                 editdp_fill=ce.editdp_fill, editdp_walk=ce.editdp_walk,
-                maxcorr_tile=cm.maxcorr_group)
+                maxcorr_tile=cm.maxcorr_group, exact_fill=cx.exact_fill,
+                exact_walk=cx.exact_walk)
 plain = (editdp.forward_plain, editdp.walk_plain,
-         maxcorr_tile.group_pass_plain)
+         maxcorr_tile.group_pass_plain, br.banded_fill)
 kept = {"blocks": {}}
 
 
@@ -2381,6 +2568,49 @@ def main() -> int:
                 errs["walk_backtrack"] = max(errs["walk_backtrack"], eb)
         print(f"{len(cases) * 2} blocks bit-equal (rows of length 0 and "
               "1, dead walks included)")
+        # kernels F and G: shifts past the band, rows of length 0 and 1,
+        # padding columns, a row ending at the last column, band 2600
+        import numpy as np
+        kt = kernel_tests()
+        for case in kt.EXACT_CASES:
+            *arrays, ncols = kt.exact_inputs(*case)
+            w = case[-1]
+            ef, eg = compare_exact(
+                to_dev(arrays), to_dev(kt.exact_bounds(arrays[3], arrays[4],
+                                                       w)),
+                ncols, w, arrays[1].shape[1])
+            errs["exact_fill"] = max(errs["exact_fill"], ef)
+            errs["exact_walk"] = max(errs["exact_walk"], eg)
+        # a row with more inserts than MAX_INSERTS: F + G against the
+        # host native engine, and against their plain versions
+        from repeatresolver_tpu_torch.ops import banded_realign as br
+        heavy, order = kt.insert_heavy_block()
+        hcounts = prt.symbol_counts(heavy).astype(np.int32)
+        hrows = heavy[order]
+        hseqs, hways, hlens = prt.compact_rows(hrows)
+        hstarts = kt.exact_bounds(hways, hlens, 64)
+        hargs = to_dev((hcounts, hrows, hseqs, hways, hlens))
+        ef, eg = compare_exact(hargs, to_dev(hstarts), heavy.shape[1], 64,
+                               heavy.shape[1])
+        errs["exact_fill"] = max(errs["exact_fill"], ef)
+        errs["exact_walk"] = max(errs["exact_walk"], eg)
+        got = [x.cpu().numpy() for x in prt.block_dp(
+            *hargs, *to_dev(hstarts), heavy.shape[1], bandwidth=64,
+            chunk=256, widen=1, staircase=False, kernel="cuda")]
+        ref = prt.realign_block_native(native, hcounts, hrows, hseqs, hways,
+                                       hlens, 64)
+        _same_block_result("a row past MAX_INSERTS, F + G vs the host "
+                           "native engine", got, ref, heavy.shape[1])
+        if ref[4].max() <= br.MAX_INSERTS:
+            raise AssertionError("the insert-heavy block has "
+                                 f"{ref[4].max()} inserts a row at most")
+        print(f"kernels F and G: {len(kt.EXACT_CASES) + 1} blocks bit-equal "
+              f"to their plain versions (bands "
+              f"{sorted({c[-1] for c in kt.EXACT_CASES})}, shifts past the "
+              f"band, rows of length 0 and 1, padding columns, a row ending"
+              f" at the last column); a row of {int(ref[4].max())} inserts "
+              f"(MAX_INSERTS {br.MAX_INSERTS}) equal to the host native "
+              "engine")
         # kernels C and D: align's shared target (packed and int8 codes),
         # Lq > Lt, two segments; cut's stride-0 queries against 200-padded
         # per-read targets (final rows), two and three segments
@@ -2571,9 +2801,10 @@ def main() -> int:
         print(f"realign: {len(scores)} OverallScore lines, best "
               f"{min(scores)}, {rounds} rounds, wall {wall:.2f} s, "
               f"{cells / wall:.4g} cells/s on {card}")
-        print(f"launches {launches}, exact-fallback blocks (host library, "
-              f"torch exact band) {exact_blocks()}, host "
+        ex = exact_blocks()
+        print(f"launches {launches}, exact blocks by route {ex}, host "
               f"anneal-tail rounds {prt.BatchedRealigner.host_sweeps}")
+        check_exact_routes("CLI realign", ex)
         res_s = prd.DeviceResidentRealigner.resident_sweep_s
         host_s = prt.BatchedRealigner.host_sweep_s
         print(f"seconds: resident sweeps {res_s:.2f}, host anneal-tail "
@@ -2620,7 +2851,10 @@ def main() -> int:
             paper_realign_phase(card, dev, errs)
 
     with phase("9 exact band on the card"):
-        exact_band_phase(card, dev, paper_block, msa_path)
+        forced_launches, exact_times, exact_bounds_ms = exact_band_phase(
+            card, dev, paper_block, msa_path, sm_count, sm_hz, errs)
+        times.update(exact_times)
+        bounds.update(exact_bounds_ms)
 
     with phase("10 mesh path: two ranks sharing the card over gloo"):
         mesh_launches, striped_launches = mesh_phase(
@@ -2636,8 +2870,9 @@ def main() -> int:
         driver_launches = paper_driver_phase(card, errs)
 
     # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
-    # and B, as in every earlier report; phase 6 for C, D and E); the
-    # counts of all nine main paths stand in `launches_by_path` (the mesh
+    # and B, as in every earlier report; phase 6 for C, D and E; phase
+    # 9's forced-exact resident run for F and G); the counts of all ten
+    # main paths stand in `launches_by_path` (the mesh
     # realign's is one rank's: both ranks launch the same number; the
     # striped MaxCorrs scan's is both ranks')
     maxcorr_only = {name: name == "maxcorr_tile" for name in KERNELS}
@@ -2650,6 +2885,7 @@ def main() -> int:
                       "realign_mesh_2_ranks_per_rank": mesh_launches[name],
                       "maxcorr_striped_2_ranks":
                           striped_launches * maxcorr_only[name],
+                      "realign_forced_exact": forced_launches[name],
                       "cut_align_paper_width": cut_launches[name],
                       "paper_run_driver": driver_launches[name]}
                for name in KERNELS}

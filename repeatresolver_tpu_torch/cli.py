@@ -256,12 +256,14 @@ def main(argv=None):
 
 def _report_exact_blocks() -> None:
     """Say on stderr which route the resident engine's exact blocks
-    took, when any ran: the host library or the torch exact band."""
+    took, when any ran: kernels F and G on the card, the host library or
+    the torch exact band."""
     from .models.realigner_device import DeviceResidentRealigner as eng
-    if eng.exact_blocks_run or eng.exact_blocks_run_torch:
-        print(f"exact blocks: {eng.exact_blocks_run} through the host "
-              f"library, {eng.exact_blocks_run_torch} through the torch "
-              "exact band", file=sys.stderr)
+    n = eng.exact_blocks_run
+    if any(n.values()):
+        print(f"exact blocks: {n['cuda']} through kernels F and G, "
+              f"{n['native']} through the host library, {n['torch']} "
+              "through the torch exact band", file=sys.stderr)
 
 
 def _device_arg(parser, what: str) -> None:

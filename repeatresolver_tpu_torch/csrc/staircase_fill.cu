@@ -66,6 +66,8 @@
 
 #include <type_traits>
 
+#include "wrap_int.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -80,13 +82,6 @@ constexpr unsigned FULL = 0xffffffffu;
 // where a warp lies relative to the reference band at a step; MODE_GEN
 // is the body with every test of the plain version
 enum { MODE_IN = 0, MODE_EDGE = 1, MODE_OUT = 2, MODE_GEN = 3 };
-
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
 
 // ns(y): non-space symbols in column y with this row's own cell removed
 __device__ __forceinline__ int ns_at(const int* counts, const int8_t* row,

@@ -13,7 +13,9 @@ Counterpart of repeatresolver_tpu/models/realigner.py:
     resident engine's exact blocks); kernel="torch", the plain torch
     versions (ops/banded_realign, ops/staircase_realign) on `device`;
     kernel="cuda", the staircase fill and the walk through their
-    wrappers (kernels A and B on a CUDA device). With a mesh
+    wrappers (kernels A and B on a CUDA device). Whatever the kernel, a
+    block through the exact band on a CUDA device runs kernels F and G
+    (ops/cuda_exact), on the CPU the torch exact band. With a mesh
     (parallel/sharded.Mesh) each block's rows are sharded over the
     ranks of a process group.
   * `realign_batched`, the main loop: best tracking, the anneal,
@@ -41,6 +43,7 @@ from ..config import RealignerConfig
 from ..device import resolve_device
 from ..ops import banded_realign as br
 from ..ops import cuda_backtrack as cb
+from ..ops import cuda_exact as ce
 from ..ops import cuda_realign as cr
 from ..ops import staircase_realign as sr
 from ..utils import checkpoint as ckpt
@@ -409,9 +412,11 @@ def realign_block_native(nat, counts, rows_old, seqs, ways, lengths,
         cap = max(cap * 2, int(res[4].max()) + 1)
 
 
-def _check_inserts(inn: np.ndarray) -> None:
-    """The device routes hold MAX_INSERTS inserts a row."""
-    if (inn >= br.MAX_INSERTS).any():
+def _check_inserts(inn: np.ndarray, cap: int) -> None:
+    """A device route's insert lists hold `cap` inserts a row: the torch
+    routes and kernel B's rebuild MAX_INSERTS, kernels F and G as many
+    as the block's walk found."""
+    if (inn > cap).any():
         raise RuntimeError("insert buffer overflow; raise MAX_INSERTS or "
                            "use the serial engine")
 
@@ -470,7 +475,12 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
     through their wrappers, the packed time-major codes going straight
     into the walk (kernels A and B on CUDA tensors). staircase with
     kernel "torch": the plain staircase fill, its codes unpacked for the
-    lockstep backtrack. Otherwise the exact band in torch ops."""
+    lockstep backtrack. Otherwise the exact band, chosen by the tensors'
+    device whatever the kernel: on CUDA tensors kernels F and G
+    (ops/cuda_exact: the fill, then the entry scan and the walk over its
+    packed codes, insert lists as wide as the walk needs), on CPU
+    tensors the torch exact band (ops/banded_realign, MAX_INSERTS
+    inserts a row; `banded_fill.calls` counts its runs)."""
     cpad = rows_old.shape[1]
     w_codes = bandwidth
     if staircase:
@@ -486,6 +496,13 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
             counts, rows_old, seqs, ways, lengths, ncols,
             bandwidth=bandwidth, chunk=chunk, widen=widen)
         codes = sr.unpack_codes(codes, seqs.shape[1])
+    elif rows_old.device.type == "cuda":
+        codes, fband, fanf = ce.exact_fill(
+            counts, rows_old, seqs, ways, lengths, ncols,
+            bandwidth=bandwidth)
+        return ce.entry_and_backtrack(
+            codes, fband, fanf, seqs, anf_full, entry_bound, lengths,
+            ncols, cpad=cpad)
     else:
         codes, fband, fanf = br.banded_fill(
             counts, rows_old, seqs, ways, lengths, ncols,
@@ -850,7 +867,7 @@ class BatchedRealigner:
             chunk=self.chunk, widen=widen, staircase=use_stair,
             kernel=self.kernel)
         inn = inn.cpu().numpy()
-        _check_inserts(inn)
+        _check_inserts(inn, iy.shape[1])
         self._apply_block(rows, new_rows[:, :c].cpu().numpy(),
                           iy.cpu().numpy(), ib.cpu().numpy(), inn)
 
@@ -906,7 +923,7 @@ class BatchedRealigner:
         new_rows, iy, ib, inn, delta = step(
             counts_p, rows_p, seqs, ways, lengths, anf_full, entry_bound,
             valid, c)
-        _check_inserts(inn[:bs])
+        _check_inserts(inn[:bs], iy.shape[1])
         self._apply_block(rows, new_rows[:bs, :c], iy[:bs], ib[:bs],
                           inn[:bs], delta=delta[:c])
 

@@ -24,11 +24,12 @@ The staircase slack (`widen`) is adapted per block: every block runs
 one ladder rung above its last measured drift. Its actual drift is
 checked when its buffer is read; a block whose drift exceeded its slack
 (or whose insert list overflowed the fetched window) makes the sweep
-restore its start snapshot and redo, wider or through the exact host
-fallback. Kernel A holds a window of at most `cuda_realign.MAX_W2`
-lanes, so a block's slack is capped at the widest rung whose window
-bandwidth + widen * chunk fits: at dispatch, where `_drain` raises it,
-and in the redo set. A block whose drift no fitting rung covers goes
+restore its start snapshot and redo, wider or through the exact band
+(`_exact_block`: kernels F and G in place on a CUDA device, the host
+native engine for an engine on the CPU). Kernel A holds a window of at
+most `cuda_realign.MAX_W2` lanes, so a block's slack is capped at the
+widest rung whose window bandwidth + widen * chunk fits: at dispatch,
+where `_drain` raises it, and in the redo set. A block whose drift no fitting rung covers goes
 through the exact band for good, as `BatchedRealigner._realign_block`
 sends it. Since the staircase equals the exact band for any covering
 slack, the per-sweep (mille, uno) trajectory and the final MSA are
@@ -75,23 +76,15 @@ def apply_rows(msa_d, counts_d, rows, rows_old, new_rows) -> None:
     msa_d.index_copy_(0, rows, new_rows)
 
 
-def block_step(msa_d, counts_d, rows, lengths, ncols: int, *,
-               bandwidth: int, chunk: int, widen: int, lpad: int,
-               maxf: int) -> torch.Tensor:
-    """Realign one block in place on the resident msa_d / counts_d.
-
-    rows int64 [B] row ids; lengths int32 [B] their base counts; lpad
-    the block's length bucket. Returns int32 [B*maxf + B + 1]: the
-    first maxf inserts of each row (y << 2 | base), each row's insert
-    count, and the block's column-path drift (max over chunks of
-    way[end] - way[start])."""
-    b = rows.shape[0]
-    cpad = msa_d.shape[1]
-    dev = msa_d.device
-    bh = bandwidth // 2
-    rows_old = msa_d.index_select(0, rows)
-    # compact each row's bases into (seqs, ways): cumsum + one scatter,
-    # non-bases into a sentinel column sliced off
+def compact_block(rows_old: torch.Tensor, lengths: torch.Tensor,
+                  lpad: int):
+    """(seqs int8 [B, lpad], ways int32 [B, lpad], last_way int32 [B])
+    of a block's rows on their device: each row's bases and their
+    columns (cumsum + one scatter, non-bases into a sentinel column
+    sliced off), ways edge-padded past the row's length, and the column
+    of its last base (0 for an empty row)."""
+    b, cpad = rows_old.shape
+    dev = rows_old.device
     isb = rows_old < 4
     pos = torch.cumsum(isb, dim=1, dtype=torch.int32) - 1
     tgt = torch.where(isb & (pos < lpad), pos, lpad).long()
@@ -105,6 +98,24 @@ def block_step(msa_d, counts_d, rows, lengths, ncols: int, *,
                             (lengths - 1).clamp(min=0).long()[:, None])
     ways = torch.where(inlen, buf >> 2, last_way).contiguous()
     seqs = torch.where(inlen, buf & 3, 0).to(torch.int8)
+    return seqs, ways, last_way[:, 0].contiguous()
+
+
+def block_step(msa_d, counts_d, rows, lengths, ncols: int, *,
+               bandwidth: int, chunk: int, widen: int, lpad: int,
+               maxf: int) -> torch.Tensor:
+    """Realign one block in place on the resident msa_d / counts_d.
+
+    rows int64 [B] row ids; lengths int32 [B] their base counts; lpad
+    the block's length bucket. Returns int32 [B*maxf + B + 1]: the
+    first maxf inserts of each row (y << 2 | base), each row's insert
+    count, and the block's column-path drift (max over chunks of
+    way[end] - way[start])."""
+    cpad = msa_d.shape[1]
+    dev = msa_d.device
+    bh = bandwidth // 2
+    rows_old = msa_d.index_select(0, rows)
+    seqs, ways, last_way = compact_block(rows_old, lengths, lpad)
     # staircase window starts (constant per chunk) and the drift, which
     # the host checks against this block's slack when it reads `out`
     nc = -(-lpad // chunk)
@@ -112,7 +123,7 @@ def block_step(msa_d, counts_d, rows, lengths, ncols: int, *,
     ends = (starts + chunk - 1).clamp(max=lpad - 1)
     drift = (ways[:, ends] - ways[:, starts]).max()
     anf_full = sr.staircase_anf(ways, bandwidth, chunk)
-    entry_bound = (last_way[:, 0] - bh).clamp(min=-1)
+    entry_bound = (last_way - bh).clamp(min=-1)
     codes, fband, fanf = cr.staircase_fill(
         counts_d, rows_old, seqs, ways, lengths, ncols,
         bandwidth=bandwidth, chunk=chunk, widen=widen)
@@ -127,7 +138,8 @@ def block_step(msa_d, counts_d, rows, lengths, ncols: int, *,
 
 class DeviceResidentRealigner(BatchedRealigner):
     """The realign engine with the MSA resident on `device` (staircase
-    band, kernels A and B; block_rows > 1). The anneal hands block sizes
+    band, kernels A and B; the exact band's blocks through kernels F and
+    G on a CUDA device; block_rows > 1). The anneal hands block sizes
     below RESIDENT_MIN_BS to the host native engine."""
 
     # below this block size the anneal continues on the host native
@@ -136,13 +148,18 @@ class DeviceResidentRealigner(BatchedRealigner):
     # switches is part of the trajectory, since the two engines splice
     # and drop columns at different points of a sweep)
     RESIDENT_MIN_BS = int(os.environ.get("RR_RESIDENT_MIN_BS", "32"))
-    # blocks realigned through the exact band, by route (the native host
-    # engine; the torch exact band on the engine's device, taken when
-    # the host library cannot be built), and seconds in resident sweeps
-    # (to their last device sync), for reports
-    exact_blocks_run = 0
-    exact_blocks_run_torch = 0
+    # blocks realigned through the exact band and their seconds (host
+    # clock, to the read of their inserts), by route: "cuda", kernels F
+    # and G in place on a CUDA device; "native", the host native engine
+    # (an engine on the CPU); "torch", the torch exact band on the CPU
+    # (when the host library cannot be built). Seconds in resident
+    # sweeps (to their last device sync), and one record a sweep:
+    # {"s", "exact_blocks", "exact_block_s"}, for reports
+    ROUTES = ("cuda", "native", "torch")
+    exact_blocks_run = dict.fromkeys(ROUTES, 0)
+    exact_block_s = dict.fromkeys(ROUTES, 0.0)
     resident_sweep_s = 0.0
+    sweep_log: list = []
     # each best-MSA write downloads the whole MSA: realign_batched
     # writes at most every RR_BEST_WRITE_S seconds
     SNAPSHOT_COSTLY = True
@@ -326,6 +343,8 @@ class DeviceResidentRealigner(BatchedRealigner):
 
     def sweep(self) -> None:
         t0 = time.perf_counter()
+        cls = DeviceResidentRealigner
+        n0, s0 = dict(cls.exact_blocks_run), dict(cls.exact_block_s)
         if self._msa_d is None:
             self._upload()
         extra_exact: set = set()   # this sweep only: overflow redos
@@ -335,14 +354,20 @@ class DeviceResidentRealigner(BatchedRealigner):
             snap_n = self._ncols
             violations = self._try_sweep(extra_exact)
             if not violations:
-                DeviceResidentRealigner.resident_sweep_s += \
-                    time.perf_counter() - t0
+                secs = time.perf_counter() - t0
+                cls.resident_sweep_s += secs
+                cls.sweep_log.append({
+                    "s": secs,
+                    "exact_blocks": {k: cls.exact_blocks_run[k] - n0[k]
+                                     for k in cls.ROUTES},
+                    "exact_block_s": {k: cls.exact_block_s[k] - s0[k]
+                                      for k in cls.ROUTES}})
                 return
             # restore and redo: drift violations that a ladder rung
             # within kernel A's window covers retry wider (_drain
             # already raised the slack); the rest go through the exact
-            # host fallback for good; insert-fetch overflows (-1) go
-            # exact for this sweep only
+            # band for good; insert-fetch overflows (-1) go exact for
+            # this sweep only
             self._msa_d, self._counts_d = snap_m, snap_c
             self._ncols = snap_n
             lad_max = self._w_fit * self.chunk
@@ -426,7 +451,7 @@ class DeviceResidentRealigner(BatchedRealigner):
         if (inn > maxf).any():
             # a row's insert list overflowed the fetched window, so the
             # block's apply lost bases: redo the sweep with this block
-            # on the exact host fallback (its buffer grows on demand)
+            # on the exact band (its insert lists hold any count)
             self._overflow_events += 1
             violations[bid] = -1
             return
@@ -439,12 +464,55 @@ class DeviceResidentRealigner(BatchedRealigner):
     def _exact_block(self, rows, pending) -> None:
         """Exact-band realignment of a block whose drift exceeds any
         staircase slack (short fragments spread over wide spans), or
-        whose insert list overflowed, written back in place. Through
-        the native host engine, the math the host path uses; when the
-        host library cannot be built, through the torch exact band on
-        the engine's device (same math, both are the reference
-        recurrence). The two routes are counted apart, and the first
-        block that takes the torch route warns."""
+        whose insert list overflowed, written back in place; its inserts
+        join `pending`. On a CUDA device through kernels F and G on the
+        resident rows and histogram (`_exact_block_device`), whatever the
+        host library's state: no host round trip and no fallback. On the
+        CPU through the native host engine (the JAX package's route),
+        or, when the host library cannot be built, the torch exact band
+        (same math, both the reference recurrence; the first such block
+        warns). Counted and timed by route."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            route = "cuda"
+            iy, ib, inn = self._exact_block_device(rows)
+        else:
+            route, iy, ib, inn = self._exact_block_host(rows)
+        for b, k in enumerate(rows):
+            for o in range(int(inn[b])):
+                pending.append((int(iy[b, o]), int(k), o, int(ib[b, o])))
+        cls = DeviceResidentRealigner
+        cls.exact_blocks_run[route] += 1
+        cls.exact_block_s[route] += time.perf_counter() - t0
+
+    def _exact_block_device(self, rows):
+        """Kernels F and G on the block's resident rows (compacted on the
+        device as block_step compacts them), the rows and histogram
+        updated in place; returns the inserts (iy, ib, inn) on the
+        host, each row's lists as long as its count."""
+        dev = self.device
+        lengths = self._lengths_all[np.asarray(rows)]
+        rows_d = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+        len_d = torch.from_numpy(lengths).to(dev)
+        rows_old = self._msa_d.index_select(0, rows_d)
+        seqs, ways, last_way = compact_block(
+            rows_old, len_d, max(1, int(lengths.max())))
+        bh = self.bandwidth // 2
+        new_rows, _best, iy, ib, inn = block_dp(
+            self._counts_d, rows_old, seqs, ways, len_d,
+            (ways - bh).clamp(min=0), (last_way - bh).clamp(min=-1),
+            self._ncols, bandwidth=self.bandwidth, chunk=self.chunk,
+            widen=1, staircase=False, kernel="cuda")
+        apply_rows(self._msa_d, self._counts_d, rows_d, rows_old, new_rows)
+        inn = inn.cpu().numpy()
+        k = max(1, int(inn.max()))
+        return iy[:, :k].cpu().numpy(), ib[:, :k].cpu().numpy(), inn
+
+    def _exact_block_host(self, rows):
+        """The block on the host: rows and histogram read from the
+        engine's device, the native engine (or the torch exact band
+        without the host library) run, the rows written back. Returns
+        (route, iy, ib, inn)."""
         try:
             nat = _native()
         except NativeBuildError as e:
@@ -452,9 +520,10 @@ class DeviceResidentRealigner(BatchedRealigner):
             if not self._warned_no_library:
                 self._warned_no_library = True
                 warnings.warn(
-                    "exact blocks run through the torch exact band (far "
-                    f"slower than the host library): {e}", RuntimeWarning,
-                    stacklevel=2)
+                    "exact blocks on the CPU run through the torch exact "
+                    f"band (far slower than the host library): {e}",
+                    RuntimeWarning,
+                    stacklevel=3)
         c = self._ncols
         rows_d = torch.from_numpy(np.asarray(rows, np.int64)).to(
             self.device)
@@ -463,25 +532,23 @@ class DeviceResidentRealigner(BatchedRealigner):
         counts = self._counts_d[:c].cpu().numpy()
         seqs, ways, lengths = compact_rows(rows_host)
         if nat is not None:
-            DeviceResidentRealigner.exact_blocks_run += 1
+            route = "native"
             new_rows, _best, iy, ib, inn = realign_block_native(
                 nat, counts, rows_host, seqs, ways, lengths, self.bandwidth)
         else:
-            DeviceResidentRealigner.exact_blocks_run_torch += 1
+            route = "torch"
             new_rows, iy, ib, inn = self._exact_block_torch(
                 counts, rows_host, seqs, ways, lengths)
         nr = torch.full((len(rows), self._cpad), 5, dtype=torch.int8,
                         device=self.device)
         nr[:, :c] = torch.from_numpy(new_rows).to(self.device)
         apply_rows(self._msa_d, self._counts_d, rows_d, rows_old_d, nr)
-        for b, k in enumerate(rows):
-            for o in range(int(inn[b])):
-                pending.append((int(iy[b, o]), int(k), o, int(ib[b, o])))
+        return route, iy, ib, inn
 
     def _exact_block_torch(self, counts, rows_host, seqs, ways, lengths):
-        """The torch exact band (ops/banded_realign) on the engine's
-        device, in sub-blocks whose unpacked [B, L, W] codes stay inside
-        the memory budget; its insert capacity is MAX_INSERTS a row."""
+        """The torch exact band (ops/banded_realign) on the CPU, in
+        sub-blocks whose unpacked [B, L, W] codes stay inside the memory
+        budget; its insert capacity is MAX_INSERTS a row."""
         bs, c = rows_host.shape
         dev = self.device
         sub = max(1, min(bs, int(device_memory_budget(dev) // max(
@@ -501,7 +568,7 @@ class DeviceResidentRealigner(BatchedRealigner):
             outs.append([t.cpu().numpy() for t in (new_rows, iy, ib, inn)])
         new_rows, iy, ib, inn = (np.concatenate([o[i] for o in outs])
                                  for i in range(4))
-        _check_inserts(inn)
+        _check_inserts(inn, iy.shape[1])
         return new_rows, iy, ib, inn
 
     def _flush_device(self, pending, drop_empty: bool) -> None:

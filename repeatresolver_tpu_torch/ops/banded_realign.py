@@ -17,10 +17,10 @@ diagonal, then insert, :1375-1410).
 
 `banded_fill` and `entry_and_backtrack` are torch ops driven by a host
 loop, one iteration per sequence position and per backtrack move. They
-are the oracle of the staircase band (bit-equal for any covering slack)
-and the degrade path of the resident engine's exact blocks, not the
-fast path: on the card that is the staircase fill and the walk
-(csrc/staircase_fill.cu, csrc/walk_backtrack.cu).
+are the oracle of the staircase band (bit-equal for any covering slack),
+the exact band of CPU tensors and the plain versions of kernels F and G
+(ops/cuda_exact.py), which run the exact band on CUDA tensors.
+`banded_fill.calls` counts runs of the loop: on the card it stays 0.
 
 All DP values are int32 and every sum wraps modulo 2**32, as XLA's
 int32 arithmetic does: `BIG + cost` ties decide move codes, so the
@@ -193,7 +193,11 @@ def banded_fill(counts, rows_old, seqs, ways, lengths, ncols, *,
             active = lengths > x
             band = torch.where(active[:, None], m, band)
             anf_prev = torch.where(active, anf, anf_prev)
+    banded_fill.calls += 1
     return codes[:l].permute(1, 0, 2), band, anf_prev
+
+
+banded_fill.calls = 0
 
 
 def entry_and_backtrack(codes, final_band, final_anf, seqs, anf_full,

@@ -93,14 +93,17 @@ def backtrack_moves(codes, wayin, aint, lengths, *, chunk: int):
 backtrack_moves.launches = 0
 
 
-def moves_to_outputs(moves, seqs, lengths, best, *, cpad: int):
+def moves_to_outputs(moves, seqs, lengths, best, *, cpad: int,
+                     ins_cap: int = MAX_INSERTS):
     """Rows and insert lists from the per-x move records.
 
     moves int32 [NW, B, 16]; seqs int8 [B, NW*16]; returns (new_rows
     int8 [B, cpad] (4 for a gap, the base for a diagonal, 5 elsewhere),
-    best int32 [B], ins_y int32 [B, MAX_INSERTS], ins_base int8
-    [B, MAX_INSERTS], ins_n int32 [B]). Inserts are listed in discovery
-    order (descending x). Scatters that the JAX version dropped out of
+    best int32 [B], ins_y int32 [B, ins_cap], ins_base int8
+    [B, ins_cap], ins_n int32 [B]). Inserts are listed in discovery
+    order (descending x); the lists of a row with more than ins_cap
+    inserts are not valid (callers check ins_n against the width).
+    Scatters that the JAX version dropped out of
     range land in one sentinel column, sliced off afterwards."""
     nw, b, _ = moves.shape
     dev = moves.device
@@ -136,11 +139,11 @@ def moves_to_outputs(moves, seqs, lengths, best, *, cpad: int):
     o = torch.flip(torch.cumsum(torch.flip(ins, [1]).to(torch.int32), 1,
                                 dtype=torch.int32), [1])
     inn = o[:, 0].contiguous()
-    slot = (o - 1).clamp(0, MAX_INSERTS - 1)
-    iyb = torch.zeros((b, MAX_INSERTS + 1), dtype=torch.int32, device=dev)
-    iyb.scatter_(1, torch.where(ins, slot, MAX_INSERTS).long(),
+    slot = (o - 1).clamp(0, ins_cap - 1)
+    iyb = torch.zeros((b, ins_cap + 1), dtype=torch.int32, device=dev)
+    iyb.scatter_(1, torch.where(ins, slot, ins_cap).long(),
                  (y_at << 2) | seqs.to(torch.int32))
-    iyb = iyb[:, :MAX_INSERTS]
+    iyb = iyb[:, :ins_cap]
     return (out[:, :cpad].contiguous(), best, iyb >> 2,
             (iyb & 3).to(torch.int8), inn)
 

@@ -10,10 +10,12 @@ stages whose files exist), and appends one JSON line a step to
 OUT/report.jsonl: the step's seconds, peak device memory (allocated and
 reserved), peak host RSS, each kernel's launches and seconds inside it
 (CUDA events around every launch), the plain versions' runs (the edit-DP
-loop's and the MaxCorrs tile pass's), for the MaxCorrs device scan its
-tile pairs scanned and needed and its host reads, and for realign the
-resident sweeps, the host anneal tail by block size, the best-MSA writes
-and the waits for them, and the scorelog's line count over time.
+loop's, the MaxCorrs tile pass's and the torch exact band's), for the
+MaxCorrs device scan its tile pairs scanned and needed and its host
+reads, and for realign the resident sweeps (each sweep's seconds and its
+exact-band blocks and their seconds by route), the host anneal tail by
+block size, the best-MSA writes and the waits for them, and the
+scorelog's line count over time.
 Between the stages it runs three checks on the run's own files:
 
   trajectory  after align: 2 rounds at the run's band and block of the
@@ -80,7 +82,7 @@ PROBE = "probe_"
 PROG = "repeatresolver_tpu_torch.paper_card"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("staircase_fill", "walk_backtrack", "editdp_fill",
-           "editdp_walk", "maxcorr_tile")
+           "editdp_walk", "maxcorr_tile", "exact_fill", "exact_walk")
 
 
 def _driver(workdir, driver_args, until):
@@ -109,16 +111,19 @@ def _counters():
     from .models import maxcorr, realigner
     from .models.realigner_device import DeviceResidentRealigner as Dev
     from .ops import cuda_backtrack as cb
+    from .ops import banded_realign as br
     from .ops import cuda_editdp as ce
+    from .ops import cuda_exact as cx
     from .ops import cuda_maxcorr as cm
     from .ops import cuda_realign as cr
     from .ops import devmm, editdp, maxcorr_tile
     launch = dict(zip(KERNELS, (cr.staircase_fill, cb.backtrack_moves,
                                 ce.editdp_fill, ce.editdp_walk,
-                                cm.maxcorr_group)))
+                                cm.maxcorr_group, cx.exact_fill,
+                                cx.exact_walk)))
     return launch, dict(
         plain=(editdp.forward_plain, editdp.walk_plain,
-               maxcorr_tile.group_pass_plain),
+               maxcorr_tile.group_pass_plain, br.banded_fill),
         maxcorr=maxcorr.compute_maxcorrs_device, devmm=devmm.matmul_t,
         rb=realigner.realign_batched, host=realigner.BatchedRealigner,
         dev=Dev)
@@ -149,7 +154,9 @@ def _measured(fn, dev_type):
     c["rb"].write_wait_s = 0.0
     c["host"].host_sweep_s_by_bs = {}
     c["dev"].resident_sweep_s = 0.0
-    c["dev"].exact_blocks_run = c["dev"].exact_blocks_run_torch = 0
+    c["dev"].exact_blocks_run = dict.fromkeys(c["dev"].ROUTES, 0)
+    c["dev"].exact_block_s = dict.fromkeys(c["dev"].ROUTES, 0.0)
+    c["dev"].sweep_log = []
     cuda = dev_type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -176,8 +183,9 @@ def _measured(fn, dev_type):
            "resident_sweep_s": c["dev"].resident_sweep_s,
            "host_sweep_s_by_bs": {str(k): v for k, v in
                                   c["host"].host_sweep_s_by_bs.items()},
-           "exact_blocks": [c["dev"].exact_blocks_run,
-                            c["dev"].exact_blocks_run_torch],
+           "exact_blocks": dict(c["dev"].exact_blocks_run),
+           "exact_block_s": dict(c["dev"].exact_block_s),
+           "resident_sweeps": list(c["dev"].sweep_log),
            "best_write_s": list(c["rb"].write_s),
            "best_write_wait_s": c["rb"].write_wait_s}
     if cuda:

@@ -192,7 +192,9 @@ def sharded_block_realign(mesh: Mesh, bandwidth: int, mode: str = "exact",
     left out of the delta.
 
     kernel "cuda" (staircase only) launches kernels A and B inside each
-    shard, the packed time-major codes going straight into the walk."""
+    shard, the packed time-major codes going straight into the walk; the
+    exact band on CUDA tensors runs kernels F and G whatever the kernel
+    (models/realigner.block_dp)."""
     from ..models.realigner import block_dp
     stair = mode == "staircase"
 
@@ -206,6 +208,15 @@ def sharded_block_realign(mesh: Mesh, bandwidth: int, mode: str = "exact",
         new_rows, _best, iy, ib, inn = block_dp(
             counts_d, rows_d, *rest, int(ncols), bandwidth=bandwidth,
             chunk=chunk, widen=widen, staircase=stair, kernel=kernel)
+        if not stair and rows_d.device.type == "cuda":
+            # kernels F and G size a shard's insert lists by its own
+            # walk: gather them at the widest shard's width
+            width = int(mesh.all_reduce(torch.tensor(
+                [iy.shape[1]], dtype=torch.int32, device=mesh.device),
+                "max")[0])
+            pad = (0, width - iy.shape[1])
+            iy = torch.nn.functional.pad(iy, pad)
+            ib = torch.nn.functional.pad(ib, pad)
         cols = torch.arange(rows_d.shape[1], device=mesh.device)
         mask = (valid_d > 0)[:, None] & (cols < int(ncols))[None, :]
         delta = mesh.all_reduce(

@@ -196,11 +196,12 @@ def test_exact_block_torch_degrade_route(monkeypatch):
         return log, eng.msa.copy(), eng
 
     cls = prd.DeviceResidentRealigner
-    n0, t0 = cls.exact_blocks_run, cls.exact_blocks_run_torch
+    n0, t0 = cls.exact_blocks_run["native"], cls.exact_blocks_run["torch"]
     log_n, msa_n, eng = run()
     assert eng._overflow_events > 0
-    assert cls.exact_blocks_run > n0 and cls.exact_blocks_run_torch == t0
-    n1 = cls.exact_blocks_run
+    assert cls.exact_blocks_run["native"] > n0
+    assert cls.exact_blocks_run["torch"] == t0
+    n1 = cls.exact_blocks_run["native"]
 
     def no_library():
         raise native.NativeBuildError(
@@ -209,8 +210,8 @@ def test_exact_block_torch_degrade_route(monkeypatch):
     monkeypatch.setattr(prd, "_native", no_library)
     with pytest.warns(RuntimeWarning, match="torch exact band"):
         log_t, msa_t, _ = run()
-    assert cls.exact_blocks_run == n1
-    assert cls.exact_blocks_run_torch - t0 == n1 - n0
+    assert cls.exact_blocks_run["native"] == n1
+    assert cls.exact_blocks_run["torch"] - t0 == n1 - n0
     assert log_t == log_n
     np.testing.assert_array_equal(msa_t, msa_n)
 
@@ -234,13 +235,14 @@ def test_cli_reports_the_exact_blocks_routes(monkeypatch, capsys):
     from repeatresolver_tpu_torch import cli
     from repeatresolver_tpu_torch.models import realigner_device as prd
     cls = prd.DeviceResidentRealigner
-    monkeypatch.setattr(cls, "exact_blocks_run", 0)
-    monkeypatch.setattr(cls, "exact_blocks_run_torch", 0)
+    monkeypatch.setattr(cls, "exact_blocks_run",
+                        {"cuda": 0, "native": 0, "torch": 0})
     cli._report_exact_blocks()
     assert capsys.readouterr().err == ""
-    monkeypatch.setattr(cls, "exact_blocks_run", 3)
-    monkeypatch.setattr(cls, "exact_blocks_run_torch", 2)
+    monkeypatch.setattr(cls, "exact_blocks_run",
+                        {"cuda": 4, "native": 3, "torch": 2})
     cli._report_exact_blocks()
     err = capsys.readouterr().err
+    assert "4 through kernels F and G" in err
     assert "3 through the host library" in err
     assert "2 through the torch exact band" in err

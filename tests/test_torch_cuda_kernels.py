@@ -1,15 +1,16 @@
 """The port's CUDA kernels against their plain torch versions, on the GPU.
 
 Kernel A (csrc/staircase_fill.cu), kernel B (csrc/walk_backtrack.cu),
-kernel C (csrc/editdp_fill.cu), kernel D (csrc/editdp_walk.cu) and
-kernel E (csrc/maxcorr_tile.cu) run through their wrappers on CUDA
-tensors; the plain versions run on the same CUDA tensors. Every integer
+kernel C (csrc/editdp_fill.cu), kernel D (csrc/editdp_walk.cu), kernel
+E (csrc/maxcorr_tile.cu) and kernels F and G (csrc/exact_fill.cu,
+csrc/exact_walk.cu) run through their wrappers on CUDA tensors; the plain versions run on the same CUDA tensors. Every integer
 output must be equal (tolerance 0); E's float32 maxima within 1e-5
 absolute with identical decisions at the MaxCorrs cutoff (the two may
 round a log in another ulp). Marked `cuda`: skipped, with the reason,
 where torch sees no GPU (the plain versions are held to the JAX package
 by tests/test_torch_ops.py, tests/test_torch_editdp.py and
-tests/test_torch_maxcorr_tile.py on the CPU). The file imports no jax,
+tests/test_torch_maxcorr_tile.py and tests/test_torch_exact_kernels.py
+on the CPU). The file imports no jax,
 so it also runs where JAX is absent, without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider \
@@ -453,3 +454,144 @@ def test_maxcorr_tile_rejects_bad_input(dev):
     with pytest.raises(ValueError, match="do not lie"):
         cuda_maxcorr.maxcorr_group(schnitt, alive, out, *args, 0,
                                    (sc.nt - 1) * 32, **kw)
+
+
+# ---- kernels F and G: the exact band's fill, entry scan and walk
+
+def exact_inputs(seed, b, c, l, w, cpad=None):
+    """An exact-band block (numpy, from a seed): counts int32 [cpad, 6]
+    of a random MSA of 3b rows over c columns, rows_old int8 [b, cpad]
+    (symbol 5 and zero counts past c), seqs int8 [b, l], ways int32
+    [b, l] (monotone, with jumps past the band, edge-padded past each
+    row's length) and lengths int32 [b]: row 0 empty, row 1 one base,
+    row 2 ending at column c - 1 (b >= 4). Returns (counts, rows_old,
+    seqs, ways, lengths, ncols). chip_smoke.py loads it by path."""
+    rng = np.random.default_rng(seed)
+    cpad = c + 8 if cpad is None else cpad
+    msa = rng.choice(6, (3 * b, c), p=[.2, .2, .2, .2, .12, .08]).astype(
+        np.int8)
+    counts = np.zeros((cpad, 6), np.int32)
+    for sym in range(6):
+        counts[:c, sym] = (msa == sym).sum(axis=0)
+    rows_old = np.full((b, cpad), 5, np.int8)
+    rows_old[:, :c] = msa[:b]
+    seqs = rng.integers(0, 4, (b, l)).astype(np.int8)
+    steps = rng.choice([0, 1, 1, 1, 2, 3, w + 3], (b, l),
+                       p=[.15, .3, .2, .15, .1, .07, .03])
+    start = rng.integers(0, max(1, c // 4), (b, 1))
+    ways = np.minimum(start + np.cumsum(steps, axis=1), c - 1).astype(
+        np.int32)
+    lengths = rng.integers(max(1, l // 2), l + 1, b).astype(np.int32)
+    lengths[0], lengths[1] = 0, 1
+    ways[0] = 0
+    lengths[2] = l
+    ways[2, -1] = c - 1
+    for i in range(1, b):
+        ways[i, lengths[i]:] = ways[i, lengths[i] - 1]
+    return counts, rows_old, seqs, ways, lengths, c
+
+
+def insert_heavy_block(n=2100, others=3):
+    """A block whose last row needs n - 1 inserts (more than
+    MAX_INSERTS for n > 2049): the other rows hold a consensus in the
+    even columns and gaps in the odd ones, the last row a base in every
+    column. Returns (msa int8 [others + 1, 2n], its rows in block
+    order)."""
+    rng = np.random.default_rng(0)
+    cons = rng.integers(0, 4, n).astype(np.int8)
+    msa = np.full((others + 1, 2 * n), 4, np.int8)
+    msa[:, 0::2] = cons
+    msa[others, 1::2] = rng.integers(0, 4, n)
+    return msa, [others] + list(range(others))
+
+
+def exact_bounds(ways, lengths, w):
+    """(anf_full, entry_bound) of an exact-band block (numpy)."""
+    b = len(lengths)
+    anf = np.maximum(0, ways - w // 2).astype(np.int32)
+    last_way = ways[np.arange(b), np.maximum(lengths - 1, 0)]
+    return anf, np.maximum(-1, last_way - w // 2).astype(np.int32)
+
+
+EXACT_CASES = [(1, 4, 200, 64, 16), (2, 6, 600, 150, 64),
+               (3, 8, 3000, 400, 256), (4, 4, 6000, 160, 2600),
+               (5, 5, 5000, 700, 1000)]
+
+
+@pytest.mark.parametrize("seed,b,c,l,w", EXACT_CASES)
+def test_exact_kernels_match_plain(dev, seed, b, c, l, w):
+    """F's codes, band and band start, G's moves, entry and best, and
+    the rebuilt rows and inserts, bit-equal to the plain versions."""
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    *arrays, ncols = exact_inputs(seed, b, c, l, w)
+    counts, rows, seqs, ways, lengths = (torch.from_numpy(a).to(dev)
+                                         for a in arrays)
+    anf, eb = (torch.from_numpy(a).to(dev)
+               for a in exact_bounds(arrays[3], arrays[4], w))
+    cpad = rows.shape[1]
+    n0 = ce.exact_fill.launches
+    kern = ce.exact_fill(counts, rows, seqs, ways, lengths, ncols,
+                         bandwidth=w)
+    assert ce.exact_fill.launches == n0 + 1
+    plain = ce.exact_fill_plain(counts, rows, seqs, ways, lengths, ncols,
+                                bandwidth=w)
+    for name, k, p in zip(("codes", "band", "anf"), kern, plain):
+        assert torch.equal(k, p), name
+    n0 = ce.exact_walk.launches
+    walk = ce.exact_walk(kern[0], kern[1], kern[2], eb, anf, lengths, ncols,
+                         cpad=cpad)
+    assert ce.exact_walk.launches == n0 + 1
+    walk_p = ce.exact_walk_plain(kern[0], kern[1], kern[2], eb, anf,
+                                 lengths, ncols, cpad=cpad)
+    for name, k, p in zip(("moves", "wayin", "best"), walk, walk_p):
+        assert torch.equal(k, p), name
+    torch.cuda.synchronize()
+
+
+def test_exact_kernels_list_any_insert_count(dev):
+    """A row with more inserts than MAX_INSERTS: kernels F and G list
+    them all, equal to the host native engine's."""
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.ops import banded_realign as br
+    from repeatresolver_tpu_torch.utils import native
+    msa, order = insert_heavy_block()
+    w = 64
+    counts = prt.symbol_counts(msa).astype(np.int32)
+    rows_old = msa[order]
+    seqs, ways, lengths = prt.compact_rows(rows_old)
+    anf, eb = exact_bounds(ways, lengths, w)
+    ref = prt.realign_block_native(native, counts, rows_old, seqs, ways,
+                                   lengths, w)
+    assert ref[4].max() > br.MAX_INSERTS
+    out = prt.block_dp(*(torch.from_numpy(a).to(dev) for a in (
+        counts, rows_old, seqs, ways, lengths, anf, eb)), msa.shape[1],
+        bandwidth=w, chunk=256, widen=1, staircase=False, kernel="torch")
+    out = [t.cpu().numpy() for t in out]
+    for name, g, r in zip(("rows", "best", "inn"), out[:2] + out[4:],
+                          ref[:2] + ref[4:]):
+        np.testing.assert_array_equal(g, r, err_msg=name)
+    for i, n in enumerate(ref[4]):
+        np.testing.assert_array_equal(out[2][i, :n], ref[2][i, :n])
+        np.testing.assert_array_equal(out[3][i, :n], ref[3][i, :n])
+
+
+def test_exact_wrappers_reject_bad_input(dev):
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    *arrays, ncols = exact_inputs(1, 4, 200, 64, 16)
+    counts, rows, seqs, ways, lengths = (torch.from_numpy(a).to(dev)
+                                         for a in arrays)
+    with pytest.raises(ValueError, match="ways"):
+        ce.exact_fill(counts, rows, seqs, ways.to(torch.int64), lengths,
+                      ncols, bandwidth=16)
+    with pytest.raises(ValueError, match="counts is on"):
+        ce.exact_fill(counts.cpu(), rows, seqs, ways, lengths, ncols,
+                      bandwidth=16)
+    with pytest.raises(ValueError, match="unsupported band"):
+        ce.exact_fill(counts, rows, seqs, ways, lengths, ncols,
+                      bandwidth=ce.MAX_W + 1)
+    codes, band, anf = ce.exact_fill(counts, rows, seqs, ways, lengths,
+                                     ncols, bandwidth=16)
+    with pytest.raises(ValueError, match="inconsistent"):
+        ce.exact_walk(codes, band, anf, lengths,
+                      ways[:, :16].contiguous(), lengths,
+                      ncols, cpad=rows.shape[1])

@@ -63,7 +63,7 @@ def test_wide_band_matches_jax_resident(band, make, exact):
     out_j = jr.realign_batched(
         msa.copy(), JCfg(bandwidth=band, block_rows=4, max_rounds=2),
         score_log=log_j, mode="staircase", kernel="pallas")
-    n_exact = DeviceResidentRealigner.exact_blocks_run
+    n_exact = DeviceResidentRealigner.exact_blocks_run["native"]
     log_p: list = []
     out_p = pr.realign_batched(
         msa.copy(), RealignerConfig(bandwidth=band, block_rows=4,
@@ -71,4 +71,5 @@ def test_wide_band_matches_jax_resident(band, make, exact):
         score_log=log_p, device="cpu", validate=True)
     assert log_p == log_j
     np.testing.assert_array_equal(out_p, out_j)
-    assert (DeviceResidentRealigner.exact_blocks_run > n_exact) == exact
+    assert (DeviceResidentRealigner.exact_blocks_run["native"]
+            > n_exact) == exact
