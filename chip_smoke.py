@@ -20,10 +20,12 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      two and three segments), bit-equal to forward_plain / walk_plain;
      for kernels F and G (the exact band), blocks with shifts past the
      band, rows of length 0 and 1, padding columns, a row ending at the
-     last column and bands 16 to 2,600: codes, band and band start, moves,
-     entry and best bit-equal to their plain versions; and a row of more
-     inserts than MAX_INSERTS, whose rows, best and insert lists equal
-     the host native engine's;
+     last column, ways not edge-padded past the rows' ends and bands 16
+     to 16,384 (F's cap, eight CTAs a row): codes, band and band start,
+     moves, entry and best bit-equal to their plain versions; a row of
+     more inserts than MAX_INSERTS, whose rows, best and insert lists
+     equal the host native engine's; and a band past F's cap, which
+     block_dp and the engines on the card refuse with a ValueError;
   3. the same at the production dispatch shape (64 rows x 32,768 bases,
      band 1000, chunk 128, widen 6, MSA width 139,264), with the times
      (a kernel's: the median of KERNEL_REPS runs after two warm-ups, with
@@ -53,8 +55,11 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      launched (counts set to 0 just before that run; its exact blocks
      through kernels F and G at band 2600), and the first block step at
      each slack it ran (W2 up to 3,880) goes through both kernels and
-     their plain versions, bit-equal. Both runs print the exact blocks by
-     route; on the card the host library's and the torch loop's count 0;
+     their plain versions, bit-equal; then at band 4200, where no
+     staircase window fits kernel A and every block runs on kernels F
+     and G (four CTAs a row), the same check. The runs print the exact
+     blocks by route; on the card the host library's and the torch
+     loop's count 0;
   5. kernels vs plain versions on the main path's own blocks: the fill
      inputs of the first block step at each slack (widen 12 first)
      recorded during phase 4, replayed through both kernels and their
@@ -108,7 +113,12 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      on CUDA tensors, kernels A and B, and the host native engine; rows,
      best and insert lists bit-equal, with the seconds of each. F and G
      against their plain versions on the block, bit-equal, and timed (the
-     median of KERNEL_REPS runs) beside their bounds. Then the resident
+     median of KERNEL_REPS runs) beside their bounds; F and G on the
+     block's first 16 and first 4 rows (the anneal tail's block sizes),
+     timed beside the host native engine on the same rows (the median
+     of KERNEL_REPS runs each, inputs on the host before the clock
+     starts), all equal; F on the block at 1, 2, 4 and 8 CTAs a row,
+     each equal to the wrapper's layout and timed. Then the resident
      engine on phase 4's MSA with every block forced onto the exact route
      (an insert fetch of one slot) and the host library made unavailable:
      kernels F and G must have run (counts set to 0 just before), the
@@ -570,24 +580,27 @@ def replay_editdp(kept, errs, what):
           f"{time.perf_counter() - t0:.1f} s")
 
 
-def wide_band_check(card, msa, errs):
-    """Phase 4's second run: the tpu_converge MSA at band 2600, block 64,
-    2 rounds, where the default slack's window (2600 + 12 x 128) passes
-    kernel A's 4,096 lanes: the resident engine on the card (slack capped
-    at rung 10, blocks that no fitting rung covers on the exact band)
-    against the port's host native exact engine at the same block size,
-    line for line. RR_FLUSH_CAP is raised for both runs so that both
-    splice once a sweep, as the engines' oracle needs. The first block
-    step at each slack is recorded and replayed through kernels A and B
-    and their plain versions, bit-equal, at this path's own windows.
-    Returns the kernels' launches in the run on the card."""
+def wide_band_check(card, msa, errs, band):
+    """Phase 4's wide runs: the tpu_converge MSA at band 2600 or 4200,
+    block 64, 2 rounds. At 2600 the default slack's window (2600 + 12 x
+    128) passes kernel A's 4,096 lanes: the resident engine caps the
+    slack at rung 10 and sends the blocks that no fitting rung covers to
+    the exact band. At 4200 no staircase window fits kernel A, so every
+    block runs on kernels F and G (four CTAs a row). The resident engine
+    on the card is held against the port's host native exact engine at
+    the same block size, line for line and byte for byte. RR_FLUSH_CAP
+    is raised for both runs so that both splice once a sweep, as the
+    engines' oracle needs. The first block step at each slack is
+    recorded and replayed through kernels A and B and their plain
+    versions, bit-equal, at this path's own windows. Returns the
+    kernels' launches in the run on the card."""
     import numpy as np
 
     from repeatresolver_tpu_torch.config import RealignerConfig
     from repeatresolver_tpu_torch.models import realigner as prt
     from repeatresolver_tpu_torch.models import realigner_device as prd
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
-    cfg = RealignerConfig(bandwidth=2600, block_rows=64, max_rounds=2)
+    cfg = RealignerConfig(bandwidth=band, block_rows=64, max_rounds=2)
     blocks = {}
 
     def recording_fill(*args, **kw):
@@ -618,18 +631,23 @@ def wide_band_check(card, msa, errs):
     finally:
         prd.cr = cr
         del os.environ["RR_FLUSH_CAP"]
-    print(f"band 2600: {len(log_d)} score lines, {log_d[-1]}; resident "
+    what = f"band {band}"
+    print(f"{what}: {len(log_d)} score lines, {log_d[-1]}; resident "
           f"engine on {card} {t1 - t0:.2f} s (launches {launches}, exact "
           f"blocks by route {ex}), host native exact engine "
           f"{t2 - t1:.2f} s")
-    check_exact_routes("band 2600", ex)
+    check_exact_routes(what, ex)
     if log_d != log_h or not np.array_equal(out_d, out_h):
-        raise AssertionError(f"band 2600: resident {log_d} != host native "
+        raise AssertionError(f"{what}: resident {log_d} != host native "
                              f"exact {log_h}")
-    if min(launches[k] for k in REALIGN_KERNELS) <= 0:
-        raise AssertionError(f"band 2600: a kernel never launched: "
+    print(f"{what}: score lines and MSA equal to the host native exact "
+          "engine's")
+    need = REALIGN_KERNELS if blocks else ("exact_fill", "exact_walk")
+    if min(launches[k] for k in need) <= 0 or (not blocks
+                                               and ex["cuda"] <= 0):
+        raise AssertionError(f"{what}: a kernel never launched: "
                              f"{launches}")
-    replay_blocks(blocks, errs, "band 2600")
+    replay_blocks(blocks, errs, what)
     return launches
 
 
@@ -1787,6 +1805,21 @@ def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
         return [torch.from_numpy(a).to(dev) for a in prt.band_starts(
             ways_h, len_h, w, t, stair)]
 
+    def host_median(nb):
+        """The host native engine on the block's first nb rows, inputs
+        copied to the host first: (outputs, the median seconds of
+        KERNEL_REPS runs, the fastest, the slowest)."""
+        h = (counts[:ncols].cpu().numpy(),
+             np.ascontiguousarray(rows_old[:nb, :ncols].cpu().numpy()),
+             seqs[:nb].cpu().numpy(), ways_h[:nb], len_h[:nb])
+        ts = []
+        for _ in range(KERNEL_REPS):
+            t0 = time.perf_counter()
+            out = prt.realign_block_native(native, *h, w)
+            ts.append(time.perf_counter() - t0)
+        ts.sort()
+        return out, ts[len(ts) // 2], ts[0], ts[-1]
+
     common = dict(bandwidth=w, chunk=t, widen=widen)
     stair_starts = starts(True)
     anf, eb = starts(False)
@@ -1826,12 +1859,7 @@ def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
     if err_f or err_g:
         raise AssertionError(f"paper-width block: kernels F, G != plain "
                              f"versions, max abs err {err_f}, {err_g}")
-    t0 = time.perf_counter()
-    out_n = prt.realign_block_native(
-        native, counts[:ncols].cpu().numpy(),
-        np.ascontiguousarray(rows_old[:, :ncols].cpu().numpy()),
-        seqs.cpu().numpy(), ways_h, len_h, w)
-    s_n = time.perf_counter() - t0
+    out_n, s_n, n_lo, n_hi = host_median(rows_old.shape[0])
     out_fg = [x.cpu().numpy() for x in out_fg]
     for what, ref in (("kernels A + B", out_k), ("the torch loop", out_t),
                       ("the host native engine", out_n)):
@@ -1851,7 +1879,8 @@ def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
           f"{s_fill + s_bt:.2f} (banded_fill {s_fill:.2f}, "
           f"entry_and_backtrack {s_bt:.2f}; peak {peak:.2f} GiB), G's plain"
           f" walk {s_walk:.2f}, kernels A + B with their torch ops "
-          f"{s_k:.4f}, host native engine {s_n:.2f} ({os.cpu_count()} "
+          f"{s_k:.4f}, host native engine {s_n:.4f} (median of "
+          f"{KERNEL_REPS} runs, {n_lo:.4f}-{n_hi:.4f}; {os.cpu_count()} "
           f"threads)")
     times = {"exact_fill": (ms_f, (s_fill + s_pack) * 1e3),
              "exact_walk": (ms_g, s_walk * 1e3)}
@@ -1862,6 +1891,51 @@ def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
         print(f"{name}: bound {bms:.4f} ms by {by} ({bms / times[name][0]:.1%}"
               f" of the kernel's time): {detail}; library call: none (no "
               "single PyTorch call computes this function)")
+
+    # F + G on 16-row and 4-row blocks cut from this block (the anneal
+    # tail's block sizes), against the host native engine on the same rows
+    for nb in (16, 4):
+        sargs = (counts, *(a[:nb].contiguous() for a in args[1:]))
+        sanf, seb = anf[:nb].contiguous(), eb[:nb].contiguous()
+        out_s, ms_fg = time_launches(
+            lambda: prt.block_dp(*sargs, sanf, seb, ncols, staircase=False,
+                                 kernel="cuda", **common),
+            KERNEL_REPS, f"exact_{nb}_rows")
+        (c_s, b_s, f_s), ms_sf = time_launches(
+            lambda: cx.exact_fill(*sargs, ncols, bandwidth=w), KERNEL_REPS,
+            f"exact_fill_{nb}_rows")
+        _, ms_sg = time_launches(
+            lambda: cx.exact_walk(c_s, b_s, f_s, seb, sanf, sargs[4], ncols,
+                                  cpad=cpad), KERNEL_REPS,
+            f"exact_walk_{nb}_rows")
+        out_sn, s_sn, sn_lo, sn_hi = host_median(nb)
+        _same_block_result(f"{nb}-row block: kernels F + G vs the host "
+                           "native engine",
+                           [x.cpu().numpy() for x in out_s], out_sn, ncols)
+        print(f"{nb}-row block cut from it (longest {int(len_h[:nb].max())})"
+              f": kernels F + G with their torch ops {ms_fg:.3f} ms "
+              f"({spread(f'exact_{nb}_rows')}; F {ms_sf:.3f} ms, G "
+              f"{ms_sg:.3f} ms), the host native engine {s_sn * 1e3:.3f} ms"
+              f" (median of {KERNEL_REPS} runs, {sn_lo * 1e3:.3f}-"
+              f"{sn_hi * 1e3:.3f} ms; {os.cpu_count()} threads); rows, "
+              "best and inserts equal")
+
+    # F at each layout a cluster takes at this band, through its wrapper:
+    # every one equal to the wrapper's own layout's result
+    geo = cx.fill_geometry(w)
+    for cs in cx.FILL_CLUSTERS:
+        out_c, ms_c = time_launches(
+            lambda: cx.exact_fill(*args, ncols, bandwidth=w, ctas=cs),
+            KERNEL_REPS, f"exact_fill_{cs}_ctas")
+        if not all(torch.equal(a, b) for a, b in zip(out_c,
+                                                     (codes, band, fanf))):
+            raise AssertionError(f"kernel F at {cs} CTAs a row differs from"
+                                 f" its layout of {geo.cs}")
+        print(f"exact_fill at {cs} CTAs a row of "
+              f"{cx.fill_geometry(w, cs).threads} threads: {ms_c:.3f} ms "
+              f"({spread(f'exact_fill_{cs}_ctas')}), equal to the "
+              f"wrapper's layout ({geo.cs} CTA a row), on {card}")
+        del out_c
 
     # the resident engine with every block forced onto the exact route
     # (an insert fetch of one slot), the host library made unavailable:
@@ -2569,12 +2643,18 @@ def main() -> int:
         print(f"{len(cases) * 2} blocks bit-equal (rows of length 0 and "
               "1, dead walks included)")
         # kernels F and G: shifts past the band, rows of length 0 and 1,
-        # padding columns, a row ending at the last column, band 2600
+        # padding columns, a row ending at the last column, band 2600;
+        # bands 4,200, 8,192 and F's cap (every kind of shift F splits),
+        # and ways that are not edge-padded past the rows' ends
         import numpy as np
         kt = kernel_tests()
-        for case in kt.EXACT_CASES:
-            *arrays, ncols = kt.exact_inputs(*case)
-            w = case[-1]
+        exact_cases = [kt.exact_inputs(*c) for c in kt.EXACT_CASES] \
+            + [kt.exact_shift_inputs(*c) for c in kt.EXACT_WIDE_CASES]
+        shifts = kt.exact_shift_inputs(12, 6, 9000, 300, 1000)
+        exact_cases.append((*kt.unpad_ways(shifts[:5], 12), shifts[5]))
+        exact_bands = [c[-1] for c in kt.EXACT_CASES + kt.EXACT_WIDE_CASES]
+        exact_bands.append(1000)
+        for (*arrays, ncols), w in zip(exact_cases, exact_bands):
             ef, eg = compare_exact(
                 to_dev(arrays), to_dev(kt.exact_bounds(arrays[3], arrays[4],
                                                        w)),
@@ -2604,13 +2684,41 @@ def main() -> int:
         if ref[4].max() <= br.MAX_INSERTS:
             raise AssertionError("the insert-heavy block has "
                                  f"{ref[4].max()} inserts a row at most")
-        print(f"kernels F and G: {len(kt.EXACT_CASES) + 1} blocks bit-equal "
-              f"to their plain versions (bands "
-              f"{sorted({c[-1] for c in kt.EXACT_CASES})}, shifts past the "
-              f"band, rows of length 0 and 1, padding columns, a row ending"
-              f" at the last column); a row of {int(ref[4].max())} inserts "
+        print(f"kernels F and G: {len(exact_cases) + 1} blocks bit-equal "
+              f"to their plain versions (bands {sorted(set(exact_bands))}, "
+              f"shifts past the band, rows of length 0 and 1, padding "
+              f"columns, a row ending at the last column, ways not "
+              f"edge-padded); a row of {int(ref[4].max())} inserts "
               f"(MAX_INSERTS {br.MAX_INSERTS}) equal to the host native "
               "engine")
+        # a band past F's cap: refused on the card, by block_dp and by
+        # the engines when they are made, and no other engine runs it
+        from repeatresolver_tpu_torch.models import realigner_device as prd
+        from repeatresolver_tpu_torch.ops import cuda_exact as cx
+        wide = cx.MAX_W + 1
+        refusals = [
+            lambda: prt.block_dp(*hargs, *to_dev(hstarts), heavy.shape[1],
+                                 bandwidth=wide, chunk=256, widen=1,
+                                 staircase=False, kernel="cuda"),
+            lambda: prd.DeviceResidentRealigner(heavy, bandwidth=wide,
+                                                block_rows=8, device=dev),
+            lambda: prt.BatchedRealigner(heavy, bandwidth=wide,
+                                         block_rows=8, mode="staircase",
+                                         kernel="cuda", device=dev)]
+        reset_launches()
+        for refuse in refusals:
+            try:
+                refuse()
+            except ValueError as e:
+                if "lanes kernel F holds" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"band {wide} was not refused on the "
+                                     "card")
+        if launches_now()["exact_fill"]:
+            raise AssertionError(f"band {wide}: kernel F launched")
+        print(f"band {wide}, past kernel F's {cx.MAX_W} lanes: refused by "
+              "block_dp and both engines on the card, nothing launched")
         # kernels C and D: align's shared target (packed and int8 codes),
         # Lq > Lt, two segments; cut's stride-0 queries against 200-padded
         # per-read targets (final rows), two and three segments
@@ -2822,7 +2930,9 @@ def main() -> int:
                 raise AssertionError(f"row {k} lost or changed bases")
         if min(launches[k] for k in REALIGN_KERNELS) <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
-        band_launches = wide_band_check(card, msa, errs)
+        band_launches = wide_band_check(card, msa, errs, 2600)
+        reset_launches()
+        band4200_launches = wide_band_check(card, msa, errs, 4200)
 
     with phase("5 kernels vs plain on the main path's own blocks"):
         for widen, (args, ncols, kw) in blocks.items():
@@ -2879,6 +2989,7 @@ def main() -> int:
     by_path = {name: {"realign_tpu_converge": launches[name],
                       "pipeline_615": pipe_launches[name],
                       "realign_band_2600": band_launches[name],
+                      "realign_band_4200": band4200_launches[name],
                       "maxcorr_paper_width_band":
                           scan_launches * maxcorr_only[name],
                       "realign_paper_width": paper_launches[name],

@@ -6,7 +6,8 @@
 // folded in. Its plain version is repeatresolver_tpu_torch/ops/
 // banded_realign.py::banded_fill (at its default chunk of 256 positions,
 // the JAX package's), with the codes packed by ops/cuda_exact.py::
-// pack_codes; both give the same bits.
+// pack_codes; both give the same bits. tests/test_torch_exact_fill_model.py
+// holds a numpy model of this kernel's arithmetic, split as below.
 //
 // What it computes: per sequence position x, every row fills its W-lane
 // band, lane i at column y = anf(x) + i with anf(x) = max(0, way[x] - W/2):
@@ -19,40 +20,83 @@
 // ended keeps its band; codes still come out of it, as in the plain
 // version.
 //
-// What bounds it on an H100: integer operations and the serial chain. A
-// band cell costs about a dozen int32 operations, and each row is a chain
-// of up to ~33k dependent positions through a W-lane prefix-min, with a
-// block of only 64 rows (a trajectory parameter). Memory is far from the
-// bound: codes leave 2-bit packed, W/4 bytes a row and position.
+// What bounds it on an H100: the serial chain. A band cell costs about a
+// dozen int32 operations, but each row is a chain of up to ~33k dependent
+// positions through a W-lane prefix-min, with a block of only 64 rows (a
+// trajectory parameter), so a position's latency is what counts. Memory
+// is far from the bound: codes leave 2-bit packed, W/4 bytes a row and
+// position.
 //
-// Design (the simple one; kernel A's ring of prefixes is the model for a
-// faster one):
-//   * one CTA a row, K contiguous lanes a thread (K = ceil(W / 512), so a
-//     CTA has at most 512 threads and a band at most 4,096 lanes);
-//   * phase 0: the row's gap-cost prefix g and its non-space counts ns
-//     (own base removed) into scratch rows in device memory, one pass;
-//   * a step: the cost window is read through L1 (the band moves by d
-//     columns a step, so neighbouring steps read the same lines), the
-//     previous band from a double buffer in shared memory; a thread-local
-//     min-scan, a warp shuffle scan, one barrier, the warps' totals
-//     scanned by every warp from shared memory, the codes shifted into a
-//     register word a lane (stored every 16 positions, in kernel B's
-//     time-major packed layout [ceil(L/16), B, W]), the new band into the
-//     other buffer, a second barrier.
+// Design. The band is kept in band coordinates (lane i at column
+// anf(x) + i), so the codes leave in the packed layout of the plain
+// version with no transpose, and the prefix-min always starts at lane 0.
+// What moves is the data: lane i reads lanes i+d-1 and i+d of x-1, that
+// is, values flow down by d lanes a step.
+//   * The band is reduced: r = M - g[y+1], g the row's gap-cost prefix.
+//     r of a column does not change when the band moves, so a shift is a
+//     plain move of r, the jump rule (a read past the band's top at x-1)
+//     is the source lane clamped to W-1, the diagonal is r' + (sub - gap)
+//     and the insert r' + ins, and every equality of the plain version
+//     (gap: M[i] == M[i-1] + gap; diagonal: M == diag) is the same test
+//     on r. g itself is needed only at the band's edges.
+//   * A row is one cluster of 1, 2, 4 or 8 CTAs (one up to 2,048 lanes,
+//     two up to 4,096, four up to 8,192, eight up to 16,384), four lanes
+//     a thread. At band 1,000 one CTA a row (8 warps) beat two and four:
+//     the CTA border's hand-offs cost more than the SMs gain
+//     (chip_smoke.py phase 9, PERF.md §6). The
+//     warps of a row run skewed in x with no block barrier inside a
+//     chunk: a warp takes the running prefix of the lanes below it
+//     through tagged 64-bit {x, value} slots (kernel A's ring; the next
+//     CTA's first warp through distributed shared memory), and publishes
+//     its band of x into a double buffer in shared memory with a progress
+//     count (release and acquire at CTA scope). A warp reads its sources
+//     of x-1 from its own warp and the warp above once that warp's count
+//     reaches x-1; the top warp of a CTA reads the next CTA's first warp from a
+//     strip that warp pushes into it every step as {x, value} pairs, read
+//     until they carry x-1 (no cluster-scope fence in the chain). Upper
+//     warps need the lower warps' prefix of x+1 before they can overwrite
+//     x-1, so the double buffer needs nothing more; a warp's first lane
+//     reads the lane below from the prefix it was handed at x-1, and a
+//     step that does not shift (past a row's end) reads its own lanes
+//     from registers.
+//   * A chunk is at most 128 positions whose bands stay within 512
+//     columns of its first band. Its cost window (six planes: the four
+//     substitution costs less the gap cost, the insert cost and g[y+1],
+//     precomputed per row in phase 0) and its ways and bases are staged
+//     into shared memory by cp.async one chunk ahead, so no step loads
+//     device memory. The cluster meets once a chunk.
+//   * The large-shift path: a step whose shift is negative or passes a
+//     warp's span of lanes, or whose jump rule reads a base that is not
+//     the carried band start (only past a row's end with ways that are
+//     not edge-padded), starts a chunk. A chunk's first step runs after
+//     the cluster barrier and reads any lane of any CTA, and g from
+//     device memory where the plain version's rules need it.
+//   * What is uniform is decided once per warp and step: a warp whose
+//     columns touch the MSA's edges, and a row's last position, take a
+//     body with the plain version's masks and flat rule.
+//   * Codes shift into one register word a lane and are stored every 16
+//     positions in kernel B's time-major packed layout [ceil(L/16), B, W].
 //
 // Every DP sum wraps modulo 2^32 (wadd/wsub), as XLA's int32 arithmetic
 // does: `BIG + cost` ties decide codes.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "wrap_int.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int BIG = 1 << 30;
 constexpr int NEUTRAL = 0x7fffffff;    // the identity of min
+constexpr int K = 4;                   // band lanes a thread
+constexpr int SPAN = 32 * K;           // band lanes a warp
 constexpr int MAX_THREADS = 512;
-constexpr int MAX_K = 8;               // lanes a thread: W <= 4,096
+constexpr int TMAX = 128;              // positions a chunk at most
+constexpr int SLACK = 512;             // columns a chunk's bands may move
+constexpr int NP = 6;                  // cost planes
 constexpr int LPT0 = 8;                // columns a thread in phase 0
 // the plain version's chunk of positions: at a chunk's first position the
 // jump rule's base reads the carried band start, elsewhere the previous
@@ -60,246 +104,610 @@ constexpr int LPT0 = 8;                // columns a thread in phase 0
 constexpr int PLAIN_CHUNK = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
-template <int K>
-__global__ void __launch_bounds__(MAX_THREADS) exact_fill_kernel(
+__device__ __forceinline__ unsigned saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// the hand-off slots: one 8-byte {x, value} word, read and written whole
+__device__ __forceinline__ unsigned long long ld_slot(unsigned addr) {
+  unsigned long long v;
+  asm volatile("ld.volatile.shared.u64 %0, [%1];" : "=l"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void st_slot(unsigned addr, unsigned long long v) {
+  asm volatile("st.volatile.shared::cluster.u64 [%0], %1;" ::"r"(addr),
+               "l"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
+  unsigned r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr),
+      "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_slot_cta(unsigned addr,
+                                            unsigned long long v) {
+  asm volatile("st.volatile.shared.u64 [%0], %1;" ::"r"(addr), "l"(v)
+               : "memory");
+}
+// progress counts: a warp's band of x is written before its count says x
+__device__ __forceinline__ int ld_acq_cta(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared::cta.b32 %0, [%1];" : "=r"(v)
+               : "r"(saddr(p)) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_rel_cta(int* p, int v) {
+  asm volatile("st.release.cta.shared::cta.b32 [%0], %1;" ::"r"(saddr(p)),
+               "r"(v) : "memory");
+}
+// the strip: the next CTA's first warp's band, {x, value} a lane, 8
+// bytes read and written whole, so its reader needs no fence
+__device__ __forceinline__ int2 ld_strip(const int2* p) {
+  int2 v;
+  asm volatile("ld.volatile.shared.v2.b32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y) : "r"(saddr(p)));
+  return v;
+}
+__device__ __forceinline__ void st_strip_remote(unsigned addr, int x, int a,
+                                                int b) {
+  asm volatile("st.volatile.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};"
+               ::"r"(addr), "r"(x), "r"(a), "r"(x), "r"(b) : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   saddr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   saddr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) exact_fill_kernel(
     const int* __restrict__ counts,      // [C, 6]
     const int8_t* __restrict__ rows,     // [B, C]
     const int8_t* __restrict__ seqs,     // [B, L]
     const int* __restrict__ ways,        // [B, L]
     const int* __restrict__ lengths,     // [B]
-    int* __restrict__ gbuf,              // [B, C+1] scratch: g
-    int* __restrict__ nsbuf,             // [B, C] scratch: ns
+    int* __restrict__ planes,            // [B, 6, cps] scratch
     unsigned* __restrict__ codes,        // [ceil(L/16), B, W]
     int* __restrict__ band_out,          // [B, W]
     int* __restrict__ anf_out,           // [B]
-    int B, int C, int L, int ncols, int w) {
-  extern __shared__ int s_band[];        // [2][blockDim.x * K]
-  __shared__ int s_wt[2][32];            // warps' totals, by step parity
+    int B, int C, int L, int ncols, int w, int cps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_wt[MAX_THREADS / 32];
+  __shared__ int s_total;                // this CTA's slice of gap costs
+  __shared__ int s_prog[MAX_THREADS / 32];   // a warp's last band written
 
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int lane_id = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int nlanes = blockDim.x * K;
-  const int b = blockIdx.x;
-  const int base = tid * K;              // this thread's first lane
+  const int nthr = blockDim.x;
+  const int nwarps = nthr >> 5;
+  const int LC = nthr * K;               // band lanes of a CTA
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / cs;
+  const int lb = tid * K;                // first lane within the CTA
+  const int base = rank * LC + lb;       // first lane in the band
+  const int WIN = LC + SLACK + 4;        // columns of a staged window
+  const int bh = w / 2;
+  const int len = lengths[b];
   const int8_t* row = rows + (size_t)b * C;
   const int8_t* seq = seqs + (size_t)b * L;
   const int* way = ways + (size_t)b * L;
-  int* g = gbuf + (size_t)b * (C + 1);
-  int* ns = nsbuf + (size_t)b * C;
-  const int len = lengths[b];
-  const int bh = w / 2;
+  int* pl = planes + (size_t)b * NP * cps;   // column y at y + 4
+  int* g1p = pl + 5 * (size_t)cps;           // g[y+1] at y + 4
 
-  // ---- phase 0: g[y] = sum of gapcost over columns < y (gapcost = bases
-  // in the column minus this row's own base) and ns[y] (non-space symbols
-  // in the column minus this row's own)
-  if (tid == 0) g[0] = 0;
-  int carry = 0;
-  for (int c0 = 0; c0 < C; c0 += blockDim.x * LPT0) {
-    int v[LPT0];
-    int sum = 0;
+  // dynamic shared memory: hand-off slots, band double buffer, the
+  // strip, staged cost planes, staged ways and bases, the step table
+  unsigned long long* hand = (unsigned long long*)smem_raw;  // [nw][TMAX]
+  int* s_band = (int*)(hand + (size_t)nwarps * TMAX);        // [2][LC]
+  int2* s_strip = (int2*)(s_band + 2 * LC);                  // [2][SPAN]
+  int* s_pl = (int*)(s_strip + 2 * SPAN);                    // [2][6][WIN]
+  int* s_way = s_pl + 2 * NP * WIN;                          // [2][TMAX+4]
+  int* s_seq = s_way + 2 * (TMAX + 4);             // [2][TMAX + 16] bytes
+  int2* s_tab = (int2*)(s_seq + 2 * (TMAX / 4 + 4));         // [TMAX]
+
+  // ---- phase 0: the cost planes of the row (cluster-wide, each CTA a
+  // contiguous slice of columns): subg_s = sub_s - gapcost, ins, and
+  // g[y+1], the prefix of gapcost (each CTA scans its slice, then adds
+  // the totals of the CTAs below)
+  for (int i = tid; i < nwarps * TMAX; i += nthr) hand[i] = ~0ull;
+  if (tid < nwarps) s_prog[tid] = -1;
+  for (int i = tid; i < 2 * SPAN; i += nthr) s_strip[i] = make_int2(-1, 0);
+  const int slice = ((cps + cs - 1) / cs + 3) & ~3;
+  const int s_lo = min(rank * slice, cps);
+  const int s_hi = min(s_lo + slice, cps);
+  {
+    int carry = 0;
+    for (int t0 = s_lo; t0 < s_hi; t0 += nthr * LPT0) {
+      int gv[LPT0];
+      int sum = 0;
+      int nsm = 0;                       // ns of the column below
 #pragma unroll
-    for (int k = 0; k < LPT0; ++k) {
-      const int y = c0 + tid * LPT0 + k;
-      v[k] = 0;
-      if (y < C) {
-        const int* cy = counts + 6 * (size_t)y;
-        const int own = row[y];
-        const int bases = wadd(wadd(cy[0], cy[1]), wadd(cy[2], cy[3]));
-        v[k] = wsub(bases, own < 4 ? 1 : 0);
-        ns[y] = wsub(wadd(bases, cy[4]), own < 5 ? 1 : 0);
+      for (int k = 0; k < LPT0; ++k) {
+        const int idx = t0 + tid * LPT0 + k;
+        const int y = idx - 4;
+        int v[NP] = {0, 0, 0, 0, 0, 0};
+        if (idx < s_hi && y >= 0 && y < C) {
+          const int2 c01 = *(const int2*)(counts + 6 * (size_t)y);
+          const int2 c23 = *(const int2*)(counts + 6 * (size_t)y + 2);
+          const int2 c45 = *(const int2*)(counts + 6 * (size_t)y + 4);
+          const int own = row[y];
+          const int bases = wadd(wadd(c01.x, c01.y), wadd(c23.x, c23.y));
+          const int ns = wsub(wadd(bases, c45.x), own < 5 ? 1 : 0);
+          const int gap = wsub(bases, own < 4 ? 1 : 0);
+          if (k == 0 || y == 0) {
+            if (y > 0) {
+              const int* cm = counts + 6 * (size_t)(y - 1);
+              const int bm = wadd(wadd(cm[0], cm[1]), wadd(cm[2], cm[3]));
+              nsm = wsub(wadd(bm, cm[4]), row[y - 1] < 5 ? 1 : 0);
+            } else {
+              nsm = ns;
+            }
+          }
+          const int cv[4] = {c01.x, c01.y, c23.x, c23.y};
+#pragma unroll
+          for (int s = 0; s < 4; ++s)
+            v[s] = wsub(wadd(wsub(ns, cv[s]), own == s ? 1 : 0), gap);
+          v[4] = max(ns, nsm);
+          v[5] = gap;
+          nsm = ns;
+        }
+        if (idx < s_hi) {
+#pragma unroll
+          for (int p = 0; p < 5; ++p) pl[(size_t)p * cps + idx] = v[p];
+        }
+        gv[k] = v[5];
+        sum = wadd(sum, v[5]);
       }
-      sum = wadd(sum, v[k]);
-    }
-    int xs = sum;
+      int xs = sum;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(FULL, xs, o);
-      if (lane_id >= o) xs = wadd(xs, u);
-    }
-    if (lane_id == 31) s_wt[0][warp] = xs;
-    __syncthreads();
-    int pre = carry, tot = carry;
-    for (int i = 0; i < nwarps; ++i) {
-      const int wv = s_wt[0][i];
-      if (i < warp) pre = wadd(pre, wv);
-      tot = wadd(tot, wv);
-    }
-    const int ex = __shfl_up_sync(FULL, xs, 1);
-    if (lane_id != 0) pre = wadd(pre, ex);
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(FULL, xs, o);
+        if (lane_id >= o) xs = wadd(xs, u);
+      }
+      if (lane_id == 31) s_wt[warp] = xs;
+      __syncthreads();
+      int pre = carry, tot = carry;
+      for (int i = 0; i < nwarps; ++i) {
+        const int wv = s_wt[i];
+        if (i < warp) pre = wadd(pre, wv);
+        tot = wadd(tot, wv);
+      }
+      const int ex = __shfl_up_sync(FULL, xs, 1);
+      if (lane_id != 0) pre = wadd(pre, ex);
 #pragma unroll
-    for (int k = 0; k < LPT0; ++k) {
-      const int y = c0 + tid * LPT0 + k;
-      pre = wadd(pre, v[k]);
-      if (y < C) g[y + 1] = pre;
+      for (int k = 0; k < LPT0; ++k) {
+        const int idx = t0 + tid * LPT0 + k;
+        pre = wadd(pre, gv[k]);
+        if (idx < s_hi) g1p[idx] = pre;
+      }
+      carry = tot;
+      __syncthreads();
     }
-    carry = tot;
-    __syncthreads();
+    if (tid == 0) s_total = carry;
   }
-  // the band before the first position is 0 (MatrixOut(-1, .) = 0)
-  for (int i = tid; i < nlanes; i += blockDim.x) s_band[nlanes + i] = 0;
-  __syncthreads();                       // g, ns and the band are visible
+  cluster.sync();                        // the slices' totals, the flags
+  {
+    int off = 0;
+    for (int r = 0; r < rank; ++r)
+      off = wadd(off, *cluster.map_shared_rank(&s_total, r));
+    if (off != 0)
+      for (int idx = s_lo + tid; idx < s_hi; idx += nthr)
+        g1p[idx] = wadd(g1p[idx], off);
+  }
+  cluster.sync();                        // every plane is complete
+  // g[v] of the row (the generic path's rules and the final band)
+  auto gval = [&](int v) -> int {
+    return g1p[min(max(v, 0), cps - 4) + 3];
+  };
 
-  // ---- phase 1: the fill, one position a step
+  // the slots this warp reads its lower neighbours' prefix from, and the
+  // slots it publishes its own into (in the next CTA at the border)
+  const unsigned hand_a = saddr(hand);
+  const unsigned hin = hand_a + (unsigned)(warp * TMAX) * 8u;
+  const bool has_in = rank > 0 || warp > 0;
+  const bool top_warp = warp + 1 == nwarps;
+  const bool out_local = !top_warp;
+  const bool publisher = lane_id == 31 && (!top_warp || rank + 1 < cs);
+  const unsigned hout =
+      out_local ? hand_a + (unsigned)((warp + 1) * TMAX) * 8u
+      : rank + 1 < cs ? map_rank(hand_a, (unsigned)(rank + 1)) : 0u;
+  // the first warp of CTAs past the first pushes its band into the strip
+  // of the CTA below
+  const bool pusher = rank > 0 && warp == 0;
+  const unsigned push_band =
+      pusher ? map_rank(saddr(s_strip + lb), (unsigned)(rank - 1)) : 0u;
+  // where a warp waits for the band of x-1 above it: the next warp's
+  // count; the CTA's top warp reads the strip's lanes until they carry
+  // x-1
+  const int up_kind = !top_warp ? 1 : rank + 1 < cs ? 2 : 0;
+  const int* prog_up = &s_prog[min(warp + 1, nwarps - 1)];
+  const int wfirst = rank * LC + warp * SPAN;  // the warp's first lane
+
+  // the band start a row carries past its end
+  const int a_f = len >= 1 ? max(0, way[min(len, L) - 1] - bh) : 0;
+  // rr: this thread's lanes of the band of x-1 (frozen past the row's
+  // end); first the band before x = 0, which a row of length 0 keeps:
+  // M = 0 at columns 0..W-1 (reduced)
+  int rr[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) rr[k] = wsub(0, gval(base + k + 1));
+  int frzm1 = wsub(0, gval(base));       // lane base-1 of the frozen band
+  int pin_prev = frzm1;                  // lane base-1 of x-1
+  const bool seq_words = (L & 3) == 0;   // rows of bases 4-byte aligned
+
+  // stage a chunk starting at x1 (band start a1) into buffer nb: its
+  // ways (positions x1-1 .. x1+TMAX), its bases (from x1 & ~3) and this
+  // CTA's cost window from column cw
+  auto stage = [&](int nb, int x1, int a1) {
+    int* sw = s_way + nb * (TMAX + 4);
+    for (int j = tid; j < TMAX + 2; j += nthr) {
+      const int x = x1 - 1 + j;
+      if (x >= 0 && x < L) cp_async4(sw + j, way + x);
+    }
+    int cw = ((a1 + rank * LC - 1) >> 2) << 2;
+    cw = min(cw, cps - 4 - WIN);         // only ways past the array
+    int* sp = s_pl + nb * NP * WIN;
+    for (int q = tid; q < NP * (WIN / 4); q += nthr) {
+      const int p = q / (WIN / 4), c4 = q - p * (WIN / 4);
+      cp_async16(sp + p * WIN + 4 * c4,
+                 pl + (size_t)p * cps + cw + 4 + 4 * c4);
+    }
+    uint8_t* sb = (uint8_t*)(s_seq + nb * (TMAX / 4 + 4));
+    const int xs = x1 & ~3;
+    if (seq_words) {
+      for (int q = tid; q < TMAX / 4 + 2; q += nthr)
+        if (xs + 4 * q < L) cp_async4(sb + 4 * q, seq + xs + 4 * q);
+    } else {
+      for (int j = tid; j < TMAX + 8; j += nthr)
+        if (xs + j < L) sb[j] = (uint8_t)seq[xs + j];
+    }
+    cp_async_commit();
+    return cw;
+  };
+
+  // ---- phase 1: the fill, chunk by chunk
   unsigned word[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) word[k] = 0u;
-  int anf_prev = 0;                      // carried: frozen past the row
-  int anf_last = 0;                      // anf(x-1) from the ways
-  for (int x = 0; x < L; ++x) {
-    const int anf = max(0, way[x] - bh);
-    const int s = seq[x];
-    const int* prev = s_band + ((x + 1) & 1) * nlanes;   // position x-1
-    int* cur = s_band + (x & 1) * nlanes;
-    const bool first = x == 0;
-    const bool active = x < len;
-    const bool is_last = len == x + 1;
-    const int d = anf - anf_prev;
-    const int dc = min(max(d, 0), w + 1);
-    const int gta = x % PLAIN_CHUNK == 0 ? anf_prev : anf_last;
-    const int top = first ? 0 : wsub(prev[w - 1], g[min(gta + w, C)]);
-
-    // the cost window: lane k at column y = anf + base + k
-    int gy[K + 1], nsv[K + 1];
-#pragma unroll
-    for (int j = 0; j <= K; ++j) {
-      const int y = anf + base + j;
-      gy[j] = g[min(y, C)];              // g[y] past the array: g[C]
-      const int ym1 = min(y - 1, C - 1);
-      nsv[j] = ym1 >= 0 ? ns[ym1] : 0;   // ns[y - 1]
-    }
-    int diag[K], m[K], loc[K];
-    int run = NEUTRAL;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int i = base + k;
-      const int y = anf + i;
-      int dprev = 0, uprev = 0;
-      if (!first) {
-        const int jd = i + d - 1;
-        const int ju = i + d;
-        dprev = jd >= w ? wadd(top, gy[k])
-                : jd >= 0 ? prev[i + dc - 1] : BIG;
-        uprev = ju >= w ? wadd(top, gy[k + 1])
-                : ju >= 0 ? prev[i + dc] : BIG;
+  int cw_cur = stage(0, 0, max(0, way[0] - bh));
+  int x0 = 0;
+  int cbuf = 0;
+#pragma unroll 1
+  while (x0 < L) {
+    cp_async_wait_all();
+    // the chunk's staging has landed in every CTA, and every warp of the
+    // cluster has finished the previous chunk
+    cluster.sync();
+    const int* sw = s_way + cbuf * (TMAX + 4);   // ways of x0-1+j
+    const uint8_t* sb = (const uint8_t*)(s_seq + cbuf * (TMAX / 4 + 4))
+                        - (x0 & ~3);             // bases of x
+    const int* sp = s_pl + cbuf * NP * WIN;
+    const int a0 = max(0, sw[1] - bh);
+    // the chunk's end: the first position the pipeline cannot take
+    int x1 = min(L, x0 + TMAX);
+    for (int xb = x0 + 1; xb < x1; xb += 32) {
+      const int x = xb + lane_id;
+      bool irregular = false;
+      if (x < x1) {
+        const int ax = max(0, sw[x - x0 + 1] - bh);
+        const int am = max(0, sw[x - x0] - bh);
+        const int ap = len == 0 ? 0 : x <= len ? am : a_f;
+        const int d = ax - ap;
+        const int gta = x % PLAIN_CHUNK == 0 ? ap : am;
+        irregular = d < 0 || d > SPAN || (d >= 1 && gta != ap)
+                    || ax - a0 < 0 || ax - a0 > SLACK;
       }
-      int sub = 0, ins = 0;
-      if (y < C) {
-        const int nsy = nsv[k + 1];
-        const int nsm = y > 0 ? nsv[k] : nsy;
-        ins = max(nsy, nsm);
-        sub = wadd(wsub(nsy, counts[6 * (size_t)y + s]),
-                   row[y] == s ? 1 : 0);
+      const unsigned m = __ballot_sync(FULL, irregular);
+      if (m) {
+        x1 = xb + __ffs(m) - 1;
+        break;
       }
-      diag[k] = wadd(dprev, sub);
-      const bool ok = y > 0 && y < ncols - 1;
-      int a = min(diag[k], ok ? wadd(uprev, ins) : BIG);
-      if (!(y < ncols) || i >= w) a = BIG;
-      run = min(run, wsub(a, gy[k + 1]));
-      loc[k] = run;
     }
-    // the prefix-min across the band: warp scan, then the warps' totals
-    int xs = run;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(FULL, xs, o);
-      if (lane_id >= o) xs = min(xs, u);
+    // this CTA's window index of lane 0 at the chunk's first band
+    const int off0 = a0 + rank * LC - cw_cur;
+    // the chunk's step table: window index of this CTA's lane 0 at x,
+    // and the shift and base of x
+    for (int tt = tid; tt < x1 - x0; tt += nthr) {
+      const int x = x0 + tt;
+      const int ax = max(0, sw[tt + 1] - bh);
+      const int am = x > 0 ? max(0, sw[tt] - bh) : 0;
+      const int ap = len == 0 || x == 0 ? 0 : x <= len ? am : a_f;
+      s_tab[tt] = make_int2(ax - a0 + off0, ((ax - ap) << 2) | (sb[x] & 3));
     }
-    int ext = __shfl_up_sync(FULL, xs, 1);   // the lanes below, in-warp
-    if (lane_id == 0) ext = NEUTRAL;
-    if (lane_id == 31) s_wt[x & 1][warp] = xs;
-    __syncthreads();
-    int wt = lane_id < nwarps ? s_wt[x & 1][lane_id] : NEUTRAL;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(FULL, wt, o);
-      if (lane_id >= o) wt = min(wt, u);
-    }
-    int exw = __shfl_sync(FULL, wt, (warp + 31) & 31);
-    if (warp == 0) exw = NEUTRAL;
-    const int pre = min(exw, ext);       // over every lane below `base`
+    int cw_next = 0;
+    if (x1 < L)
+      cw_next = stage(cbuf ^ 1, x1, max(0, sw[x1 - x0 + 1] - bh));
+    __syncthreads();                     // the step table is complete
 
-    // the band, the codes and the next band
-    int left = base == 0 ? BIG : wadd(pre, gy[0]);
+#pragma unroll 1
+    for (int x = x0; x < x1; ++x) {
+      const int tt = x - x0;
+      const int2 e = s_tab[tt];
+      const int o = e.x;                 // window index of lane rank*LC
+      const int d = e.y >> 2;
+      const int s = e.y & 3;
+      const int ax = o - off0 + a0;      // anf(x)
+      const bool active = x < len;
+      const bool is_last = x == len - 1;
+      if (x == len && x > 0) frzm1 = pin_prev;   // the band freezes
+      // this lane's window column and costs
+      const int* pls = sp + s * WIN + o + lb - 1;
+      const int* pli = sp + 4 * WIN + o + lb - 1;
+      const int* plg = sp + 5 * WIN + o + lb - 1;
+      const int* prev = s_band + ((x - 1) & 1) * LC;   // the band of x-1
+      int* cur = s_band + (x & 1) * LC;
+      const int y0 = ax + base;              // column of lane base
+      const bool gen = x == 0 || is_last || ax + wfirst <= 0
+                       || ax + wfirst + SPAN - 1 >= ncols - 1;
+      unsigned long long hv = has_in ? ld_slot(hin + (unsigned)tt * 8u) : 0ull;
+
+      int dg[K], up[K];                  // the sources of x-1, reduced
+      int c0r = 0;                       // lane 0: BIG below it, reduced
+      if (base == 0) c0r = wsub(BIG, plg[0]);
+      if (x == 0) {
+        // MatrixOut(-1, .) = 0
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      m[k] = wadd(min(pre, loc[k]), gy[k + 1]);
-      const int gap = wsub(gy[k + 1], gy[k]);
-      const bool gap_hit = m[k] == wadd(left, gap) || (is_last && m[k] == left);
-      const unsigned code = gap_hit ? 0u : (m[k] == diag[k] ? 1u : 2u);
-      word[k] = __funnelshift_r(word[k], code, 2);
-      left = m[k];
+        for (int k = 0; k < K; ++k) {
+          up[k] = wsub(0, plg[k + 1]);
+          dg[k] = wsub(0, plg[k]);
+        }
+      } else if (x != x0) {
+        // inside a chunk: 0 <= d <= SPAN, sources clamped to W-1
+        int v[K + 1];
+        if (d == 0) {
+          // this thread's lanes of x-1 and the lane below
+          const int below = __shfl_up_sync(FULL, rr[K - 1], 1);
+          v[0] = base == 0 ? c0r : lane_id == 0 ? pin_prev : below;
+#pragma unroll
+          for (int k = 0; k < K; ++k) v[k + 1] = rr[k];
+        } else {
+          // lanes base+d-1 .. base+d+K-1 of x-1, in this warp, the warp
+          // above (once its count says x-1) or the next CTA's strip
+          if (up_kind != 2) {
+            if (up_kind == 1)
+              while (ld_acq_cta(prog_up) < x - 1) {
+              }
+#pragma unroll
+            for (int j = 0; j <= K; ++j)
+              v[j] = prev[min(base + d - 1 + j, w - 1) - rank * LC];
+          } else {
+#pragma unroll
+            for (int j = 0; j <= K; ++j) {
+              const int l = min(base + d - 1 + j, w - 1) - rank * LC;
+              if (l >= LC) {
+                const int2* e = s_strip + ((x - 1) & 1) * SPAN + (l - LC);
+                int2 t2 = ld_strip(e);
+                while (t2.x != x - 1) t2 = ld_strip(e);
+                v[j] = t2.y;
+              } else {
+                v[j] = prev[l];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          dg[k] = v[k];
+          up[k] = v[k + 1];
+        }
+      } else {
+        // a chunk's first step, after the cluster barrier: any shift;
+        // the plain version's rules in full
+        const int am = max(0, sw[0] - bh);
+        const int ap = len == 0 ? 0 : x <= len ? am : a_f;
+        const int gta = x % PLAIN_CHUNK == 0 ? ap : am;
+        const int adj = d >= 1 && gta != ap
+                            ? wsub(gval(ap + w), gval(gta + w)) : 0;
+        auto rd = [&](int j) -> int {    // the band of x-1 at lane j
+          if (j == base - 1 && lane_id == 0) return pin_prev;
+          const int r = min(j / LC, cs - 1);
+          return cluster.map_shared_rank(s_band, r)[((x - 1) & 1) * LC + j
+                                                    - r * LC];
+        };
+        const int top = wadd(rd(w - 1), adj);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int i = base + k;
+          const int ju = i + d, jd = i + d - 1;
+          const int gy1 = plg[k + 1], gy0 = plg[k];
+          int u, g_;
+          if (ju >= w) u = top;
+          else if (ju >= 0)
+            u = d >= 0 ? rd(ju)
+                       : wsub(wadd(rd(i), gval(ap + i + 1)), gy1);
+          else u = wsub(BIG, gy1);
+          if (jd >= w) g_ = top;
+          else if (jd >= 0)
+            g_ = d >= 0 ? rd(jd) : wsub(wadd(rd(i - 1), gval(ap + i)), gy0);
+          else g_ = wsub(BIG, gy0);
+          up[k] = u;
+          dg[k] = g_;
+        }
+      }
+
+      // the candidates and the thread-local running min
+      int dr[K], loc[K];
+      int run = NEUTRAL;
+      if (!gen) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          dr[k] = wadd(dg[k], pls[k + 1]);
+          run = min(run, min(dr[k], wadd(up[k], pli[k + 1])));
+          loc[k] = run;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int y = y0 + k;
+          dr[k] = wadd(dg[k], pls[k + 1]);
+          const int bigr = wsub(BIG, plg[k + 1]);
+          const bool ok = y > 0 && y < ncols - 1;
+          int av = min(dr[k], ok ? wadd(up[k], pli[k + 1]) : bigr);
+          if (!(y < ncols)) av = bigr;
+          run = min(run, av);
+          loc[k] = run;
+        }
+      }
+      // warp-inclusive min-scan of the threads' totals (a lane whose
+      // source does not exist gets its own value back)
+      int xs = run;
+#pragma unroll
+      for (int o2 = 1; o2 < 32; o2 <<= 1)
+        xs = min(xs, __shfl_up_sync(FULL, xs, o2));
+      // the prefix over every lane below this warp, for this x
+      int pin = NEUTRAL;
+      if (has_in) {
+        while ((unsigned)(hv >> 32) != (unsigned)x)
+          hv = ld_slot(hin + (unsigned)tt * 8u);
+        pin = (int)(unsigned)hv;
+      }
+      if (publisher) {
+        const unsigned long long hw =
+            ((unsigned long long)(unsigned)x << 32) | (unsigned)min(pin, xs);
+        if (out_local)
+          st_slot_cta(hout + (unsigned)tt * 8u, hw);
+        else
+          st_slot(hout + (unsigned)tt * 8u, hw);
+      }
+      const int ex = __shfl_up_sync(FULL, xs, 1);
+      const int pre = lane_id == 0 ? pin : min(pin, ex);
+
+      // the new reduced band and the codes. Gap: M[i] == M[i-1] + gap,
+      // on reduced values r[i] == r[i-1]; diagonal: r[i] == diag - g.
+      // Past the row's end the band stays frozen
+      int left = base == 0 ? c0r : pre;
+      if (gen && is_last) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int rn = min(pre, loc[k]);
+          // the flat rule: M[i] == M[i-1]
+          const bool gap_hit =
+              rn == left
+              || wadd(rn, wsub(plg[k + 1], plg[k])) == left;
+          const unsigned code = gap_hit ? 0u : rn == dr[k] ? 1u : 2u;
+          word[k] = __funnelshift_r(word[k], code, 2);
+          left = rn;
+          rr[k] = active ? rn : rr[k];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int rn = min(pre, loc[k]);
+          const unsigned code = rn == left ? 0u : rn == dr[k] ? 1u : 2u;
+          word[k] = __funnelshift_r(word[k], code, 2);
+          left = rn;
+          rr[k] = active ? rn : rr[k];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < K / 4; ++q)
+        *(int4*)(cur + lb + 4 * q) = make_int4(rr[4 * q], rr[4 * q + 1],
+                                               rr[4 * q + 2], rr[4 * q + 3]);
+      if (pusher) {
+        const unsigned at = push_band + (unsigned)((x & 1) * SPAN) * 8u;
+#pragma unroll
+        for (int k = 0; k < K; k += 2)
+          st_strip_remote(at + 8u * k, x, rr[k], rr[k + 1]);
+      }
+      __syncwarp();
+      if (lane_id == 0) st_rel_cta(&s_prog[warp], x);
+      pin_prev = active ? pin : frzm1;
+      if ((x & 15) == 15 || x == L - 1) {
+        const int sh = 2 * (15 - (x & 15));   // a partial last word: pad 0
+        unsigned* out = codes + ((size_t)(x >> 4) * B + b) * w;
+        if ((w & 3) == 0 && base + K <= w) {
+#pragma unroll
+          for (int q = 0; q < K / 4; ++q)
+            *(uint4*)(out + base + 4 * q) = make_uint4(
+                word[4 * q] >> sh, word[4 * q + 1] >> sh,
+                word[4 * q + 2] >> sh, word[4 * q + 3] >> sh);
+        } else {
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            if (base + k < w) out[base + k] = word[k] >> sh;
+        }
+      }
     }
-    if ((x & 15) == 15 || x == L - 1) {
-      const int sh = 2 * (15 - (x & 15));   // a partial last word: pad 0
-      unsigned* out = codes + ((size_t)(x >> 4) * B + b) * w;
-#pragma unroll
-      for (int k = 0; k < K; ++k)
-        if (base + k < w) out[base + k] = word[k] >> sh;
-    }
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      if (base + k < nlanes) cur[base + k] = active ? m[k] : prev[base + k];
-    if (active) anf_prev = anf;
-    anf_last = anf;
-    __syncthreads();                     // the new band is visible
+    cw_cur = cw_next;
+    cbuf ^= 1;
+    x0 = x1;
   }
-  const int* fin = s_band + ((L - 1) & 1) * nlanes;
+  // the final band (frozen past the row's end)
 #pragma unroll
-  for (int k = 0; k < K; ++k)
-    if (base + k < w) band_out[(size_t)b * w + base + k] = fin[base + k];
-  if (tid == 0) anf_out[b] = anf_prev;
-}
-
-template <int K>
-cudaError_t launch_k(int threads, const void* counts, const void* rows,
-                     const void* seqs, const void* ways, const void* lengths,
-                     void* gbuf, void* nsbuf, void* codes, void* band_out,
-                     void* anf_out, int B, int C, int L, int ncols, int w,
-                     cudaStream_t stream) {
-  const size_t smem = (size_t)2 * threads * K * sizeof(int);
-  exact_fill_kernel<K><<<B, threads, smem, stream>>>(
-      (const int*)counts, (const int8_t*)rows, (const int8_t*)seqs,
-      (const int*)ways, (const int*)lengths, (int*)gbuf, (int*)nsbuf,
-      (unsigned*)codes, (int*)band_out, (int*)anf_out, B, C, L, ncols, w);
-  return cudaGetLastError();
+  for (int k = 0; k < K; ++k) {
+    const int i = base + k;
+    if (i < w)
+      band_out[(size_t)b * w + i] = wadd(rr[k], gval(a_f + i + 1));
+  }
+  if (rank == 0 && tid == 0) anf_out[b] = a_f;
+  // a CTA's shared memory must outlive its neighbours' reads
+  cluster.sync();
 }
 
 }  // namespace
 
+// Shared memory of a launch: the caller gives threads a CTA and CTAs a
+// row as ops/cuda_exact.py::fill_geometry computes them.
+static size_t fill_smem(int threads) {
+  const int nwarps = threads / 32;
+  const int lc = threads * K;
+  const int win = lc + SLACK + 4;
+  return (size_t)nwarps * TMAX * 8 + (size_t)2 * lc * 4
+         + (size_t)2 * SPAN * 8
+         + (size_t)2 * NP * win * 4 + (size_t)2 * (TMAX + 4) * 4
+         + (size_t)2 * (TMAX / 4 + 4) * 4 + (size_t)TMAX * 8;
+}
+
 extern "C" int exact_fill_launch(
     const void* counts, const void* rows, const void* seqs, const void* ways,
-    const void* lengths, void* gbuf, void* nsbuf, void* codes,
-    void* band_out, void* anf_out, int B, int C, int L, int ncols, int w,
-    void* stream) {
+    const void* lengths, void* planes, void* codes, void* band_out,
+    void* anf_out, int B, int C, int L, int ncols, int w, int cs,
+    int threads, int cps, void* stream) {
   if (B <= 0) return 0;
-  if (L <= 0 || C <= 0 || w <= 0 || w > MAX_THREADS * MAX_K)
+  if (L <= 0 || C <= 0 || w <= 0 || threads <= 0 || threads % 32
+      || threads > MAX_THREADS || !(cs == 1 || cs == 2 || cs == 4 || cs == 8)
+      || cs * threads * K < w || (cs - 1) * threads * K >= w
+      || cps % 4 || cps < C + cs * threads * K + SLACK + 16)
     return (int)cudaErrorInvalidValue;
-  const int k = (w + MAX_THREADS - 1) / MAX_THREADS;
-  const int threads = (((w + k - 1) / k) + 31) / 32 * 32;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-#define EXACT_FILL_CASE(KK)                                                 \
-  case KK:                                                                  \
-    err = launch_k<KK>(threads, counts, rows, seqs, ways, lengths, gbuf,    \
-                       nsbuf, codes, band_out, anf_out, B, C, L, ncols, w,  \
-                       st);                                                 \
-    break;
-  switch (k) {
-    EXACT_FILL_CASE(1)
-    EXACT_FILL_CASE(2)
-    EXACT_FILL_CASE(3)
-    EXACT_FILL_CASE(4)
-    EXACT_FILL_CASE(5)
-    EXACT_FILL_CASE(6)
-    EXACT_FILL_CASE(7)
-    EXACT_FILL_CASE(8)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef EXACT_FILL_CASE
-  return (int)err;
+  const size_t smem = fill_smem(threads);
+  // up to 256 threads a CTA a thread may hold 255 registers
+  void (*kern)(const int*, const int8_t*, const int8_t*, const int*,
+               const int*, int*, unsigned*, int*, int*, int, int, int, int,
+               int, int) =
+      threads <= 256 ? exact_fill_kernel<256> : exact_fill_kernel<512>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cs, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kern, (const int*)counts, (const int8_t*)rows,
+      (const int8_t*)seqs, (const int*)ways, (const int*)lengths,
+      (int*)planes, (unsigned*)codes, (int*)band_out, (int*)anf_out, B, C,
+      L, ncols, w, cps);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* exact_fill_error_string(int err) {

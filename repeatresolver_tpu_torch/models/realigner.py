@@ -15,7 +15,8 @@ Counterpart of repeatresolver_tpu/models/realigner.py:
     kernel="cuda", the staircase fill and the walk through their
     wrappers (kernels A and B on a CUDA device). Whatever the kernel, a
     block through the exact band on a CUDA device runs kernels F and G
-    (ops/cuda_exact), on the CPU the torch exact band. With a mesh
+    (ops/cuda_exact; an engine on a CUDA device raises at a band past
+    F's MAX_W lanes), on the CPU the torch exact band. With a mesh
     (parallel/sharded.Mesh) each block's rows are sharded over the
     ranks of a process group.
   * `realign_batched`, the main loop: best tracking, the anneal,
@@ -415,7 +416,15 @@ def realign_block_native(nat, counts, rows_old, seqs, ways, lengths,
 def _check_inserts(inn: np.ndarray, cap: int) -> None:
     """A device route's insert lists hold `cap` inserts a row: the torch
     routes and kernel B's rebuild MAX_INSERTS, kernels F and G as many
-    as the block's walk found."""
+    as the block's walk found.
+
+    This departs from the JAX package on purpose: its routes raise at
+    `inn >= MAX_INSERTS` (repeatresolver_tpu/models/realigner.py:895
+    and :972), because their counts saturate at the list's length and a
+    full list may have lost inserts. Here `inn` is the walk's true count
+    (cuda_backtrack.moves_to_outputs counts every insert and lists the
+    first `cap`), so a row of exactly `cap` inserts is complete and
+    equals the host native engine; only `inn > cap` lost inserts."""
     if (inn > cap).any():
         raise RuntimeError("insert buffer overflow; raise MAX_INSERTS or "
                            "use the serial engine")
@@ -478,7 +487,8 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
     lockstep backtrack. Otherwise the exact band, chosen by the tensors'
     device whatever the kernel: on CUDA tensors kernels F and G
     (ops/cuda_exact: the fill, then the entry scan and the walk over its
-    packed codes, insert lists as wide as the walk needs), on CPU
+    packed codes, insert lists as wide as the walk needs; a band past
+    F's `cuda_exact.MAX_W` lanes raises ValueError), on CPU
     tensors the torch exact band (ops/banded_realign, MAX_INSERTS
     inserts a row; `banded_fill.calls` counts its runs)."""
     cpad = rows_old.shape[1]
@@ -497,6 +507,7 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
             bandwidth=bandwidth, chunk=chunk, widen=widen)
         codes = sr.unpack_codes(codes, seqs.shape[1])
     elif rows_old.device.type == "cuda":
+        ce.require_band(bandwidth)
         codes, fband, fanf = ce.exact_fill(
             counts, rows_old, seqs, ways, lengths, ncols,
             bandwidth=bandwidth)
@@ -598,6 +609,9 @@ class BatchedRealigner:
             self.device = device
         else:
             self.device = resolve_device(device)
+        if isinstance(self.device, torch.device) \
+                and self.device.type == "cuda":
+            ce.require_band(bandwidth)
         self._pending: list | None = None   # sweep-deferred inserts
         # RR_FLUSH_CAP (the JAX package's knob) raises the cap, so that
         # two engines compared at one block size both flush once a sweep

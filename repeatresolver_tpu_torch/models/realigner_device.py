@@ -47,6 +47,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops import cuda_backtrack as cb
+from ..ops import cuda_exact as ce
 from ..ops import cuda_realign as cr
 from ..ops import staircase_realign as sr
 from ..utils.native import NativeBuildError
@@ -174,6 +175,8 @@ class DeviceResidentRealigner(BatchedRealigner):
         # chunk whose slack covers the drift gives the same result)
         self.chunk = min(chunk, 128) if bandwidth >= 768 else chunk
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            ce.require_band(bandwidth)
         self._widen = DEFAULT_WIDEN
         # the widest ladder rung whose window fits kernel A (0: none)
         self._w_fit = max((v for v in BatchedRealigner.WIDEN_LADDER
@@ -467,8 +470,9 @@ class DeviceResidentRealigner(BatchedRealigner):
         whose insert list overflowed, written back in place; its inserts
         join `pending`. On a CUDA device through kernels F and G on the
         resident rows and histogram (`_exact_block_device`), whatever the
-        host library's state: no host round trip and no fallback. On the
-        CPU through the native host engine (the JAX package's route),
+        host library's state: no host round trip and no fallback (the
+        engine takes no band past F's cuda_exact.MAX_W lanes there). On
+        the CPU through the native host engine (the JAX package's route),
         or, when the host library cannot be built, the torch exact band
         (same math, both the reference recurrence; the first such block
         warns). Counted and timed by route."""
@@ -509,10 +513,10 @@ class DeviceResidentRealigner(BatchedRealigner):
         return iy[:, :k].cpu().numpy(), ib[:, :k].cpu().numpy(), inn
 
     def _exact_block_host(self, rows):
-        """The block on the host: rows and histogram read from the
-        engine's device, the native engine (or the torch exact band
-        without the host library) run, the rows written back. Returns
-        (route, iy, ib, inn)."""
+        """The block of an engine on the CPU: the native engine (or the
+        torch exact band without the host library) on its rows and
+        histogram, the rows written back. Returns (route, iy, ib,
+        inn)."""
         try:
             nat = _native()
         except NativeBuildError as e:

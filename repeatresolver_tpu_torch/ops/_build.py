@@ -40,7 +40,7 @@ _SIGNATURES = {
     + [ctypes.c_void_p],
     "maxcorr_tile": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
-    "exact_fill": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    "exact_fill": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     "exact_walk": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],

@@ -30,6 +30,8 @@ take; on a CUDA tensor they launch or raise, never fall back.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -37,8 +39,66 @@ from . import banded_realign as br
 from .cuda_backtrack import moves_to_outputs
 from .cuda_realign import _check
 
-# band lanes kernel F holds: 512 threads of up to 8 lanes a row
-MAX_W = 4096
+# kernel F's layout (csrc/exact_fill.cu; the C side checks what it is
+# given): FILL_LANES band lanes a thread, at most FILL_THREADS threads a
+# CTA and a cluster of FILL_CLUSTERS CTAs a row, so a band holds at most
+# MAX_W lanes; a chunk is at most FILL_TMAX positions whose bands stay
+# within FILL_SLACK columns of its first band, the span of its staged
+# cost window
+FILL_LANES = 4
+FILL_THREADS = 512
+FILL_CLUSTERS = (1, 2, 4, 8)
+FILL_TMAX = 128
+FILL_SLACK = 512
+MAX_W = FILL_CLUSTERS[-1] * FILL_THREADS * FILL_LANES
+
+
+class FillGeometry(NamedTuple):
+    cs: int          # CTAs a row (one cluster)
+    threads: int     # threads a CTA
+    lanes_cta: int   # band lanes a CTA
+    span: int        # band lanes a warp: the next CTA's strip, and the
+    #                  largest shift a step inside a chunk takes
+
+
+def fill_geometry(w: int, cs: int | None = None) -> FillGeometry:
+    """Kernel F's layout for band w: the fewest CTAs a row (a cluster of
+    1, 2, 4 or 8) whose 512 threads hold the band, so one CTA up to
+    2,048 lanes and eight up to MAX_W. At band 1,000 one CTA a row beat
+    two and four: the CTA border's hand-offs cost more than the SMs gain
+    (chip_smoke.py phase 9, PERF.md §6). `cs` asks for another number of
+    CTAs a row, to compare layouts; the top CTA must hold a lane."""
+    if not 0 < w <= MAX_W:
+        raise ValueError(f"exact_fill: unsupported band {w}")
+    per_row = FILL_THREADS * FILL_LANES
+    if cs is None:
+        cs = next(n for n in FILL_CLUSTERS if n * per_row >= w)
+    if cs not in FILL_CLUSTERS:
+        raise ValueError(f"exact_fill: {cs} CTAs a row")
+    per_cta = -(-w // cs)
+    threads = -(-(-(-per_cta // FILL_LANES)) // 32) * 32
+    lc = threads * FILL_LANES
+    if threads > FILL_THREADS or (cs - 1) * lc >= w:
+        raise ValueError(f"exact_fill: {cs} CTAs a row cannot hold band "
+                         f"{w}")
+    return FillGeometry(cs, threads, lc, 32 * FILL_LANES)
+
+
+def require_band(bandwidth: int) -> None:
+    """Raise unless kernel F holds the band. On a CUDA device every
+    exact-band block runs on F, which holds at most MAX_W lanes; no
+    wider band leaves the card for another engine."""
+    if bandwidth > MAX_W:
+        raise ValueError(
+            f"band {bandwidth} is past the {MAX_W} lanes kernel F holds: "
+            "on a CUDA device the exact band runs on kernel F only; "
+            "realign wider bands on the CPU (device 'cpu')")
+
+
+def plane_columns(cp: int, geo: FillGeometry) -> int:
+    """Columns a row of kernel F's cost planes holds (column y at index
+    y + 4): every staged window of a band whose ways lie below cp."""
+    return (cp + geo.cs * geo.lanes_cta + FILL_SLACK + 16 + 3) // 4 * 4
 
 
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -65,11 +125,13 @@ def exact_fill_plain(counts, rows_old, seqs, ways, lengths, ncols: int, *,
 
 
 def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
-               bandwidth: int):
+               bandwidth: int, ctas: int | None = None):
     """Exact-band fill of a block. counts int32 [C, 6]; rows_old int8
     [B, C] (columns >= ncols: symbol 5, zero counts); seqs int8 [B, L]
-    (bases 0-3); ways int32 [B, L] (each base's column, edge-padded past
-    the row's length); lengths int32 [B], all on one device."""
+    (bases 0-3); ways int32 [B, L] (each base's column below C,
+    edge-padded past the row's length); lengths int32 [B], all on one
+    device. `ctas` sets kernel F's CTAs a row (fill_geometry's `cs`;
+    the same result at any layout)."""
     dev = rows_old.device
     _check("rows_old", rows_old, torch.int8, 2, dev)
     b, c = rows_old.shape
@@ -92,23 +154,23 @@ def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
                                 ncols, bandwidth=bandwidth)
     if dev.type != "cuda":
         raise ValueError(f"exact_fill: unsupported device {dev}")
+    geo = fill_geometry(bandwidth, ctas)
     lib = _build.load("exact_fill")
     codes = torch.empty((-(-l // 16), b, bandwidth), dtype=torch.int32,
                         device=dev)
     band = torch.empty((b, bandwidth), dtype=torch.int32, device=dev)
     anf = torch.empty((b,), dtype=torch.int32, device=dev)
-    # the kernel's scratch rows: the gap-cost prefix and the non-space
-    # counts of each row
-    gbuf = torch.empty((b, c + 1), dtype=torch.int32, device=dev)
-    nsbuf = torch.empty((b, c), dtype=torch.int32, device=dev)
+    # the kernel's scratch: each row's six cost planes
+    cps = plane_columns(c, geo)
+    planes = torch.empty((b, 6, cps), dtype=torch.int32, device=dev)
     p = _build.ptr
     ev = _build.launch_events("exact_fill")
     if ev:
         ev[0].record()
     err = lib.exact_fill_launch(
-        p(counts), p(rows_old), p(seqs), p(ways), p(lengths), p(gbuf),
-        p(nsbuf), p(codes), p(band), p(anf), b, c, l, int(ncols),
-        bandwidth, _build.stream_ptr(dev))
+        p(counts), p(rows_old), p(seqs), p(ways), p(lengths), p(planes),
+        p(codes), p(band), p(anf), b, c, l, int(ncols), bandwidth, geo.cs,
+        geo.threads, cps, _build.stream_ptr(dev))
     if ev:
         ev[1].record()
     _build.check(lib, "exact_fill", err)

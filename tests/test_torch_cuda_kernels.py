@@ -491,6 +491,38 @@ def exact_inputs(seed, b, c, l, w, cpad=None):
     return counts, rows_old, seqs, ways, lengths, c
 
 
+def exact_shift_inputs(seed, b, c, l, w, span=128):
+    """exact_inputs' block with steps of every kind kernel F splits: 0,
+    1, a few columns, half and past a warp's span of lanes (`span`),
+    half and past the band."""
+    counts, rows, seqs, ways, lengths, ncols = exact_inputs(seed, b, c, l, w)
+    rng = np.random.default_rng(seed + 100)
+    steps = rng.choice([0, 1, 2, 3, span // 2, span + 5, w // 2 + 1, w + 3],
+                       (b, l), p=[.15, .3, .25, .15, .06, .04, .03, .02])
+    start = rng.integers(0, max(1, c // 8), (b, 1))
+    ways = np.minimum(start + np.cumsum(steps, axis=1), c - 1).astype(
+        np.int32)
+    ways[0] = 0
+    ways[2, -1] = c - 1
+    for i in range(1, b):
+        ways[i, lengths[i]:] = ways[i, lengths[i] - 1]
+    return counts, rows, seqs, ways, lengths, ncols
+
+
+def unpad_ways(arrays, seed):
+    """The block with the ways of every other row not edge-padded past
+    its length (random columns): past the row's end the band then moves
+    below its carried start and the jump rule's base differs from it."""
+    counts, rows, seqs, ways, lengths = (a.copy() for a in arrays)
+    rng = np.random.default_rng(seed)
+    c = int((counts.sum(axis=1) > 0).sum())
+    for b in range(1, len(lengths), 2):
+        n = ways.shape[1] - lengths[b]
+        if n > 0:
+            ways[b, lengths[b]:] = rng.integers(0, c, n)
+    return counts, rows, seqs, ways, lengths
+
+
 def insert_heavy_block(n=2100, others=3):
     """A block whose last row needs n - 1 inserts (more than
     MAX_INSERTS for n > 2049): the other rows hold a consensus in the
@@ -545,6 +577,94 @@ def test_exact_kernels_match_plain(dev, seed, b, c, l, w):
                                  lengths, ncols, cpad=cpad)
     for name, k, p in zip(("moves", "wayin", "best"), walk, walk_p):
         assert torch.equal(k, p), name
+    torch.cuda.synchronize()
+
+
+# wide bands: 4,200 (past kernel A's 4,096 lanes, four CTAs a row),
+# 8,192 (four) and the cap (eight)
+EXACT_WIDE_CASES = [(9, 4, 12600, 96, 4200), (10, 4, 24600, 48, 8192),
+                    (11, 4, 49200, 48, 16384)]
+
+
+def _fill_same(dev, arrays, ncols, w):
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    kern = ce.exact_fill(*t, ncols, bandwidth=w)
+    plain = ce.exact_fill_plain(*t, ncols, bandwidth=w)
+    for name, k, p in zip(("codes", "band", "anf"), kern, plain):
+        assert torch.equal(k, p), name
+    torch.cuda.synchronize()
+    return kern
+
+
+@pytest.mark.parametrize("seed,b,c,l,w", EXACT_WIDE_CASES)
+def test_exact_fill_wide_bands(dev, seed, b, c, l, w):
+    *arrays, ncols = exact_shift_inputs(seed, b, c, l, w)
+    _fill_same(dev, arrays, ncols, w)
+
+
+@pytest.mark.parametrize("w", [1000, 3000, 4200, 9000])
+@pytest.mark.parametrize("padded", [True, False])
+def test_exact_fill_geometries_and_shifts(dev, w, padded):
+    """One, two, four and eight CTAs a row (bands 1,000, 3,000, 4,200
+    and 9,000) on a block with every kind of shift and rows that cross x = 256; past
+    some rows' ends the ways are not edge-padded (shifts below 0, jump
+    bases that are not the carried band start)."""
+    *arrays, ncols = exact_shift_inputs(12, 6, 9 * w, 300, w)
+    if not padded:
+        arrays = unpad_ways(arrays, 12)
+    _fill_same(dev, arrays, ncols, w)
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
+def test_exact_fill_any_layout(dev, ctas):
+    """Band 1,000 at each number of CTAs a row the wrapper can be asked
+    for: the same bits as the plain version."""
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    *arrays, ncols = exact_shift_inputs(13, 6, 9000, 300, 1000)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+    kern = ce.exact_fill(*t, ncols, bandwidth=1000, ctas=ctas)
+    plain = ce.exact_fill_plain(*t, ncols, bandwidth=1000)
+    for name, k, p in zip(("codes", "band", "anf"), kern, plain):
+        assert torch.equal(k, p), name
+    torch.cuda.synchronize()
+
+
+def walk_codes_case(seed, b=6, l=90, w=12, c=160):
+    """Random codes [B, L, W] with nonzero lane-0 codes and band starts
+    that often stand still, so that diagonals from lane 0 leave the band
+    (the lockstep walk's clamp), and jumps of the band start. Returns
+    (packed codes, band, fanf, entry bound, anf, lengths, c)."""
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    rng = np.random.default_rng(seed)
+    codes = rng.choice(3, size=(b, l, w), p=[.5, .3, .2]).astype(np.uint8)
+    codes[:, :, 0] = rng.choice([1, 2], size=(b, l), p=[.8, .2])
+    anf = np.minimum(np.cumsum(rng.choice([0, 0, 1, 2, 7, w + 40], (b, l),
+                                          p=[.3, .2, .2, .15, .13, .02]),
+                               1), c - 1).astype(np.int32)
+    lengths = rng.integers(1, l + 1, b).astype(np.int32)
+    lengths[0] = 0
+    band = rng.integers(0, 40, (b, w)).astype(np.int32)
+    fanf = anf[np.arange(b), np.maximum(lengths - 1, 0)]
+    eb = (fanf - rng.integers(0, 3, b)).astype(np.int32)
+    packed = ce.pack_codes(torch.from_numpy(codes))
+    return packed, band, fanf, eb, anf, lengths, c
+
+
+@pytest.mark.parametrize("seed,b,l,w", [(0, 6, 90, 12), (1, 8, 700, 600),
+                                        (2, 4, 1500, 1000)])
+def test_exact_walk_random_codes(dev, seed, b, l, w):
+    """G's walk on random codes (walks below their band, gap runs past
+    a window and a tile, band jumps) equals its plain version."""
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    packed, *rest, c = walk_codes_case(seed, b, l, w, c=3 * l + 2 * w)
+    t = [packed.to(dev)] + [torch.from_numpy(a).to(dev) for a in rest]
+    got = ce.exact_walk(*t, c, cpad=c + 5)
+    ref = ce.exact_walk_plain(*t, c, cpad=c + 5)
+    for name, g, r in zip(("moves", "wayin", "best"), got, ref):
+        assert torch.equal(g, r), name
+    m = got[0].permute(1, 0, 2).reshape(b, -1).cpu().numpy()[:, :l]
+    assert ((m >> 2) < rest[3])[m >= 0].any(), "no walk left its band"
     torch.cuda.synchronize()
 
 

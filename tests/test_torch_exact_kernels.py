@@ -23,9 +23,12 @@ comparison is exact (tolerance 0: integer DP).
 The kernels themselves run on the card: tests/test_torch_cuda_kernels.py
 (`-k exact`) and chip_smoke.py (phases 2 and 9).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
+import torch.overrides
 from repeatresolver_tpu.ops import banded_realign as jbr
 
 from repeatresolver_tpu_torch.models import realigner as prt
@@ -204,6 +207,7 @@ def test_exact_wrappers_reject_bad_input():
     with pytest.raises(ValueError, match="inconsistent"):
         pce.exact_fill(counts[:10], rows, seqs, ways, lengths, ncols,
                        bandwidth=16)
+    assert pce.MAX_W == 16384
     with pytest.raises(ValueError, match="unsupported band"):
         pce.exact_fill(counts, rows, seqs, ways, lengths, ncols,
                        bandwidth=pce.MAX_W + 1)
@@ -273,3 +277,211 @@ def test_resident_sweep_log_splits_exact_blocks(monkeypatch):
         == 0
     for r in log:
         assert 0 <= r["exact_block_s"]["native"] <= r["s"]
+
+
+# ---- the card's routes for exact blocks, on the CPU: F and G's
+# libraries stood in for, tensors that claim the card
+
+class _CardTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _on_card(dev):
+    return dev is not None and torch.device(dev).type == "cuda"
+
+
+class _FakeCard(torch.overrides.TorchFunctionMode):
+    """Tensors made or moved "to the card" stay on the CPU as
+    _CardTyped, so the card's routes run here up to the kernels."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        wrap = _on_card(kwargs.get("device"))
+        if wrap:
+            kwargs["device"] = "cpu"
+        if func is torch.Tensor.to:
+            rest = [a for a in args[1:]
+                    if not (isinstance(a, (str, torch.device))
+                            and _on_card(a))]
+            wrap = wrap or len(rest) != len(args) - 1
+            args = args[:1] + tuple(rest)
+            if not rest and not kwargs:
+                out = args[0]
+                return out if isinstance(out, _CardTyped) \
+                    else out.as_subclass(_CardTyped)
+        out = func(*args, **kwargs)
+        if wrap and isinstance(out, torch.Tensor) \
+                and not isinstance(out, _CardTyped):
+            out = out.as_subclass(_CardTyped)
+        return out
+
+
+class _FakeExactKernels:
+    """Stands in for kernels F and G's libraries: records each launch's
+    integer arguments and leaves defined outputs (codes and band 0, every
+    move record -1: no inserts)."""
+
+    def __init__(self):
+        self.launches = []
+
+    def exact_fill_launch(self, *a):
+        b, c, l, ncols, w, cs, threads, cps = a[9:17]
+        self.launches.append(("fill", (b, c, l, ncols, w, cs, threads, cps)))
+        for p, n in ((a[6], -(-l // 16) * b * w), (a[7], b * w), (a[8], b)):
+            ctypes.memset(p.value, 0, 4 * n)
+        return 0
+
+    def exact_walk_launch(self, *a):
+        b, w, nw, l, ncols, cpad = a[9:15]
+        self.launches.append(("walk", (b, w, nw, l, ncols, cpad)))
+        ctypes.memset(a[6].value, 0xff, 4 * nw * b * 16)
+        ctypes.memset(a[7].value, 0, 4 * b)
+        ctypes.memset(a[8].value, 0, 4 * b)
+        return 0
+
+    def exact_fill_error_string(self, err):
+        return b"stand-in error"
+
+    exact_walk_error_string = exact_fill_error_string
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    from repeatresolver_tpu_torch.ops import _build
+    fake = _FakeExactKernels()
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: ctypes.c_void_p())
+
+    def plain(*a, **k):
+        raise AssertionError("the torch exact band ran on the card route")
+    monkeypatch.setattr(pbr, "banded_fill", plain)
+    with _FakeCard():
+        yield fake
+
+
+def _block(w, seed=3):
+    """A block of a small MSA: (arrays as numpy, the MSA width)."""
+    msa = make_msa(seed, rows=8, tlen=240)
+    counts = prt.symbol_counts(msa).astype(np.int32)
+    seqs, ways, lengths = prt.compact_rows(msa)
+    anf, eb = exact_bounds(ways, lengths, w)
+    return (counts, msa, seqs, ways, lengths, anf, eb), msa.shape[1]
+
+
+def _card(arrays):
+    return [T(a).as_subclass(_CardTyped) for a in arrays]
+
+
+def test_block_dp_card_route_by_band(fake_card):
+    """block_dp's exact branch on the card: band 4,200 (past kernel A's
+    4,096 lanes) and F's cap launch F and G (four and eight CTAs a row);
+    a band past the cap raises ValueError and leaves the card for no
+    other engine."""
+    for w, cs in ((4200, 4), (pce.MAX_W, 8)):
+        fake_card.launches.clear()
+        arrays, c = _block(w)
+        out = prt.block_dp(*_card(arrays), c, bandwidth=w, chunk=256,
+                           widen=1, staircase=False, kernel="cuda")
+        assert [k for k, _ in fake_card.launches] == ["fill", "walk"]
+        assert fake_card.launches[0][1][4:6] == (w, cs)  # band, CTAs a row
+        assert out[0].shape == arrays[1].shape
+    fake_card.launches.clear()
+    w = pce.MAX_W + 8
+    arrays, c = _block(w)
+    with pytest.raises(ValueError, match="lanes kernel F holds"):
+        prt.block_dp(*_card(arrays), c, bandwidth=w, chunk=256, widen=1,
+                     staircase=False, kernel="cuda")
+    assert fake_card.launches == []
+
+
+def _resident_on_card(w):
+    """A resident engine at band w whose tensors claim the card."""
+    eng = prd.DeviceResidentRealigner(make_msa(3, rows=16, tlen=240),
+                                      bandwidth=w, block_rows=8, chunk=32,
+                                      device="cpu")
+    eng.ent_al_gapper()
+    eng._upload()
+    eng._ensure_order()
+    eng._msa_d = eng._msa_d.as_subclass(_CardTyped)
+    eng._counts_d = eng._counts_d.as_subclass(_CardTyped)
+    eng.device = torch.device("cuda", 0)
+    return eng
+
+
+def test_resident_card_route_by_band(fake_card, monkeypatch):
+    """The resident engine's exact blocks on the card: band 4,200 runs
+    on F and G (route cuda); a block past F's cap raises and no other
+    engine runs it, and an engine on the card refuses that band when it
+    is made. On the CPU the same band runs on the host native engine
+    (route native, counted) and equals it."""
+    cls = prd.DeviceResidentRealigner
+    monkeypatch.setattr(cls, "exact_blocks_run",
+                        dict.fromkeys(cls.ROUTES, 0))
+    monkeypatch.setattr(cls, "exact_block_s",
+                        dict.fromkeys(cls.ROUTES, 0.0))
+    eng = _resident_on_card(4200)
+    eng._exact_block(eng._ord_host[:8], [])
+    assert cls.exact_blocks_run["cuda"] == 1
+    assert fake_card.launches[0][1][4] == 4200
+    w = pce.MAX_W + 8
+    eng = _resident_on_card(w)
+    with pytest.raises(ValueError, match="lanes kernel F holds"):
+        eng._exact_block(eng._ord_host[:8], [])
+    assert len(fake_card.launches) == 2
+    assert cls.exact_blocks_run == {"cuda": 1, "native": 0, "torch": 0}
+    msa = make_msa(3, rows=16, tlen=240)
+    # "cuda" resolves without a card
+    monkeypatch.setattr(prd, "resolve_device", torch.device)
+    monkeypatch.setattr(prt, "resolve_device", torch.device)
+    with pytest.raises(ValueError, match="lanes kernel F holds"):
+        cls(msa, bandwidth=w, block_rows=8, device="cuda")
+    for mode, kernel in (("staircase", "cuda"), ("exact", "torch")):
+        with pytest.raises(ValueError, match="lanes kernel F holds"):
+            prt.BatchedRealigner(msa, bandwidth=w, block_rows=8, mode=mode,
+                                 kernel=kernel, device="cuda")
+    cls(msa, bandwidth=pce.MAX_W, block_rows=8, device="cuda")
+    cls.exact_blocks_run["cuda"] = 0
+    eng = cls(msa, bandwidth=w, block_rows=8, chunk=32, device="cpu")
+    eng.ent_al_gapper()
+    eng._upload()
+    eng._ensure_order()
+    rows = eng._ord_host[:8]
+    c = eng._ncols
+    before = eng._msa_d[:, :c].numpy().copy()
+    counts = eng._counts_d[:c].numpy().copy()
+    pending = []
+    eng._exact_block(rows, pending)
+    assert cls.exact_blocks_run == {"cuda": 0, "native": 1, "torch": 0}
+    seqs, ways, lengths = prt.compact_rows(before[rows])
+    ref = prt.realign_block_native(native, counts, before[rows], seqs, ways,
+                                   lengths, w)
+    np.testing.assert_array_equal(eng._msa_d[rows, :c].numpy(), ref[0])
+    assert len(pending) == int(ref[4].sum())
+
+
+def test_exact_insert_bound_on_kernel_b_route():
+    """A row of exactly MAX_INSERTS inserts through block_dp's staircase
+    route (kernel B's rebuild, cuda_backtrack.moves_to_outputs, here its
+    plain version): complete, equal to the host native engine, and
+    _check_inserts takes it (the JAX package raises at >=)."""
+    msa, order = insert_heavy_block(n=pbr.MAX_INSERTS + 1)
+    w, chunk = 64, 32
+    counts = prt.symbol_counts(msa).astype(np.int32)
+    rows = msa[order]
+    seqs, ways, lengths = prt.compact_rows(rows)
+    widen = -(-prt.chunk_drift(ways, chunk) // chunk) + 1
+    anf, eb = prt.band_starts(ways, lengths, w, chunk, True)
+    ref = prt.realign_block_native(native, counts, rows, seqs, ways,
+                                   lengths, w)
+    assert ref[4].max() == pbr.MAX_INSERTS
+    out = prt.block_dp(*(T(a) for a in (counts, rows, seqs, ways, lengths,
+                                        anf, eb)), msa.shape[1],
+                       bandwidth=w, chunk=chunk, widen=widen, staircase=True,
+                       kernel="cuda")
+    assert out[2].shape[1] == pbr.MAX_INSERTS
+    prt._check_inserts(out[4].numpy(), out[2].shape[1])
+    _same([t.numpy() for t in out], ref)
