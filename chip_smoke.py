@@ -21,11 +21,14 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      for kernels F and G (the exact band), blocks with shifts past the
      band, rows of length 0 and 1, padding columns, a row ending at the
      last column, ways not edge-padded past the rows' ends and bands 16
-     to 16,384 (F's cap, eight CTAs a row): codes, band and band start,
-     moves, entry and best bit-equal to their plain versions; a row of
-     more inserts than MAX_INSERTS, whose rows, best and insert lists
-     equal the host native engine's; and a band past F's cap, which
-     block_dp and the engines on the card refuse with a ValueError;
+     to 16,384 (the clustered layout's cap, eight CTAs a row) and
+     20,000 to 65,536 (the wide layout), F's wide layout also at bands
+     16 to 2,600: codes, band and band start, moves, entry and best
+     bit-equal to their plain versions; a row of more inserts than
+     MAX_INSERTS, whose rows, best and insert lists equal the host
+     native engine's; and a band whose one row's codes pass the device
+     memory budget (RR_DEVICE_HBM_BUDGET set low), which block_dp and
+     the engines on the card refuse with a ValueError;
   3. the same at the production dispatch shape (64 rows x 32,768 bases,
      band 1000, chunk 128, widen 6, MSA width 139,264), with the times
      (a kernel's: the median of KERNEL_REPS runs after two warm-ups, with
@@ -48,7 +51,13 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      port's CLI `realign -b 1000 -B 64 --device cuda`. Its OverallScore
      sequence must equal column 2 of runs/tpu_converge/scorelog_tpu (all
      24 lines; the JAX package's trajectory, identical on TPU and CPU),
-     and both kernels must have launched. Then the same MSA at band 2600
+     and both kernels must have launched. The anneal's tail runs blocks
+     16 and 4 on kernels F and G (the non-resident exact engine) and
+     block 1 on the host's serial sweep: the phase prints the tail's
+     sweeps and seconds by route and block size and the split of its
+     blocks on the card (host work, transfers, device, inside F and G,
+     flushes), and fails if a tail block at 2 <= block < 32 took
+     another route or F and G never launched. Then the same MSA at band 2600
      (block 64, 2 rounds), past kernel A's 4,096-lane window at the
      default slack: the resident engine on the card must equal the
      port's host native exact engine line for line, with both kernels
@@ -62,8 +71,14 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      loop's count 0;
   5. kernels vs plain versions on the main path's own blocks: the fill
      inputs of the first block step at each slack (widen 12 first)
-     recorded during phase 4, replayed through both kernels and their
-     plain versions, bit-equal;
+     recorded during phase 4, replayed through kernels A and B and their
+     plain versions, bit-equal; the inputs of the anneal tail's first
+     block at each of its block sizes on the card (16 and 4 rows),
+     recorded during phase 4, through kernels F and G and their plain
+     versions, bit-equal; then, from the MSA the resident engine handed
+     to the tail, a sweep at each of those block sizes on the card's
+     tail engine and on the host native engine (the median of TAIL_REPS
+     each, the card's with its split a block), MSA and histogram equal;
   6. the whole pipeline: the port's CLI `pipeline -c 40 -n 24 -d 1 -l
      4000 -t Tree --seed 11 -b 1000 -B 64 --device cuda` (615 MSA rows,
      so the MaxCorrs device scan's >= 512-row gate routes it to the
@@ -80,8 +95,11 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      subdivisions must equal, byte for byte, a rerun with every product
      on the host. Prints each stage's seconds, each kernel's launches
      and seconds inside it (CUDA events)
-     and the assessment, and the exact blocks by route (the host
-     library's and the torch loop's must count 0);
+     and the assessment, the exact blocks by route (the host library's
+     and the torch loop's must count 0), and the anneal tail by route
+     and block size (at 2 <= block < 32 on F and G only), then its
+     sweeps on the card against the host native engine from the
+     handoff's MSA, as in phase 5;
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
      of 13,833 rows x 131,072 columns from seed 0; the band's first
      groups through kernel E and its plain version (bit-equal: max |dZ|
@@ -118,7 +136,9 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      timed beside the host native engine on the same rows (the median
      of KERNEL_REPS runs each, inputs on the host before the clock
      starts), all equal; F on the block at 1, 2, 4 and 8 CTAs a row,
-     each equal to the wrapper's layout and timed. Then the resident
+     each equal to the wrapper's layout and timed; F + G at band 20,000
+     (the wide layout) on the block's first 4 rows, timed and equal to
+     the host native engine (the median of 3 each). Then the resident
      engine on phase 4's MSA with every block forced onto the exact route
      (an insert fetch of one slot) and the host library made unavailable:
      kernels F and G must have run (counts set to 0 just before), the
@@ -229,8 +249,8 @@ MAIN_PATH = {"staircase_fill": "realign_tpu_converge",
              "walk_backtrack": "realign_tpu_converge",
              "editdp_fill": "pipeline_615", "editdp_walk": "pipeline_615",
              "maxcorr_tile": "pipeline_615",
-             "exact_fill": "realign_forced_exact",
-             "exact_walk": "realign_forced_exact"}
+             "exact_fill": "realign_tpu_converge",
+             "exact_walk": "realign_tpu_converge"}
 REALIGN_KERNELS = ("staircase_fill", "walk_backtrack")
 
 
@@ -683,6 +703,162 @@ def check_exact_routes(what, routes):
                              f"{routes}")
 
 
+def reset_tail():
+    """Set the non-resident engine's counts to 0: the anneal tail's
+    sweeps and seconds by route and block size, and its blocks on the
+    card with their split."""
+    from repeatresolver_tpu_torch.models.realigner import \
+        BatchedRealigner as eng
+    eng.host_sweeps_by_route = {}
+    eng.host_sweep_s_by_route = {}
+    eng.card_tail_split = dict.fromkeys(eng.CARD_SPLIT, 0)
+
+
+def report_tail(what, card):
+    """Print the anneal tail's sweeps and seconds by route and block size
+    and its blocks on the card, split into host work, transfers, the
+    device (of it inside kernels F and G) and flushes. On the card every
+    tail block at 2 <= block < RESIDENT_MIN_BS runs on F and G: fail if
+    another route swept there. Returns the sweeps by route."""
+    from repeatresolver_tpu_torch.models.realigner import \
+        BatchedRealigner as eng
+    from repeatresolver_tpu_torch.models.realigner_device import \
+        DeviceResidentRealigner
+    n, sec = eng.host_sweeps_by_route, eng.host_sweep_s_by_route
+    print(f"{what}: anneal tail by route and block size: " + "; ".join(
+        f"{route} " + ", ".join(
+            f"block {bs} {n[route][bs]} sweeps {sec[route][bs]:.2f} s"
+            for bs in sorted(n[route], reverse=True)) for route in n))
+    sp = eng.card_tail_split
+    print(f"{what}: the tail's {sp['blocks']} blocks on kernels F and G, "
+          f"{sp['s']:.2f} s: host work {sp['host_s']:.2f} s (gather, "
+          f"compact_rows, padding, apply), transfers {sp['transfer_s']:.2f}"
+          f" s, device {sp['device_s']:.2f} s (inside F and G "
+          f"{sp['kernel_s']:.3f} s); flushes {sp['flush_s']:.2f} s; on "
+          f"{card}")
+    off = {route: bs for route, by in n.items() if route != "cuda"
+           for bs in by if 2 <= bs < DeviceResidentRealigner.RESIDENT_MIN_BS}
+    if off:
+        raise AssertionError(f"{what}: tail sweeps off kernels F and G: "
+                             f"{off}")
+    return n
+
+
+@contextlib.contextmanager
+def recording_tail(rec):
+    """While a main path runs, record what its checks replay: the MSA the
+    resident engine hands to the anneal's tail (a copy) in
+    rec["handoff"], and the inputs of the tail's first block at each row
+    count (clones) in rec["blocks"], {rows: (counts, rows, seqs, ways,
+    lengths, anf_full, entry_bound; ncols; keywords)}. The tail reaches
+    its block DP through this stand-in."""
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.models import realigner_device as prd
+    cls = prd.DeviceResidentRealigner
+    tail_engine, block_dp = cls._tail_engine, prt.exact_block_dp
+    rec.update(handoff=None, blocks={})
+
+    def recording_engine(self, msa, block_rows):
+        if rec["handoff"] is None:
+            rec["handoff"] = msa.copy()
+        return tail_engine(self, msa, block_rows)
+
+    def recording_dp(*args, **kw):
+        if args[1].shape[0] not in rec["blocks"]:
+            rec["blocks"][args[1].shape[0]] = (
+                [a.clone() for a in args[:7]], args[7], kw)
+        return block_dp(*args, **kw)
+
+    cls._tail_engine, prt.exact_block_dp = recording_engine, recording_dp
+    try:
+        yield rec
+    finally:
+        cls._tail_engine, prt.exact_block_dp = tail_engine, block_dp
+
+
+def replay_tail_blocks(rec, sizes, errs, what):
+    """Kernels F and G against their plain versions, bit for bit, on the
+    recorded first tail block at each of `sizes` rows (the tail's block
+    sizes on the card), into errs."""
+    for nb in sizes:
+        if nb not in rec["blocks"]:
+            raise AssertionError(f"{what}: no tail block of {nb} rows "
+                                 f"recorded: {sorted(rec['blocks'])}")
+        args, ncols, kw = rec["blocks"][nb]
+        t0 = time.perf_counter()
+        err_f, err_g = compare_exact(args[:5], args[5:7], ncols,
+                                     kw["bandwidth"], args[1].shape[1])
+        errs["exact_fill"] = max(errs["exact_fill"], err_f)
+        errs["exact_walk"] = max(errs["exact_walk"], err_g)
+        print(f"{what}: the tail's first {nb}-row block ({nb} rows x "
+              f"{args[2].shape[1]} bases, longest {int(args[4].max())}, "
+              f"MSA width {ncols} of {args[1].shape[1]}, band "
+              f"{kw['bandwidth']}): kernels F and G bit-equal to their "
+              f"plain versions ({time.perf_counter() - t0:.1f} s)")
+
+
+TAIL_REPS = 3
+
+
+def tail_routes(rec, sizes, band, card, dev, what):
+    """The anneal tail from the MSA the resident engine handed to it: one
+    sweep at each of `sizes` (in turn, each from the last one's result)
+    on the card's tail engine (kernels F and G) and on the host native
+    engine, each the median of TAIL_REPS sweeps from a fresh engine, the
+    card's with its last sweep's split; fails unless both give the same MSA and
+    histogram. Returns {block: (card s, host s)}."""
+    import numpy as np
+
+    from repeatresolver_tpu_torch.models.realigner import \
+        BatchedRealigner as eng
+    from repeatresolver_tpu_torch.ops import _build
+
+    def median_sweep(msa, bs, kernel):
+        ts = []
+        for _ in range(TAIL_REPS):
+            # a copy each: the engine writes its MSA in place
+            e = eng(msa.copy(), bandwidth=band, block_rows=bs,
+                    mode="exact", kernel=kernel, device=dev)
+            eng.card_tail_split = dict.fromkeys(eng.CARD_SPLIT, 0)
+            t0 = time.perf_counter()
+            e.sweep()
+            ts.append(time.perf_counter() - t0)
+        ts.sort()
+        return e, ts, dict(eng.card_tail_split)
+
+    msa = rec["handoff"]
+    if msa is None:
+        raise AssertionError(f"{what}: no handoff to the tail recorded")
+    out = {}
+    _build.kernel_events = {}
+    try:
+        for bs in sizes:
+            card_e, card_t, sp = median_sweep(msa, bs, "cuda")
+            host_e, host_t, _ = median_sweep(msa, bs, "native")
+            if not (np.array_equal(card_e.msa, host_e.msa)
+                    and np.array_equal(card_e.counts, host_e.counts)):
+                raise AssertionError(f"{what}: block-{bs} sweep on kernels"
+                                     " F and G != the host native engine")
+            n = sp["blocks"]
+            out[bs] = (card_t[1], host_t[1])
+            print(f"{what}: a block-{bs} tail sweep from the same MSA "
+                  f"{msa.shape}: kernels F and G {card_t[1]:.4f} s "
+                  f"({card_t[0]:.4f}-{card_t[-1]:.4f}; {n} blocks, the "
+                  f"last sweep's split: host "
+                  f"work {sp['host_s'] / n * 1e3:.3f} ms a block, "
+                  f"transfers {sp['transfer_s'] / n * 1e3:.3f}, device "
+                  f"{sp['device_s'] / n * 1e3:.3f} (inside F and G "
+                  f"{sp['kernel_s'] / n * 1e3:.3f}); flushes "
+                  f"{sp['flush_s']:.4f} s), the host native engine "
+                  f"{host_t[1]:.4f} s ({host_t[0]:.4f}-{host_t[-1]:.4f}; "
+                  f"{os.cpu_count()} threads); medians of {TAIL_REPS}; MSA "
+                  f"and histogram equal, on {card}")
+            msa = card_e.msa
+    finally:
+        _build.kernel_events = None
+    return out
+
+
 def build_dataset(work):
     """runs/tpu_converge's dataset through the port's CLI (simulate,
     cut) and its initial aligner at align band 3000 (a setting the CLI
@@ -762,14 +938,16 @@ def pipeline_phase(card, dev, errs):
         setattr(fn, attr, 0)
     cuda_maxcorr.maxcorr_group.tiles = 0
     reset_exact_blocks()
+    reset_tail()
     # every resolver product to the card: at 615 rows no product reaches
     # the JAX package's 3e9-op gate
     os.environ["RR_DEVICE_MM_MIN"] = "0"
     out = TimedLines()
     _build.kernel_events = {}
+    tail_rec: dict = {}
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), recording_tail(tail_rec):
             cli.main(["pipeline"] + PIPE_ARGS + [
                 "-b", "1000", "-B", "64", "-w", pdir, "--device", dev.type])
         torch.cuda.synchronize()
@@ -796,6 +974,7 @@ def pipeline_phase(card, dev, errs):
     print(f"device routes fired in the pipeline run: {fired}; "
           f"exact blocks by route {ex}")
     check_exact_routes("pipeline-615", ex)
+    tail = report_tail("pipeline-615", card)
     print("stage seconds (host clock, on " + card + "): "
           + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
           + f"; total {t_prev - t0:.2f}")
@@ -858,6 +1037,14 @@ def pipeline_phase(card, dev, errs):
                                      "native route")
     print(f"cut + align byte-equal to the host native route (band 0; "
           f"host route {time.perf_counter() - t1:.1f} s)")
+
+    # the anneal tail's sweeps on the card against the host native engine
+    # from the MSA the resident engine handed to it
+    if not tail.get("cuda"):
+        raise AssertionError(f"pipeline-615: no tail sweep on kernels F and "
+                             f"G: {tail}")
+    tail_routes(tail_rec, sorted(tail["cuda"], reverse=True), 1000, card,
+                dev, "pipeline-615")
 
     # MaxCorrs: the device scan again (it is deterministic: the same
     # file), against the host fast scan on the same MSAreal
@@ -1446,7 +1633,7 @@ def paper_realign_phase(card, dev, errs):
     os.environ["RR_FLUSH_CAP"] = str(1 << 30)
     try:
         reset_launches()
-        prt.BatchedRealigner.host_sweeps = 0
+        reset_tail()
         reset_exact_blocks()
         prd.DeviceResidentRealigner.resident_sweep_s = 0.0
         first = {}
@@ -1472,9 +1659,9 @@ def paper_realign_phase(card, dev, errs):
         in_kernel = {k: sum(e0.elapsed_time(e1) for e0, e1 in v) / 1e3
                      for k, v in events.items()}
         res_s = prd.DeviceResidentRealigner.resident_sweep_s
-        if prt.BatchedRealigner.host_sweeps:
+        if prt.BatchedRealigner.sweep_totals()[0]:
             raise AssertionError(
-                f"{prt.BatchedRealigner.host_sweeps} rounds left the "
+                f"{prt.BatchedRealigner.sweep_totals()[0]} rounds left the "
                 "resident engine: the cap must hold the run at block 64")
         if min(launches[k] for k in REALIGN_KERNELS) <= 0:
             raise AssertionError(f"a kernel never launched: {launches}")
@@ -1700,17 +1887,20 @@ def _same_block_result(what, got, ref, ncols):
 
 MESH_ROUNDS = 3
 RANK_TIMEOUT_S = 420.0
+# phase 9's band past the clustered layout's MAX_W lanes
+WIDE_BAND = 20000
 
 
-def compare_exact(args, starts, ncols, w, cpad):
+def compare_exact(args, starts, ncols, w, cpad, wide=None):
     """Kernels F and G against their plain versions on one block of GPU
     tensors (counts, rows, seqs, ways, lengths; starts: anf_full,
-    entry_bound): F's codes, band and band start against the torch exact
-    band's, packed; G's moves, entry and best against exact_walk_plain
-    on F's codes. Returns (max abs difference of F, of G)."""
+    entry_bound): F's codes, band and band start (in the layout `wide`
+    asks for; by default the band's) against the torch exact band's,
+    packed; G's moves, entry and best against exact_walk_plain on F's
+    codes. Returns (max abs difference of F, of G)."""
     from repeatresolver_tpu_torch.ops import cuda_exact as cx
     anf, eb = starts
-    kern = cx.exact_fill(*args, ncols, bandwidth=w)
+    kern = cx.exact_fill(*args, ncols, bandwidth=w, wide=wide)
     plain = cx.exact_fill_plain(*args, ncols, bandwidth=w)
     err_f = max(int((k.long() - p.long()).abs().max())
                 for k, p in zip(kern, plain))
@@ -1805,17 +1995,17 @@ def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
         return [torch.from_numpy(a).to(dev) for a in prt.band_starts(
             ways_h, len_h, w, t, stair)]
 
-    def host_median(nb):
-        """The host native engine on the block's first nb rows, inputs
-        copied to the host first: (outputs, the median seconds of
-        KERNEL_REPS runs, the fastest, the slowest)."""
+    def host_median(nb, band=w, reps=KERNEL_REPS):
+        """The host native engine on the block's first nb rows at `band`,
+        inputs copied to the host first: (outputs, the median seconds of
+        `reps` runs, the fastest, the slowest)."""
         h = (counts[:ncols].cpu().numpy(),
              np.ascontiguousarray(rows_old[:nb, :ncols].cpu().numpy()),
              seqs[:nb].cpu().numpy(), ways_h[:nb], len_h[:nb])
         ts = []
-        for _ in range(KERNEL_REPS):
+        for _ in range(reps):
             t0 = time.perf_counter()
-            out = prt.realign_block_native(native, *h, w)
+            out = prt.realign_block_native(native, *h, band)
             ts.append(time.perf_counter() - t0)
         ts.sort()
         return out, ts[len(ts) // 2], ts[0], ts[-1]
@@ -1936,6 +2126,35 @@ def exact_band_phase(card, dev, block, converge_msa_path, sm_count, sm_hz,
               f"({spread(f'exact_fill_{cs}_ctas')}), equal to the "
               f"wrapper's layout ({geo.cs} CTA a row), on {card}")
         del out_c
+    # F + G at band WIDE_BAND (F's wide layout) on the block's first 4
+    # rows, against the host native engine
+    nb, ww = 4, WIDE_BAND
+    wargs = (counts, *(a[:nb].contiguous() for a in args[1:]))
+    wanf, web = (torch.from_numpy(a).to(dev) for a in prt.band_starts(
+        ways_h[:nb], len_h[:nb], ww, t, False))
+    out_w, ms_w = time_launches(
+        lambda: prt.block_dp(*wargs, wanf, web, ncols, bandwidth=ww,
+                             chunk=t, widen=1, staircase=False,
+                             kernel="cuda"), 3, "exact_wide_band")
+    (c_w, b_w, f_w), ms_wf = time_launches(
+        lambda: cx.exact_fill(*wargs, ncols, bandwidth=ww), 3,
+        "exact_fill_wide_band")
+    _, ms_wg = time_launches(
+        lambda: cx.exact_walk(c_w, b_w, f_w, web, wanf, wargs[4], ncols,
+                              cpad=cpad), 3, "exact_walk_wide_band")
+    del c_w, b_w, f_w
+    ref_w, s_wn, wn_lo, wn_hi = host_median(nb, ww, 3)
+    _same_block_result(f"band {ww}, {nb} rows: kernels F + G vs the host "
+                       "native engine", [x.cpu().numpy() for x in out_w],
+                       ref_w, ncols)
+    print(f"band {ww} ({cx.fill_geometry(ww).groups} groups of 2,048 lanes "
+          f"a CTA) on the block's first {nb} rows: kernels F + G with their "
+          f"torch ops {ms_w:.3f} ms (F {ms_wf:.3f} ms, G {ms_wg:.3f} ms; "
+          f"median of 3), the host native engine {s_wn * 1e3:.1f} ms "
+          f"(median of 3, {wn_lo * 1e3:.1f}-{wn_hi * 1e3:.1f} ms; "
+          f"{os.cpu_count()} threads); rows, best and inserts equal, on "
+          f"{card}")
+    del out_w
 
     # the resident engine with every block forced onto the exact route
     # (an insert fetch of one slot), the host library made unavailable:
@@ -2074,8 +2293,8 @@ def mesh_rank(rank, n, msa_path, real_path, outdir, device="cuda:0"):
                  for k, v in events.items()}
     report = dict(
         rank=rank, log=log, wall_s=wall, budget_bytes=budget,
-        sweep_s=prt.BatchedRealigner.host_sweep_s,
-        sweeps=prt.BatchedRealigner.host_sweeps,
+        sweep_s=prt.BatchedRealigner.sweep_totals()[1],
+        sweeps=prt.BatchedRealigner.sweep_totals()[0],
         launches=launches, kernel_s=in_kernel, collective_s=coll["s"],
         collectives=coll["calls"], staged=mesh.staged,
         exact=exact_blocks(), built_here=sorted(_build.build_info))
@@ -2644,8 +2863,9 @@ def main() -> int:
               "1, dead walks included)")
         # kernels F and G: shifts past the band, rows of length 0 and 1,
         # padding columns, a row ending at the last column, band 2600;
-        # bands 4,200, 8,192 and F's cap (every kind of shift F splits),
-        # and ways that are not edge-padded past the rows' ends
+        # bands 4,200, 8,192 and the clustered layout's cap (every kind of
+        # shift F splits), bands 20,000, 32,768 and 65,536 (the wide
+        # layout), and ways that are not edge-padded past the rows' ends
         import numpy as np
         kt = kernel_tests()
         exact_cases = [kt.exact_inputs(*c) for c in kt.EXACT_CASES] \
@@ -2661,6 +2881,14 @@ def main() -> int:
                 ncols, w, arrays[1].shape[1])
             errs["exact_fill"] = max(errs["exact_fill"], ef)
             errs["exact_walk"] = max(errs["exact_walk"], eg)
+        # the wide layout at the clustered layout's bands
+        for (*arrays, ncols), w in zip(exact_cases, exact_bands[:len(
+                kt.EXACT_CASES)]):
+            ef, _ = compare_exact(
+                to_dev(arrays), to_dev(kt.exact_bounds(arrays[3], arrays[4],
+                                                       w)),
+                ncols, w, arrays[1].shape[1], wide=True)
+            errs["exact_fill"] = max(errs["exact_fill"], ef)
         # a row with more inserts than MAX_INSERTS: F + G against the
         # host native engine, and against their plain versions
         from repeatresolver_tpu_torch.ops import banded_realign as br
@@ -2685,17 +2913,22 @@ def main() -> int:
             raise AssertionError("the insert-heavy block has "
                                  f"{ref[4].max()} inserts a row at most")
         print(f"kernels F and G: {len(exact_cases) + 1} blocks bit-equal "
-              f"to their plain versions (bands {sorted(set(exact_bands))}, "
+              f"to their plain versions (bands {sorted(set(exact_bands))}; "
+              f"F's wide layout also at bands "
+              f"{[c[-1] for c in kt.EXACT_CASES]}, "
               f"shifts past the band, rows of length 0 and 1, padding "
               f"columns, a row ending at the last column, ways not "
               f"edge-padded); a row of {int(ref[4].max())} inserts "
               f"(MAX_INSERTS {br.MAX_INSERTS}) equal to the host native "
               "engine")
-        # a band past F's cap: refused on the card, by block_dp and by
-        # the engines when they are made, and no other engine runs it
+        # a band whose one row's codes pass the device memory budget:
+        # refused on the card, by block_dp and by the engines when they
+        # are made, and no other engine runs it
         from repeatresolver_tpu_torch.models import realigner_device as prd
         from repeatresolver_tpu_torch.ops import cuda_exact as cx
-        wide = cx.MAX_W + 1
+        wide = 4 * cx.MAX_W
+        budget = cx.codes_bytes(hseqs.shape[1], wide) - 1
+        os.environ["RR_DEVICE_HBM_BUDGET"] = str(budget)
         refusals = [
             lambda: prt.block_dp(*hargs, *to_dev(hstarts), heavy.shape[1],
                                  bandwidth=wide, chunk=256, widen=1,
@@ -2706,19 +2939,23 @@ def main() -> int:
                                          block_rows=8, mode="staircase",
                                          kernel="cuda", device=dev)]
         reset_launches()
-        for refuse in refusals:
-            try:
-                refuse()
-            except ValueError as e:
-                if "lanes kernel F holds" not in str(e):
-                    raise
-            else:
-                raise AssertionError(f"band {wide} was not refused on the "
-                                     "card")
+        try:
+            for refuse in refusals:
+                try:
+                    refuse()
+                except ValueError as e:
+                    if "device memory budget" not in str(e):
+                        raise
+                else:
+                    raise AssertionError(f"band {wide} was not refused on "
+                                         "the card")
+        finally:
+            del os.environ["RR_DEVICE_HBM_BUDGET"]
         if launches_now()["exact_fill"]:
             raise AssertionError(f"band {wide}: kernel F launched")
-        print(f"band {wide}, past kernel F's {cx.MAX_W} lanes: refused by "
-              "block_dp and both engines on the card, nothing launched")
+        print(f"band {wide}, a row of {hseqs.shape[1]} positions past a "
+              f"budget of {budget:,} bytes: refused by block_dp and both "
+              "engines on the card, nothing launched")
         # kernels C and D: align's shared target (packed and int8 codes),
         # Lq > Lt, two segments; cut's stride-0 queries against 200-padded
         # per-read targets (final rows), two and three segments
@@ -2869,8 +3106,7 @@ def main() -> int:
             raise AssertionError(f"MSA shape {msa.shape} != (131, 85628)")
         out_path = os.path.join(WORK, "MSAreal")
         reset_launches()
-        prt.BatchedRealigner.host_sweeps = 0
-        prt.BatchedRealigner.host_sweep_s = 0.0
+        reset_tail()
         reset_exact_blocks()
         prd.DeviceResidentRealigner.resident_sweep_s = 0.0
         # record the fill inputs of the first block step at each slack
@@ -2887,14 +3123,17 @@ def main() -> int:
         buf = io.StringIO()
         prd.cr = types.SimpleNamespace(
             **{**vars(cr), "staircase_fill": recording_fill})
+        _build.kernel_events = {}
+        tail_rec: dict = {}
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), recording_tail(tail_rec):
                 cli.main(["realign", msa_path, "-o", out_path, "-b",
                           "1000", "-B", "64", "--device", "cuda"])
             torch.cuda.synchronize()
         finally:
             prd.cr = cr
+            _build.kernel_events = None
         wall = time.perf_counter() - t0
         launches = launches_now()
         scores = [ln.split()[1] for ln in buf.getvalue().splitlines()
@@ -2910,14 +3149,24 @@ def main() -> int:
               f"{min(scores)}, {rounds} rounds, wall {wall:.2f} s, "
               f"{cells / wall:.4g} cells/s on {card}")
         ex = exact_blocks()
-        print(f"launches {launches}, exact blocks by route {ex}, host "
-              f"anneal-tail rounds {prt.BatchedRealigner.host_sweeps}")
+        tail_n, host_s = prt.BatchedRealigner.sweep_totals()
+        print(f"launches {launches}, exact blocks by route {ex}, "
+              f"anneal-tail rounds {tail_n}")
         check_exact_routes("CLI realign", ex)
+        tail = report_tail("CLI realign", card)
         res_s = prd.DeviceResidentRealigner.resident_sweep_s
-        host_s = prt.BatchedRealigner.host_sweep_s
-        print(f"seconds: resident sweeps {res_s:.2f}, host anneal-tail "
-              f"sweeps {host_s:.2f}, rest of the loop "
-              f"{wall - res_s - host_s:.2f}")
+        print(f"seconds: resident sweeps {res_s:.2f}, anneal-tail sweeps "
+              f"{host_s:.2f}, rest of the loop {wall - res_s - host_s:.2f}")
+        # the tail: blocks 16 and 4 on kernels F and G, block 1 on the
+        # host's serial sweep
+        if sorted(tail.get("cuda", {})) != [4, 16] \
+                or list(tail.get("native", {})) != [1]:
+            raise AssertionError(f"anneal tail routes {tail}: blocks 16 "
+                                 "and 4 on kernels F and G, block 1 on the "
+                                 "host native engine expected")
+        if min(launches["exact_fill"], launches["exact_walk"]) <= 0:
+            raise AssertionError(f"kernels F and G never launched in the "
+                                 f"tail: {launches}")
         if scores != oracle:
             raise AssertionError(f"score trajectory {scores} != "
                                  f"scorelog_tpu {oracle}")
@@ -2949,6 +3198,11 @@ def main() -> int:
         if DEFAULT_WIDEN not in blocks:
             raise AssertionError(f"no block step at widen {DEFAULT_WIDEN}"
                                  f" recorded: {sorted(blocks)}")
+        # the anneal tail's own blocks through F and G, and its sweeps
+        # on the card against the host native engine from the handoff
+        tail_sizes = sorted(tail["cuda"], reverse=True)
+        replay_tail_blocks(tail_rec, tail_sizes, errs, "CLI realign")
+        tail_routes(tail_rec, tail_sizes, 1000, card, dev, "CLI realign")
 
     with phase("6 main path: CLI pipeline on the card"):
         pipe_launches = pipeline_phase(card, dev, errs)
@@ -2980,8 +3234,8 @@ def main() -> int:
         driver_launches = paper_driver_phase(card, errs)
 
     # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
-    # and B, as in every earlier report; phase 6 for C, D and E; phase
-    # 9's forced-exact resident run for F and G); the counts of all ten
+    # and B, as in every earlier report, and for F and G, which run its
+    # anneal tail; phase 6 for C, D and E); the counts of all eleven
     # main paths stand in `launches_by_path` (the mesh
     # realign's is one rank's: both ranks launch the same number; the
     # striped MaxCorrs scan's is both ranks')

@@ -76,6 +76,11 @@
 //     body with the plain version's masks and flat rule.
 //   * Codes shift into one register word a lane and are stored every 16
 //     positions in kernel B's time-major packed layout [ceil(L/16), B, W].
+//   * A band past 16,384 lanes, which no cluster of 8 CTAs holds at four
+//     lanes a thread in shared memory, takes the wide layout
+//     (exact_fill_wide_kernel below): every step the chunk-first step's
+//     rules, the band in device memory, two cluster barriers a step. Only
+//     device memory bounds its band.
 //
 // Every DP sum wraps modulo 2^32 (wadd/wsub), as XLA's int32 arithmetic
 // does: `BIG + cost` ties decide codes.
@@ -168,61 +173,23 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int MAXT>
-__global__ void __launch_bounds__(MAXT) exact_fill_kernel(
-    const int* __restrict__ counts,      // [C, 6]
-    const int8_t* __restrict__ rows,     // [B, C]
-    const int8_t* __restrict__ seqs,     // [B, L]
-    const int* __restrict__ ways,        // [B, L]
-    const int* __restrict__ lengths,     // [B]
-    int* __restrict__ planes,            // [B, 6, cps] scratch
-    unsigned* __restrict__ codes,        // [ceil(L/16), B, W]
-    int* __restrict__ band_out,          // [B, W]
-    int* __restrict__ anf_out,           // [B]
-    int B, int C, int L, int ncols, int w, int cps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_wt[MAX_THREADS / 32];
-  __shared__ int s_total;                // this CTA's slice of gap costs
-  __shared__ int s_prog[MAX_THREADS / 32];   // a warp's last band written
-
-  cg::cluster_group cluster = cg::this_cluster();
+// Phase 0 of both layouts: the cost planes of a row, cluster-wide, each
+// CTA a contiguous slice of columns: subg_s = sub_s - gapcost, ins, and
+// g[y+1], the prefix of gapcost (each CTA scans its slice, then adds the
+// totals of the CTAs below). Column y at index y + 4 of each plane row.
+__device__ __forceinline__ void row_planes(const int* __restrict__ counts,
+                                           const int8_t* __restrict__ row,
+                                           int* __restrict__ pl, int C,
+                                           int cps, int* s_wt, int* s_total,
+                                           cg::cluster_group& cluster) {
   const int tid = threadIdx.x;
   const int lane_id = tid & 31;
   const int warp = tid >> 5;
   const int nthr = blockDim.x;
   const int nwarps = nthr >> 5;
-  const int LC = nthr * K;               // band lanes of a CTA
   const int cs = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / cs;
-  const int lb = tid * K;                // first lane within the CTA
-  const int base = rank * LC + lb;       // first lane in the band
-  const int WIN = LC + SLACK + 4;        // columns of a staged window
-  const int bh = w / 2;
-  const int len = lengths[b];
-  const int8_t* row = rows + (size_t)b * C;
-  const int8_t* seq = seqs + (size_t)b * L;
-  const int* way = ways + (size_t)b * L;
-  int* pl = planes + (size_t)b * NP * cps;   // column y at y + 4
-  int* g1p = pl + 5 * (size_t)cps;           // g[y+1] at y + 4
-
-  // dynamic shared memory: hand-off slots, band double buffer, the
-  // strip, staged cost planes, staged ways and bases, the step table
-  unsigned long long* hand = (unsigned long long*)smem_raw;  // [nw][TMAX]
-  int* s_band = (int*)(hand + (size_t)nwarps * TMAX);        // [2][LC]
-  int2* s_strip = (int2*)(s_band + 2 * LC);                  // [2][SPAN]
-  int* s_pl = (int*)(s_strip + 2 * SPAN);                    // [2][6][WIN]
-  int* s_way = s_pl + 2 * NP * WIN;                          // [2][TMAX+4]
-  int* s_seq = s_way + 2 * (TMAX + 4);             // [2][TMAX + 16] bytes
-  int2* s_tab = (int2*)(s_seq + 2 * (TMAX / 4 + 4));         // [TMAX]
-
-  // ---- phase 0: the cost planes of the row (cluster-wide, each CTA a
-  // contiguous slice of columns): subg_s = sub_s - gapcost, ins, and
-  // g[y+1], the prefix of gapcost (each CTA scans its slice, then adds
-  // the totals of the CTAs below)
-  for (int i = tid; i < nwarps * TMAX; i += nthr) hand[i] = ~0ull;
-  if (tid < nwarps) s_prog[tid] = -1;
-  for (int i = tid; i < 2 * SPAN; i += nthr) s_strip[i] = make_int2(-1, 0);
+  int* g1p = pl + 5 * (size_t)cps;
   const int slice = ((cps + cs - 1) / cs + 3) & ~3;
   const int s_lo = min(rank * slice, cps);
   const int s_hi = min(s_lo + slice, cps);
@@ -294,18 +261,73 @@ __global__ void __launch_bounds__(MAXT) exact_fill_kernel(
       carry = tot;
       __syncthreads();
     }
-    if (tid == 0) s_total = carry;
+    if (tid == 0) *s_total = carry;
   }
   cluster.sync();                        // the slices' totals, the flags
   {
     int off = 0;
     for (int r = 0; r < rank; ++r)
-      off = wadd(off, *cluster.map_shared_rank(&s_total, r));
+      off = wadd(off, *cluster.map_shared_rank(s_total, r));
     if (off != 0)
       for (int idx = s_lo + tid; idx < s_hi; idx += nthr)
         g1p[idx] = wadd(g1p[idx], off);
   }
   cluster.sync();                        // every plane is complete
+}
+
+template <int MAXT>
+__global__ void __launch_bounds__(MAXT) exact_fill_kernel(
+    const int* __restrict__ counts,      // [C, 6]
+    const int8_t* __restrict__ rows,     // [B, C]
+    const int8_t* __restrict__ seqs,     // [B, L]
+    const int* __restrict__ ways,        // [B, L]
+    const int* __restrict__ lengths,     // [B]
+    int* __restrict__ planes,            // [B, 6, cps] scratch
+    unsigned* __restrict__ codes,        // [ceil(L/16), B, W]
+    int* __restrict__ band_out,          // [B, W]
+    int* __restrict__ anf_out,           // [B]
+    int B, int C, int L, int ncols, int w, int cps) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_wt[MAX_THREADS / 32];
+  __shared__ int s_total;                // this CTA's slice of gap costs
+  __shared__ int s_prog[MAX_THREADS / 32];   // a warp's last band written
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int lane_id = tid & 31;
+  const int warp = tid >> 5;
+  const int nthr = blockDim.x;
+  const int nwarps = nthr >> 5;
+  const int LC = nthr * K;               // band lanes of a CTA
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / cs;
+  const int lb = tid * K;                // first lane within the CTA
+  const int base = rank * LC + lb;       // first lane in the band
+  const int WIN = LC + SLACK + 4;        // columns of a staged window
+  const int bh = w / 2;
+  const int len = lengths[b];
+  const int8_t* row = rows + (size_t)b * C;
+  const int8_t* seq = seqs + (size_t)b * L;
+  const int* way = ways + (size_t)b * L;
+  int* pl = planes + (size_t)b * NP * cps;   // column y at y + 4
+  int* g1p = pl + 5 * (size_t)cps;           // g[y+1] at y + 4
+
+  // dynamic shared memory: hand-off slots, band double buffer, the
+  // strip, staged cost planes, staged ways and bases, the step table
+  unsigned long long* hand = (unsigned long long*)smem_raw;  // [nw][TMAX]
+  int* s_band = (int*)(hand + (size_t)nwarps * TMAX);        // [2][LC]
+  int2* s_strip = (int2*)(s_band + 2 * LC);                  // [2][SPAN]
+  int* s_pl = (int*)(s_strip + 2 * SPAN);                    // [2][6][WIN]
+  int* s_way = s_pl + 2 * NP * WIN;                          // [2][TMAX+4]
+  int* s_seq = s_way + 2 * (TMAX + 4);             // [2][TMAX + 16] bytes
+  int2* s_tab = (int2*)(s_seq + 2 * (TMAX / 4 + 4));         // [TMAX]
+
+  // ---- phase 0: the flags, then the cost planes of the row
+  for (int i = tid; i < nwarps * TMAX; i += nthr) hand[i] = ~0ull;
+  if (tid < nwarps) s_prog[tid] = -1;
+  for (int i = tid; i < 2 * SPAN; i += nthr) s_strip[i] = make_int2(-1, 0);
+  row_planes(counts, row, pl, C, cps, s_wt, &s_total, cluster);
   // g[v] of the row (the generic path's rules and the final band)
   auto gval = [&](int v) -> int {
     return g1p[min(max(v, 0), cps - 4) + 3];
@@ -655,6 +677,222 @@ __global__ void __launch_bounds__(MAXT) exact_fill_kernel(
   cluster.sync();
 }
 
+// ---- the wide layout: bands past the clustered layout's 16,384 lanes
+//
+// Sized by device memory alone. A row is a cluster of WCS CTAs of
+// MAX_THREADS threads; a CTA holds `groups` groups of WG lanes, four
+// lanes a thread, neighbouring threads on neighbouring lanes, so the
+// band's lanes run CTA by CTA, group by group, thread by thread. The
+// reduced band of x-1 and of x lives in a [B, 2, W] scratch in device
+// memory, read and written through L2 (other SMs of the cluster wrote
+// it), so no band is too wide for shared memory. Every step takes the
+// plain version's rules in full, as the clustered layout's chunk-first
+// step does (any shift, the jump rule's base, the edges' masks, the flat
+// rule), in two passes over the thread's groups: the first takes each
+// warp's min of its candidates into a table (groups x warps), which one
+// warp scans into exclusive prefixes and the CTA's min; after a cluster
+// barrier each thread adds the CTAs below (distributed shared memory),
+// and the second pass recomputes the candidates, writes the band of x
+// and ORs each lane's code into its word in place. A second cluster
+// barrier makes the band of x visible to the next step. Slow beside the
+// clustered layout (two cluster barriers and device-memory reads a
+// step), and only for bands that layout cannot hold.
+constexpr int WCS = 8;                 // CTAs a row
+constexpr int WG = MAX_THREADS * 4;    // lanes a group
+
+__global__ void __launch_bounds__(MAX_THREADS) exact_fill_wide_kernel(
+    const int* __restrict__ counts,      // [C, 6]
+    const int8_t* __restrict__ rows,     // [B, C]
+    const int8_t* __restrict__ seqs,     // [B, L]
+    const int* __restrict__ ways,        // [B, L]
+    const int* __restrict__ lengths,     // [B]
+    int* __restrict__ planes,            // [B, 6, cps] scratch
+    int* __restrict__ wband,             // [B, 2, W] scratch
+    unsigned* __restrict__ codes,        // [ceil(L/16), B, W]
+    int* __restrict__ band_out,          // [B, W]
+    int* __restrict__ anf_out,           // [B]
+    int B, int C, int L, int ncols, int w, int cps, int groups) {
+  extern __shared__ int s_tab[];         // [groups][warps]
+  __shared__ int s_wt[MAX_THREADS / 32];
+  __shared__ int s_total;
+  __shared__ int s_cta;                  // this CTA's min at x
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x;
+  const int lane_id = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = MAX_THREADS / 32;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / WCS;
+  const int lanes_cta = groups * WG;
+  const int bh = w / 2;
+  const int len = lengths[b];
+  const int8_t* seq = seqs + (size_t)b * L;
+  const int* way = ways + (size_t)b * L;
+  int* pl = planes + (size_t)b * NP * cps;
+  const int* g1p = pl + 5 * (size_t)cps;
+  int* bnd = wband + (size_t)b * 2 * w;
+  row_planes(counts, rows + (size_t)b * C, pl, C, cps, s_wt, &s_total,
+             cluster);
+  // the planes and the band are read through L2: other CTAs wrote them
+  auto gval = [&](int v) -> int {
+    return __ldcg(g1p + min(max(v, 0), cps - 4) + 3);
+  };
+  auto plane = [&](int p, int y) -> int {
+    return __ldcg(pl + (size_t)p * cps + y + 4);
+  };
+  const int a_f = len >= 1 ? max(0, way[min(len, L) - 1] - bh) : 0;
+  // the band before x = 0 (slot 1), which a row of length 0 keeps: M = 0
+  // at columns 0..W-1, reduced
+  for (int g = 0; g < groups; ++g)
+    for (int k = 0; k < 4; ++k) {
+      const int i = rank * lanes_cta + g * WG + 4 * tid + k;
+      if (i < w) __stcg(bnd + w + i, wsub(0, gval(i + 1)));
+    }
+
+#pragma unroll 1
+  for (int x = 0; x < L; ++x) {
+    const int ax = max(0, way[x] - bh);
+    const int s = seq[x] & 3;
+    const bool active = x < len;
+    const bool is_last = x == len - 1;
+    const int* prev = bnd + ((x - 1) & 1) * w;   // the band of x-1
+    int* cur = bnd + (x & 1) * w;
+    int d = 0, ap = 0, top = 0;
+    if (x > 0) {
+      const int am = max(0, way[x - 1] - bh);
+      ap = len == 0 ? 0 : x <= len ? am : a_f;
+      d = ax - ap;
+      const int gta = x % PLAIN_CHUNK == 0 ? ap : am;
+      const int adj = d >= 1 && gta != ap
+                          ? wsub(gval(ap + w), gval(gta + w)) : 0;
+      top = wadd(__ldcg(prev + w - 1), adj);
+    }
+    // lane i's candidate (reduced) and its diagonal
+    auto cand = [&](int i, int& dr) -> int {
+      const int y = ax + i;
+      const int gy0 = gval(y), gy1 = gval(y + 1);
+      int u, dg;
+      if (x == 0) {
+        // MatrixOut(-1, .) = 0
+        u = wsub(0, gy1);
+        dg = wsub(0, gy0);
+      } else {
+        const int ju = i + d, jd = i + d - 1;
+        if (ju >= w) u = top;
+        else if (ju >= 0)
+          u = d >= 0 ? __ldcg(prev + ju)
+                     : wsub(wadd(__ldcg(prev + i), gval(ap + i + 1)), gy1);
+        else u = wsub(BIG, gy1);
+        if (jd >= w) dg = top;
+        else if (jd >= 0)
+          dg = d >= 0 ? __ldcg(prev + jd)
+                      : wsub(wadd(__ldcg(prev + i - 1), gval(ap + i)), gy0);
+        else dg = wsub(BIG, gy0);
+      }
+      dr = wadd(dg, plane(s, y));
+      const int bigr = wsub(BIG, gy1);
+      const bool ok = y > 0 && y < ncols - 1;
+      const int av = min(dr, ok ? wadd(u, plane(4, y)) : bigr);
+      return y < ncols ? av : bigr;
+    };
+
+    // pass 1: each warp's min of its group's candidates
+    for (int g = 0; g < groups; ++g) {
+      const int i0 = rank * lanes_cta + g * WG + 4 * tid;
+      int run = NEUTRAL;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int dr;
+        if (i0 + k < w) run = min(run, cand(i0 + k, dr));
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        run = min(run, __shfl_xor_sync(FULL, run, o));
+      if (lane_id == 0) s_tab[g * nwarps + warp] = run;
+    }
+    __syncthreads();
+    // the table's exclusive prefixes in lane order, in place, and the
+    // CTA's min
+    if (warp == 0) {
+      int carry = NEUTRAL;
+      for (int e0 = 0; e0 < groups * nwarps; e0 += 32) {
+        const int e = e0 + lane_id;
+        const bool in = e < groups * nwarps;
+        int xs = in ? s_tab[e] : NEUTRAL;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int u = __shfl_up_sync(FULL, xs, o);
+          if (lane_id >= o) xs = min(xs, u);
+        }
+        const int ex = __shfl_up_sync(FULL, xs, 1);
+        if (in) s_tab[e] = lane_id == 0 ? carry : min(carry, ex);
+        carry = min(carry, __shfl_sync(FULL, xs, 31));
+      }
+      if (lane_id == 0) s_cta = carry;
+    }
+    cluster.sync();                      // every CTA's min at x
+    int pre_c = NEUTRAL;                 // the lanes of the CTAs below
+    for (int r = 0; r < rank; ++r)
+      pre_c = min(pre_c, *cluster.map_shared_rank(&s_cta, r));
+
+    // pass 2: the band of x and the codes
+    unsigned* word = codes + ((size_t)(x >> 4) * B + b) * w;
+    const int sh = 2 * (x & 15);
+    for (int g = 0; g < groups; ++g) {
+      const int i0 = rank * lanes_cta + g * WG + 4 * tid;
+      int dr[4], loc[4];
+      int run = NEUTRAL;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dr[k] = 0;
+        if (i0 + k < w) run = min(run, cand(i0 + k, dr[k]));
+        loc[k] = run;
+      }
+      int xs = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(FULL, xs, o);
+        if (lane_id >= o) xs = min(xs, u);
+      }
+      const int ex = __shfl_up_sync(FULL, xs, 1);
+      int pre = min(pre_c, s_tab[g * nwarps + warp]);
+      if (lane_id > 0) pre = min(pre, ex);
+      // lane 0: BIG below it, reduced
+      int left = i0 == 0 ? wsub(BIG, gval(ax)) : pre;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int i = i0 + k;
+        if (i < w) {
+          const int rn = min(pre, loc[k]);
+          // gap: M[i] == M[i-1] + gap; at the last position also the
+          // flat rule M[i] == M[i-1]
+          bool gap_hit = rn == left;
+          if (is_last)
+            gap_hit = gap_hit
+                      || wadd(rn, wsub(gval(ax + i + 1), gval(ax + i)))
+                             == left;
+          const unsigned code = gap_hit ? 0u : rn == dr[k] ? 1u : 2u;
+          left = rn;
+          __stcg(cur + i, active ? rn : __ldcg(prev + i));
+          word[i] = sh == 0 ? code : word[i] | (code << sh);
+        }
+      }
+    }
+    cluster.sync();                      // the band of x is complete
+  }
+  // the final band (frozen past the row's end)
+  const int* fin = bnd + ((L - 1) & 1) * w;
+  for (int g = 0; g < groups; ++g)
+    for (int k = 0; k < 4; ++k) {
+      const int i = rank * lanes_cta + g * WG + 4 * tid + k;
+      if (i < w)
+        band_out[(size_t)b * w + i] = wadd(__ldcg(fin + i),
+                                           gval(a_f + i + 1));
+    }
+  if (rank == 0 && tid == 0) anf_out[b] = a_f;
+}
+
 }  // namespace
 
 // Shared memory of a launch: the caller gives threads a CTA and CTAs a
@@ -669,28 +907,14 @@ static size_t fill_smem(int threads) {
          + (size_t)2 * (TMAX / 4 + 4) * 4 + (size_t)TMAX * 8;
 }
 
-extern "C" int exact_fill_launch(
-    const void* counts, const void* rows, const void* seqs, const void* ways,
-    const void* lengths, void* planes, void* codes, void* band_out,
-    void* anf_out, int B, int C, int L, int ncols, int w, int cs,
-    int threads, int cps, void* stream) {
-  if (B <= 0) return 0;
-  if (L <= 0 || C <= 0 || w <= 0 || threads <= 0 || threads % 32
-      || threads > MAX_THREADS || !(cs == 1 || cs == 2 || cs == 4 || cs == 8)
-      || cs * threads * K < w || (cs - 1) * threads * K >= w
-      || cps % 4 || cps < C + cs * threads * K + SLACK + 16)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = fill_smem(threads);
-  // up to 256 threads a CTA a thread may hold 255 registers
-  void (*kern)(const int*, const int8_t*, const int8_t*, const int*,
-               const int*, int*, unsigned*, int*, int*, int, int, int, int,
-               int, int) =
-      threads <= 256 ? exact_fill_kernel<256> : exact_fill_kernel<512>;
+static cudaError_t launch_cluster(const void* kern, int grid, int threads,
+                                  size_t smem, int cs, void* stream,
+                                  void** args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * cs, 1, 1);
+  cfg.gridDim = dim3(grid, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -701,11 +925,50 @@ extern "C" int exact_fill_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, kern, (const int*)counts, (const int8_t*)rows,
-      (const int8_t*)seqs, (const int*)ways, (const int*)lengths,
-      (int*)planes, (unsigned*)codes, (int*)band_out, (int*)anf_out, B, C,
-      L, ncols, w, cps);
+  return cudaLaunchKernelExC(&cfg, kern, args);
+}
+
+// groups 0: the clustered layout (cs and threads as fill_geometry gives
+// them); groups > 0: the wide layout, WCS CTAs of MAX_THREADS threads a
+// row, each `groups` groups of WG lanes, with the [B, 2, W] scratch wband
+extern "C" int exact_fill_launch(
+    const void* counts, const void* rows, const void* seqs, const void* ways,
+    const void* lengths, void* planes, void* codes, void* band_out,
+    void* anf_out, int B, int C, int L, int ncols, int w, int cs,
+    int threads, int cps, void* wband, int groups, void* stream) {
+  if (B <= 0) return 0;
+  if (L <= 0 || C <= 0 || w <= 0 || cps % 4 || groups < 0)
+    return (int)cudaErrorInvalidValue;
+  void* args[] = {(void*)&counts, (void*)&rows, (void*)&seqs, (void*)&ways,
+                  (void*)&lengths, (void*)&planes, (void*)&codes,
+                  (void*)&band_out, (void*)&anf_out, (void*)&B, (void*)&C,
+                  (void*)&L, (void*)&ncols, (void*)&w, (void*)&cps,
+                  (void*)&groups};
+  cudaError_t err;
+  if (groups > 0) {
+    const long long lc = (long long)groups * WG;
+    if (cs != WCS || threads != MAX_THREADS || WCS * lc < w
+        || (long long)cps < C + WCS * lc + SLACK + 16 || wband == nullptr)
+      return (int)cudaErrorInvalidValue;
+    void* wargs[] = {args[0], args[1], args[2], args[3], args[4], args[5],
+                     (void*)&wband, args[6], args[7], args[8], args[9],
+                     args[10], args[11], args[12], args[13], args[14],
+                     args[15]};
+    err = launch_cluster((const void*)exact_fill_wide_kernel, B * WCS,
+                         MAX_THREADS, (size_t)groups * (MAX_THREADS / 32) * 4,
+                         WCS, stream, wargs);
+  } else {
+    if (threads <= 0 || threads % 32 || threads > MAX_THREADS
+        || !(cs == 1 || cs == 2 || cs == 4 || cs == 8)
+        || cs * threads * K < w || (cs - 1) * threads * K >= w
+        || cps < C + cs * threads * K + SLACK + 16)
+      return (int)cudaErrorInvalidValue;
+    // up to 256 threads a CTA a thread may hold 255 registers
+    const void* kern = threads <= 256 ? (const void*)exact_fill_kernel<256>
+                                      : (const void*)exact_fill_kernel<512>;
+    err = launch_cluster(kern, B * cs, threads, fill_smem(threads), cs,
+                         stream, args);
+  }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -9,23 +9,28 @@ Counterpart of repeatresolver_tpu/models/realigner.py:
     inserts of a sweep spliced at its end; block_rows=1 is the
     reference's serial Gauss-Seidel sweep. Its block DP runs on one of
     three routes: kernel="native", the exact band through the native
-    C++ block DP (utils/native.realign_block; the anneal's tail and the
-    resident engine's exact blocks); kernel="torch", the plain torch
+    C++ block DP (utils/native.realign_block; the anneal's tail on the
+    CPU and at block 1, and the exact blocks of a resident engine on the
+    CPU); kernel="torch", the plain torch
     versions (ops/banded_realign, ops/staircase_realign) on `device`;
     kernel="cuda", the staircase fill and the walk through their
     wrappers (kernels A and B on a CUDA device). Whatever the kernel, a
     block through the exact band on a CUDA device runs kernels F and G
-    (ops/cuda_exact; an engine on a CUDA device raises at a band past
-    F's MAX_W lanes), on the CPU the torch exact band. With a mesh
-    (parallel/sharded.Mesh) each block's rows are sharded over the
-    ranks of a process group.
+    (ops/cuda_exact; at any band whose rows' codes fit the device memory
+    budget: an engine on a CUDA device raises when one row's do not), on
+    the CPU the torch exact band. mode="exact" with kernel="cuda" is the
+    anneal's tail on the card (`tail_kernel`): every block through F and
+    G in row groups within the budget, never halved, so its trajectory
+    is the native engine's. With a mesh (parallel/sharded.Mesh) each
+    block's rows are sharded over the ranks of a process group.
   * `realign_batched`, the main loop: best tracking, the anneal,
     checkpoints and resume.
 
 The staircase band equals the exact band for any covering slack, and at
 a fixed block size the Jacobi trajectory does not depend on the kernel,
 so the engines are interchangeable mid-run (the anneal hands the
-resident engine's MSA to the host native one).
+resident engine's MSA to the tail's engine: F and G on the card, the
+host native engine at block 1 and on the CPU).
 
 The dense-array bookkeeping and the serial engine are copied from the
 JAX package's module, same arithmetic.
@@ -42,6 +47,7 @@ import torch
 
 from ..config import RealignerConfig
 from ..device import resolve_device
+from ..ops import _build
 from ..ops import banded_realign as br
 from ..ops import cuda_backtrack as cb
 from ..ops import cuda_exact as ce
@@ -62,6 +68,8 @@ HUGE = np.int64(1) << 40
 # that crosses it flushes mid-sweep, which changes the block>1 Jacobi
 # trajectory (same value as the JAX package, so trajectories match)
 FLUSH_CAP = 16384
+# kernels F and G, whose launch events the card tail's split reads
+_FG = ("exact_fill", "exact_walk")
 
 
 # ---- copied from repeatresolver_tpu/models/realigner.py: the host
@@ -394,6 +402,25 @@ def validate_counts(msa: np.ndarray, counts: np.ndarray) -> None:
             f"count invariant violated at columns {bad[:10].tolist()}")
 
 
+def tail_kernel(block_rows: int, device) -> str:
+    """The engine kernel of the anneal's tail, below the resident
+    engine's smallest block: "cuda" on a CUDA device at block 2 and up
+    (the non-resident exact engine, every block through kernels F and
+    G), "native" at block 1 (the reference's serial sweep on the host)
+    and on the CPU. Both give the native engine's trajectory."""
+    return "cuda" if block_rows >= 2 and torch.device(device).type \
+        == "cuda" else "native"
+
+
+def row_lengths(msa: np.ndarray) -> np.ndarray:
+    """int32 [R]: the bases of each row (realignment-invariant), chunked
+    over rows as symbol_counts is."""
+    step = max(1, (1 << 24) // max(msa.shape[1], 1))
+    return np.concatenate([(msa[k0:k0 + step] < 4).sum(axis=1)
+                           for k0 in range(0, msa.shape[0], step)]
+                          ).astype(np.int32)
+
+
 def _native():
     """The native host library; the port has no other exact engine."""
     nat.get_lib()           # builds at first use; raises if it cannot
@@ -487,8 +514,8 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
     lockstep backtrack. Otherwise the exact band, chosen by the tensors'
     device whatever the kernel: on CUDA tensors kernels F and G
     (ops/cuda_exact: the fill, then the entry scan and the walk over its
-    packed codes, insert lists as wide as the walk needs; a band past
-    F's `cuda_exact.MAX_W` lanes raises ValueError), on CPU
+    packed codes, insert lists as wide as the walk needs; a ValueError
+    when one row's codes pass `device_memory_budget`), on CPU
     tensors the torch exact band (ops/banded_realign, MAX_INSERTS
     inserts a row; `banded_fill.calls` counts its runs)."""
     cpad = rows_old.shape[1]
@@ -507,7 +534,8 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
             bandwidth=bandwidth, chunk=chunk, widen=widen)
         codes = sr.unpack_codes(codes, seqs.shape[1])
     elif rows_old.device.type == "cuda":
-        ce.require_band(bandwidth)
+        ce.rows_within(device_memory_budget(rows_old.device),
+                       seqs.shape[1], bandwidth)
         codes, fband, fanf = ce.exact_fill(
             counts, rows_old, seqs, ways, lengths, ncols,
             bandwidth=bandwidth)
@@ -521,6 +549,33 @@ def block_dp(counts, rows_old, seqs, ways, lengths, anf_full, entry_bound,
     return br.entry_and_backtrack(
         codes, fband, fanf, seqs, anf_full, entry_bound, lengths, ncols,
         cpad=cpad, bandwidth=w_codes)
+
+
+def exact_block_dp(counts, rows_old, seqs, ways, lengths, anf_full,
+                   entry_bound, ncols: int, *, bandwidth: int,
+                   budget: int):
+    """block_dp's exact band in row groups whose kernel-F codes fit
+    `budget` bytes (cuda_exact.rows_within; it raises when one row does
+    not fit). The rows of a Jacobi block are independent given its
+    histogram, so the groups give the block's result: no block is
+    halved, and the trajectory stays the native engine's. Returns
+    block_dp's tuple, the insert lists as wide as the widest group's."""
+    b = rows_old.shape[0]
+    per = min(b, ce.rows_within(budget, seqs.shape[1], bandwidth))
+    outs = [block_dp(counts, rows_old[g:g + per], seqs[g:g + per],
+                     ways[g:g + per], lengths[g:g + per],
+                     anf_full[g:g + per], entry_bound[g:g + per], ncols,
+                     bandwidth=bandwidth, chunk=0, widen=1,
+                     staircase=False, kernel="cuda")
+            for g in range(0, b, per)]
+    if len(outs) == 1:
+        return outs[0]
+    k = max(o[2].shape[1] for o in outs)
+    pad = [tuple(torch.nn.functional.pad(o[i], (0, k - o[i].shape[1]))
+                 for i in (2, 3)) for o in outs]
+    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]),
+            torch.cat([p[0] for p in pad]), torch.cat([p[1] for p in pad]),
+            torch.cat([o[4] for o in outs]))
 
 
 def band_starts(ways: np.ndarray, lengths: np.ndarray, bandwidth: int,
@@ -573,11 +628,23 @@ class BatchedRealigner:
     # shared with the resident engine's per-block ladder
     WIDEN_LADDER = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)
     # sweeps of this engine in this process (not the resident
-    # subclass's: for it these are the anneal's tail on the host) and
-    # their seconds, for reports
-    host_sweeps = 0
-    host_sweep_s = 0.0
-    host_sweep_s_by_bs: dict = {}     # the same seconds by block size
+    # subclass's: for it these are the anneal's tail) and their seconds,
+    # for reports, by route (the kernel: "cuda", "native", "torch") and
+    # block size, {route: {block_rows: n or seconds}}; sweep_totals()
+    # sums them
+    host_sweeps_by_route: dict = {}
+    host_sweep_s_by_route: dict = {}
+    # the blocks of the tail on the card (mode "exact", kernel "cuda":
+    # kernels F and G) and their seconds, split into host work a block
+    # (the rows' gather, compact_rows, padding, band starts,
+    # _apply_block), transfers (uploads and downloads), the device (to
+    # its sync after the block's last kernel; of it inside F and G from
+    # their CUDA events, when ops/_build.kernel_events times launches)
+    # and flushes (splices and empty-column drops between and after the
+    # blocks)
+    CARD_SPLIT = ("blocks", "s", "host_s", "transfer_s", "device_s",
+                  "kernel_s", "flush_s")
+    card_tail_split = dict.fromkeys(CARD_SPLIT, 0)
 
     def __init__(self, msa: np.ndarray, bandwidth: int = 1000,
                  block_rows: int = 8, mode: str = "exact",
@@ -609,15 +676,20 @@ class BatchedRealigner:
             self.device = device
         else:
             self.device = resolve_device(device)
-        if isinstance(self.device, torch.device) \
-                and self.device.type == "cuda":
-            ce.require_band(bandwidth)
         self._pending: list | None = None   # sweep-deferred inserts
         # RR_FLUSH_CAP (the JAX package's knob) raises the cap, so that
         # two engines compared at one block size both flush once a sweep
         self._flush_cap = int(os.environ.get("RR_FLUSH_CAP", FLUSH_CAP))
         self._budget = None                 # bytes, read at first use
         self._len_order = None
+        if isinstance(self.device, torch.device) \
+                and self.device.type == "cuda":
+            # every exact-band block there runs on kernels F and G, the
+            # longest row at its length bucket: refuse a band whose one
+            # row's codes do not fit the memory budget
+            ce.rows_within(self._memory_budget(),
+                           _bucket(max(1, int(row_lengths(self.msa).max()))),
+                           bandwidth)
 
     def ent_al_gapper(self):
         eng = RealignEngine.__new__(RealignEngine)
@@ -658,16 +730,32 @@ class BatchedRealigner:
     def widen_state(self):
         return None
 
+    def _card_tail(self) -> bool:
+        """The anneal's tail on the card: the exact band through kernels
+        F and G, in row groups, never a halved block."""
+        return self.mode == "exact" and self.kernel == "cuda" \
+            and self.mesh is None
+
+    def _kernel_at(self, block_rows: int) -> str:
+        # the tail on the card hands block 1 to the host's serial sweep
+        return tail_kernel(block_rows, "cuda") if self._card_tail() \
+            else self.kernel
+
     def respawn(self, msa: np.ndarray, block_rows: int):
-        """A fresh engine of the same kind over `msa` (anneal restart)."""
+        """A fresh engine of the same kind over `msa` (anneal restart);
+        the tail on the card takes the host native engine at block 1."""
         return BatchedRealigner(msa, bandwidth=self.bandwidth,
                                 block_rows=block_rows, mode=self.mode,
-                                chunk=self.chunk, kernel=self.kernel,
+                                chunk=self.chunk,
+                                kernel=self._kernel_at(block_rows),
                                 mesh=self.mesh, device=self.device)
 
     def shrink(self, block_rows: int):
         """Adopt a smaller Jacobi block size (the anneal's non-restore
-        branch); engines may return a replacement."""
+        branch); engines may return a replacement (the tail on the card
+        at block 1: the host native engine over the same MSA)."""
+        if self._kernel_at(block_rows) != self.kernel:
+            return self.respawn(self.msa, block_rows)
         self.block_rows = block_rows
         return self
 
@@ -675,10 +763,19 @@ class BatchedRealigner:
         t0 = time.perf_counter()
         self._sweep()
         dt = time.perf_counter() - t0
-        BatchedRealigner.host_sweeps += 1
-        BatchedRealigner.host_sweep_s += dt
-        by_bs = BatchedRealigner.host_sweep_s_by_bs
-        by_bs[self.block_rows] = by_bs.get(self.block_rows, 0.0) + dt
+        cls = BatchedRealigner
+        for table, v in ((cls.host_sweeps_by_route, 1),
+                         (cls.host_sweep_s_by_route, dt)):
+            by_bs = table.setdefault(self.kernel, {})
+            by_bs[self.block_rows] = by_bs.get(self.block_rows, 0) + v
+
+    @classmethod
+    def sweep_totals(cls) -> tuple[int, float]:
+        """(sweeps, seconds) of this engine in this process, over every
+        route and block size."""
+        return tuple(sum(sum(by.values()) for by in table.values())
+                     for table in (cls.host_sweeps_by_route,
+                                   cls.host_sweep_s_by_route))
 
     def _sweep(self) -> None:
         r = self.msa.shape[0]
@@ -695,22 +792,31 @@ class BatchedRealigner:
         self._pending = [] if defer else None
         order = np.arange(r)
         if defer:
-            self._drop_empty(min_frac=0.02)
+            self._flush_timed(self._drop_empty, 0.02)
             if self._len_order is None:
                 # row base counts are realignment-invariant: sort once,
                 # so blocks are length-homogeneous (same rows per sweep)
-                lengths_all = (self.msa < 4).sum(axis=1)
-                self._len_order = np.argsort(-lengths_all, kind="stable")
+                self._len_order = np.argsort(-row_lengths(self.msa),
+                                             kind="stable")
             order = self._len_order
         for k0 in range(0, r, bs):
             if not defer:
                 self._drop_empty(min_frac=0.0)
             self._realign_block([int(k) for k in order[k0:k0 + bs]])
             if defer and len(self._pending) >= self._flush_cap:
-                self._flush_pending()
+                self._flush_timed(self._flush_pending)
         if defer:
-            self._flush_pending()
+            self._flush_timed(self._flush_pending)
             self._pending = None
+
+    def _flush_timed(self, flush, *args) -> None:
+        """A splice or an empty-column drop between blocks, its seconds
+        in the card tail's split."""
+        tf = time.perf_counter()
+        flush(*args)
+        if self._card_tail():
+            BatchedRealigner.card_tail_split["flush_s"] += \
+                time.perf_counter() - tf
 
     def _flush_pending(self) -> None:
         pend = self._pending
@@ -811,6 +917,7 @@ class BatchedRealigner:
         self.counts = np.ascontiguousarray(cphys[l2p])
 
     def _realign_block(self, rows: list[int]) -> None:
+        t0 = time.perf_counter()
         c = self.msa.shape[1]
         bs = len(rows)
         rows_old = self.msa[rows]                     # [B, C] snapshot
@@ -845,7 +952,9 @@ class BatchedRealigner:
                 use_stair = False
                 widen = 1
 
-        if (self.kernel != "native" or self.mesh is not None) and bs > 8:
+        card_tail = self._card_tail()
+        if (self.kernel != "native" or self.mesh is not None) and bs > 8 \
+                and not card_tail:
             # bound the device memory by the codes' footprint: the
             # kernels emit 2-bit packed codes (lpad*bs*w2/4 bytes; factor
             # 1/2 with headroom), the torch fills unpacked codes plus
@@ -874,16 +983,41 @@ class BatchedRealigner:
         anf_full, entry_bound = band_starts(ways, lengths, self.bandwidth,
                                             self.chunk, use_stair)
         dev = self.device
-        new_rows, _best, iy, ib, inn = block_dp(
-            *(torch.from_numpy(a).to(dev) for a in (
-                counts_p, rows_p, seqs, ways, lengths, anf_full,
-                entry_bound)), c, bandwidth=self.bandwidth,
-            chunk=self.chunk, widen=widen, staircase=use_stair,
-            kernel=self.kernel)
-        inn = inn.cpu().numpy()
+        t1 = time.perf_counter()
+        args = [torch.from_numpy(a).to(dev) for a in (
+            counts_p, rows_p, seqs, ways, lengths, anf_full, entry_bound)]
+        t2 = time.perf_counter()
+        events = _build.kernel_events
+        marks = {k: len(events.get(k, ())) for k in _FG} if card_tail \
+            and events is not None else None
+        if card_tail:
+            # the histogram is the block's snapshot for every row group
+            out = exact_block_dp(*args, c, bandwidth=self.bandwidth,
+                                 budget=self._memory_budget())
+        else:
+            out = block_dp(*args, c, bandwidth=self.bandwidth,
+                           chunk=self.chunk, widen=widen,
+                           staircase=use_stair, kernel=self.kernel)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        new_rows, iy, ib, inn = (t.cpu().numpy() for t in (
+            out[0][:, :c], out[2], out[3], out[4]))
+        t4 = time.perf_counter()
         _check_inserts(inn, iy.shape[1])
-        self._apply_block(rows, new_rows[:, :c].cpu().numpy(),
-                          iy.cpu().numpy(), ib.cpu().numpy(), inn)
+        self._apply_block(rows, new_rows, iy, ib, inn)
+        if card_tail:
+            t5 = time.perf_counter()
+            split = BatchedRealigner.card_tail_split
+            split["blocks"] += 1
+            split["s"] += t5 - t0
+            split["host_s"] += (t1 - t0) + (t5 - t4)
+            split["transfer_s"] += (t2 - t1) + (t4 - t3)
+            split["device_s"] += t3 - t2
+            if marks is not None:
+                split["kernel_s"] += sum(
+                    a.elapsed_time(b) for k in _FG
+                    for a, b in events.get(k, [])[marks[k]:]) / 1e3
 
     def _memory_budget(self) -> int:
         """The block's memory budget in bytes, read once."""
@@ -1034,9 +1168,11 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     versions; RR_RESIDENT=0 keeps the MSA on the host instead
     (`BatchedRealigner`). Under "auto", block 1 runs on the host native
     engine, and kernel="auto" hands a run resumed inside the anneal's
-    tail (a block size below RESIDENT_MIN_BS) to it too, as the
-    resident engine's own shrink() does; kernel="cuda" keeps such a run
-    on the resident engine (the JAX package's explicit "pallas").
+    tail (a block size below RESIDENT_MIN_BS) to the tail's engine
+    (`tail_kernel`: kernels F and G on a CUDA device, the host native
+    engine at block 1 and on the CPU), as the resident engine's own
+    shrink() does; kernel="cuda" keeps such a run on the resident engine
+    (the JAX package's explicit "pallas").
 
     mesh: a parallel/sharded.Mesh. Each block's rows are sharded over
     its ranks, the histogram delta summed over them, on the
@@ -1081,8 +1217,10 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     if (auto and bs == 1) or (
             kernel == "auto" and ck_bs
             and ck_bs < DeviceResidentRealigner.RESIDENT_MIN_BS):
-        # the anneal's tail (1 = the reference's serial Gauss-Seidel)
-        mode, kernel = "exact", "native"
+        # the anneal's tail (1 = the reference's serial Gauss-Seidel):
+        # kernels F and G on a CUDA device, the host native engine at
+        # block 1 and on the CPU
+        mode, kernel = "exact", tail_kernel(bs, device)
     if mode == "auto":
         mode = "exact" if kernel == "native" else "staircase"
     if kernel == "auto":

@@ -53,8 +53,9 @@ from ..ops import staircase_realign as sr
 from ..utils.native import NativeBuildError
 from .realigner import (BatchedRealigner, _bucket, _check_inserts,
                         _native, band_starts, block_dp, compact_rows,
-                        device_memory_budget, overall_score_pair,
-                        realign_block_native, validate_counts)
+                        device_memory_budget, exact_block_dp,
+                        overall_score_pair, realign_block_native,
+                        row_lengths, tail_kernel, validate_counts)
 
 # insert slots fetched per row and block (a row inserts ~0-5 columns per
 # sweep; a row overflowing it reroutes its block, see _drain)
@@ -141,9 +142,11 @@ class DeviceResidentRealigner(BatchedRealigner):
     """The realign engine with the MSA resident on `device` (staircase
     band, kernels A and B; the exact band's blocks through kernels F and
     G on a CUDA device; block_rows > 1). The anneal hands block sizes
-    below RESIDENT_MIN_BS to the host native engine."""
+    below RESIDENT_MIN_BS to the tail's engine (`tail_kernel`): on a
+    CUDA device the non-resident exact engine through kernels F and G,
+    on the CPU and at block 1 the host native engine."""
 
-    # below this block size the anneal continues on the host native
+    # below this block size the anneal continues on the non-resident
     # engine (the JAX package's threshold and its variable,
     # RR_RESIDENT_MIN_BS, read at class definition: where the engine
     # switches is part of the trajectory, since the two engines splice
@@ -176,7 +179,11 @@ class DeviceResidentRealigner(BatchedRealigner):
         self.chunk = min(chunk, 128) if bandwidth >= 768 else chunk
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            ce.require_band(bandwidth)
+            # its exact blocks run on kernels F and G: refuse a band
+            # whose longest row's codes do not fit the memory budget
+            ce.rows_within(device_memory_budget(self.device),
+                           max(1, int(row_lengths(self.msa).max())),
+                           bandwidth)
         self._widen = DEFAULT_WIDEN
         # the widest ladder rung whose window fits kernel A (0: none)
         self._w_fit = max((v for v in BatchedRealigner.WIDEN_LADDER
@@ -216,7 +223,7 @@ class DeviceResidentRealigner(BatchedRealigner):
             self.counts.astype(np.int32)).to(dev)
         self._ncols = c
         self._cpad = cpad
-        self._lengths_all = (self.msa < 4).sum(axis=1).astype(np.int32)
+        self._lengths_all = row_lengths(self.msa)
         if self._len_order is None:
             self._len_order = np.argsort(-self._lengths_all, kind="stable")
         self._ord_bs = None               # block layout rebuilt lazily
@@ -321,10 +328,14 @@ class DeviceResidentRealigner(BatchedRealigner):
         return (int(self._widen_src_bs), self._block_widen.copy(),
                 tuple(sorted(self._exact_blocks)))
 
-    def _host_engine(self, msa, block_rows):
+    def _tail_engine(self, msa, block_rows):
+        """The anneal's tail below RESIDENT_MIN_BS: the non-resident
+        exact engine, whose trajectory is the native engine's, on this
+        engine's device (tail_kernel chooses its route)."""
         return BatchedRealigner(msa, bandwidth=self.bandwidth,
                                 block_rows=block_rows, mode="exact",
-                                kernel="native")
+                                kernel=tail_kernel(block_rows, self.device),
+                                device=self.device)
 
     def respawn(self, msa, block_rows):
         if block_rows >= max(2, self.RESIDENT_MIN_BS):
@@ -333,14 +344,14 @@ class DeviceResidentRealigner(BatchedRealigner):
                 chunk=self.chunk, device=self.device,
                 widen_state=self.widen_state())
         # the anneal's tail (small blocks down to the serial block 1)
-        return self._host_engine(msa, block_rows)
+        return self._tail_engine(msa, block_rows)
 
     def shrink(self, block_rows):
         if block_rows >= max(2, self.RESIDENT_MIN_BS):
             self.block_rows = block_rows
             return self
         self._sync_host()
-        return self._host_engine(self.msa, block_rows)
+        return self._tail_engine(self.msa, block_rows)
 
     # ------------------------------------------------------- the sweep
 
@@ -470,8 +481,9 @@ class DeviceResidentRealigner(BatchedRealigner):
         whose insert list overflowed, written back in place; its inserts
         join `pending`. On a CUDA device through kernels F and G on the
         resident rows and histogram (`_exact_block_device`), whatever the
-        host library's state: no host round trip and no fallback (the
-        engine takes no band past F's cuda_exact.MAX_W lanes there). On
+        host library's state: no host round trip and no fallback (in row
+        groups within the memory budget; the engine refuses a band whose
+        one row does not fit when it is made). On
         the CPU through the native host engine (the JAX package's route),
         or, when the host library cannot be built, the torch exact band
         (same math, both the reference recurrence; the first such block
@@ -502,11 +514,11 @@ class DeviceResidentRealigner(BatchedRealigner):
         seqs, ways, last_way = compact_block(
             rows_old, len_d, max(1, int(lengths.max())))
         bh = self.bandwidth // 2
-        new_rows, _best, iy, ib, inn = block_dp(
+        new_rows, _best, iy, ib, inn = exact_block_dp(
             self._counts_d, rows_old, seqs, ways, len_d,
             (ways - bh).clamp(min=0), (last_way - bh).clamp(min=-1),
-            self._ncols, bandwidth=self.bandwidth, chunk=self.chunk,
-            widen=1, staircase=False, kernel="cuda")
+            self._ncols, bandwidth=self.bandwidth,
+            budget=device_memory_budget(dev))
         apply_rows(self._msa_d, self._counts_d, rows_d, rows_old, new_rows)
         inn = inn.cpu().numpy()
         k = max(1, int(inn.max()))

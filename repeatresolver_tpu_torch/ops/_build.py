@@ -41,7 +41,7 @@ _SIGNATURES = {
     "maxcorr_tile": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
     + [ctypes.c_void_p],
     "exact_fill": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p],
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "exact_walk": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
 }

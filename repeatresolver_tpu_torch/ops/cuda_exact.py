@@ -39,18 +39,21 @@ from . import banded_realign as br
 from .cuda_backtrack import moves_to_outputs
 from .cuda_realign import _check
 
-# kernel F's layout (csrc/exact_fill.cu; the C side checks what it is
-# given): FILL_LANES band lanes a thread, at most FILL_THREADS threads a
-# CTA and a cluster of FILL_CLUSTERS CTAs a row, so a band holds at most
-# MAX_W lanes; a chunk is at most FILL_TMAX positions whose bands stay
-# within FILL_SLACK columns of its first band, the span of its staged
-# cost window
+# kernel F's layouts (csrc/exact_fill.cu; the C side checks what it is
+# given). The clustered layout: FILL_LANES band lanes a thread, at most
+# FILL_THREADS threads a CTA and a cluster of FILL_CLUSTERS CTAs a row, so
+# a band of at most MAX_W lanes; a chunk is at most FILL_TMAX positions
+# whose bands stay within FILL_SLACK columns of its first band, the span
+# of its staged cost window. The wide layout, for wider bands: a cluster
+# of WIDE_CTAS CTAs of FILL_THREADS threads, each CTA `groups` groups of
+# FILL_THREADS * FILL_LANES lanes, the band in device memory
 FILL_LANES = 4
 FILL_THREADS = 512
 FILL_CLUSTERS = (1, 2, 4, 8)
 FILL_TMAX = 128
 FILL_SLACK = 512
 MAX_W = FILL_CLUSTERS[-1] * FILL_THREADS * FILL_LANES
+WIDE_CTAS = 8
 
 
 class FillGeometry(NamedTuple):
@@ -58,19 +61,40 @@ class FillGeometry(NamedTuple):
     threads: int     # threads a CTA
     lanes_cta: int   # band lanes a CTA
     span: int        # band lanes a warp: the next CTA's strip, and the
-    #                  largest shift a step inside a chunk takes
+    #                  largest shift a step inside a chunk takes (0 in the
+    #                  wide layout, where every step takes any shift)
+    groups: int = 0  # the wide layout's lane groups a CTA (0: clustered)
 
 
-def fill_geometry(w: int, cs: int | None = None) -> FillGeometry:
-    """Kernel F's layout for band w: the fewest CTAs a row (a cluster of
-    1, 2, 4 or 8) whose 512 threads hold the band, so one CTA up to
-    2,048 lanes and eight up to MAX_W. At band 1,000 one CTA a row beat
-    two and four: the CTA border's hand-offs cost more than the SMs gain
-    (chip_smoke.py phase 9, PERF.md §6). `cs` asks for another number of
-    CTAs a row, to compare layouts; the top CTA must hold a lane."""
-    if not 0 < w <= MAX_W:
+def fill_geometry(w: int, cs: int | None = None,
+                  wide: bool | None = None) -> FillGeometry:
+    """Kernel F's layout for band w. The clustered layout (up to MAX_W
+    lanes): the fewest CTAs a row (a cluster of 1, 2, 4 or 8) whose 512
+    threads hold the band, so one CTA up to 2,048 lanes and eight up to
+    MAX_W. At band 1,000 one CTA a row beat two and four: the CTA
+    border's hand-offs cost more than the SMs gain (chip_smoke.py phase
+    9, PERF.md §6). The wide layout, which the program takes past MAX_W
+    (it takes any band): WIDE_CTAS CTAs a row, each as many groups of
+    2,048 lanes as the band needs. `cs` and `wide` are hooks for tests
+    and chip_smoke.py, which no caller in the program sets: `cs` asks for
+    another number of CTAs a row, to compare layouts (the top CTA must
+    hold a lane); `wide=True` takes the wide layout at a band the
+    clustered layout holds, to check it at small bands."""
+    if w <= 0:
         raise ValueError(f"exact_fill: unsupported band {w}")
     per_row = FILL_THREADS * FILL_LANES
+    if wide is None:
+        wide = w > MAX_W
+    if wide:
+        if cs not in (None, WIDE_CTAS):
+            raise ValueError(f"exact_fill: {cs} CTAs a row in the wide "
+                             "layout")
+        groups = -(-w // (WIDE_CTAS * per_row))
+        return FillGeometry(WIDE_CTAS, FILL_THREADS, groups * per_row, 0,
+                            groups)
+    if w > MAX_W:
+        raise ValueError(f"exact_fill: band {w} is past the clustered "
+                         f"layout's {MAX_W} lanes")
     if cs is None:
         cs = next(n for n in FILL_CLUSTERS if n * per_row >= w)
     if cs not in FILL_CLUSTERS:
@@ -84,15 +108,25 @@ def fill_geometry(w: int, cs: int | None = None) -> FillGeometry:
     return FillGeometry(cs, threads, lc, 32 * FILL_LANES)
 
 
-def require_band(bandwidth: int) -> None:
-    """Raise unless kernel F holds the band. On a CUDA device every
-    exact-band block runs on F, which holds at most MAX_W lanes; no
-    wider band leaves the card for another engine."""
-    if bandwidth > MAX_W:
+def codes_bytes(length: int, bandwidth: int) -> int:
+    """Bytes of kernel F's packed codes for one row of `length`
+    positions: ceil(length / 16) words of 16 two-bit codes a lane."""
+    return -(-length // 16) * bandwidth * 4
+
+
+def rows_within(budget: int, length: int, bandwidth: int) -> int:
+    """How many rows of `length` positions at `bandwidth` lanes kernel
+    F's codes hold within `budget` bytes; raises ValueError when not one
+    row does. On a CUDA device every exact-band block runs on kernels F
+    and G: device memory, not lanes, bounds the band."""
+    need = codes_bytes(length, bandwidth)
+    if need > budget:
         raise ValueError(
-            f"band {bandwidth} is past the {MAX_W} lanes kernel F holds: "
-            "on a CUDA device the exact band runs on kernel F only; "
-            "realign wider bands on the CPU (device 'cpu')")
+            f"band {bandwidth}: one row of {length} positions needs "
+            f"{need:,} bytes of kernel F's codes, past the device memory "
+            f"budget of {budget:,} bytes (RR_DEVICE_HBM_BUDGET, "
+            "models/realigner.py::device_memory_budget)")
+    return budget // need
 
 
 def plane_columns(cp: int, geo: FillGeometry) -> int:
@@ -125,13 +159,15 @@ def exact_fill_plain(counts, rows_old, seqs, ways, lengths, ncols: int, *,
 
 
 def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
-               bandwidth: int, ctas: int | None = None):
+               bandwidth: int, ctas: int | None = None,
+               wide: bool | None = None):
     """Exact-band fill of a block. counts int32 [C, 6]; rows_old int8
     [B, C] (columns >= ncols: symbol 5, zero counts); seqs int8 [B, L]
     (bases 0-3); ways int32 [B, L] (each base's column below C,
     edge-padded past the row's length); lengths int32 [B], all on one
-    device. `ctas` sets kernel F's CTAs a row (fill_geometry's `cs`;
-    the same result at any layout)."""
+    device. `ctas` and `wide` are fill_geometry's test hooks for kernel
+    F's layout (the same result at any layout); the program leaves them
+    at None."""
     dev = rows_old.device
     _check("rows_old", rows_old, torch.int8, 2, dev)
     b, c = rows_old.shape
@@ -146,7 +182,7 @@ def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
                          f"counts {tuple(counts.shape)} rows {(b, c)} "
                          f"seqs {tuple(seqs.shape)} ways {tuple(ways.shape)}"
                          f" lengths {tuple(lengths.shape)}")
-    if not 0 < bandwidth <= MAX_W or not 0 < ncols <= c:
+    if bandwidth <= 0 or not 0 < ncols <= c:
         raise ValueError(f"exact_fill: unsupported band {bandwidth} or "
                          f"ncols {ncols}")
     if dev.type == "cpu":
@@ -154,7 +190,7 @@ def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
                                 ncols, bandwidth=bandwidth)
     if dev.type != "cuda":
         raise ValueError(f"exact_fill: unsupported device {dev}")
-    geo = fill_geometry(bandwidth, ctas)
+    geo = fill_geometry(bandwidth, ctas, wide)
     lib = _build.load("exact_fill")
     codes = torch.empty((-(-l // 16), b, bandwidth), dtype=torch.int32,
                         device=dev)
@@ -163,6 +199,9 @@ def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
     # the kernel's scratch: each row's six cost planes
     cps = plane_columns(c, geo)
     planes = torch.empty((b, 6, cps), dtype=torch.int32, device=dev)
+    # the wide layout's band of x-1 and of x, a row
+    wband = torch.empty((b, 2, bandwidth) if geo.groups else (0,),
+                        dtype=torch.int32, device=dev)
     p = _build.ptr
     ev = _build.launch_events("exact_fill")
     if ev:
@@ -170,7 +209,7 @@ def exact_fill(counts, rows_old, seqs, ways, lengths, ncols: int, *,
     err = lib.exact_fill_launch(
         p(counts), p(rows_old), p(seqs), p(ways), p(lengths), p(planes),
         p(codes), p(band), p(anf), b, c, l, int(ncols), bandwidth, geo.cs,
-        geo.threads, cps, _build.stream_ptr(dev))
+        geo.threads, cps, p(wband), geo.groups, _build.stream_ptr(dev))
     if ev:
         ev[1].record()
     _build.check(lib, "exact_fill", err)

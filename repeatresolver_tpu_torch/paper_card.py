@@ -13,10 +13,12 @@ reserved), peak host RSS, each kernel's launches and seconds inside it
 loop's, the MaxCorrs tile pass's and the torch exact band's), for the
 MaxCorrs device scan its tile pairs scanned and needed and its host
 reads, and for realign the resident sweeps (each sweep's seconds and its
-exact-band blocks and their seconds by route), the host anneal tail by
-block size, the best-MSA writes and the waits for them, and the
-scorelog's line count over time.
-Between the stages it runs three checks on the run's own files:
+exact-band blocks and their seconds by route), the anneal tail's sweeps
+and seconds by route (kernels F and G: "cuda"; the host native engine:
+"native") and block size, the split of its blocks on the card (host
+work, transfers, device, inside F and G, flushes), the best-MSA writes
+and the waits for them, and the scorelog's line count over time.
+Between the stages it runs four checks on the run's own files:
 
   trajectory  after align: 2 rounds at the run's band and block of the
               resident engine on the card against the host native exact
@@ -25,6 +27,11 @@ Between the stages it runs three checks on the run's own files:
               improving round (RR_BEST_WRITE_S=0, into WORKDIR/trajectory,
               removed after), so its write seconds stand beside the
               sweeps';
+  tail        after align: one sweep at the anneal's first tail block
+              (the run's block // 4, 16 at the defaults) through
+              kernels F and G on the card against the host native
+              engine from the same MSA: the MSA and its histogram equal
+              byte for byte;
   maxcorr     after maxcorr (not beside it: the device scan is timed
               alone): the stage's MaxCorrs against the host fast scan
               (compute_maxcorrs(fast=True)) on the same MSAreal:
@@ -67,7 +74,7 @@ from . import paper_run
 # the card's; the host MaxCorrs scan, on all cores but one, runs after
 # the device scan, which it would slow)
 PLAN = [("simulate",), ("cut",), ("align",), ("check:trajectory",),
-        ("realign",), ("maxcorr",), ("check:maxcorr",),
+        ("check:tail",), ("realign",), ("maxcorr",), ("check:maxcorr",),
         ("resolve", "check:resolve"), ("assess",)]
 # after a realign stopped at --realign-limit-s: the MaxCorrs scan and
 # the first window's resolve by the stages' own functions on the best
@@ -152,7 +159,9 @@ def _measured(fn, dev_type):
     c["devmm"].device_calls = 0
     c["rb"].write_s = []
     c["rb"].write_wait_s = 0.0
-    c["host"].host_sweep_s_by_bs = {}
+    c["host"].host_sweeps_by_route = {}
+    c["host"].host_sweep_s_by_route = {}
+    c["host"].card_tail_split = dict.fromkeys(c["host"].CARD_SPLIT, 0)
     c["dev"].resident_sweep_s = 0.0
     c["dev"].exact_blocks_run = dict.fromkeys(c["dev"].ROUTES, 0)
     c["dev"].exact_block_s = dict.fromkeys(c["dev"].ROUTES, 0.0)
@@ -181,8 +190,9 @@ def _measured(fn, dev_type):
            "maxcorr_scan": dict(c["maxcorr"].last_stats),
            "devmm_device_calls": c["devmm"].device_calls,
            "resident_sweep_s": c["dev"].resident_sweep_s,
-           "host_sweep_s_by_bs": {str(k): v for k, v in
-                                  c["host"].host_sweep_s_by_bs.items()},
+           "tail_sweeps": _by_route(c["host"].host_sweeps_by_route),
+           "tail_sweep_s": _by_route(c["host"].host_sweep_s_by_route),
+           "tail_card_split": dict(c["host"].card_tail_split),
            "exact_blocks": dict(c["dev"].exact_blocks_run),
            "exact_block_s": dict(c["dev"].exact_block_s),
            "resident_sweeps": list(c["dev"].sweep_log),
@@ -192,6 +202,12 @@ def _measured(fn, dev_type):
         rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         rec["peak_device_reserved"] = torch.cuda.max_memory_reserved()
     return value, rec
+
+
+def _by_route(table):
+    """{route: {block size: value}} with the block sizes as JSON keys."""
+    return {r: {str(bs): v for bs, v in sorted(by.items(), reverse=True)}
+            for r, by in table.items()}
 
 
 def _finish(rec, report):
@@ -294,6 +310,25 @@ def step_check(a, driver_args):
             kernel="native", device="cpu"), "cpu")
         rec.update(shape=list(msa.shape), resident_log=log_d,
                    host_log=log_h, equal=log_d == log_h)
+    elif a.step == "check:tail":
+        msa = rio.read_msa(f["msa"])
+        bs = max(1, args.block_rows // 4)
+
+        def sweep(kernel, device):
+            eng = realigner.BatchedRealigner(
+                msa.copy(), bandwidth=args.band, block_rows=bs,
+                mode="exact", kernel=kernel, device=device)
+            eng.ent_al_gapper()
+            eng.sweep()
+            return eng
+        card, rec["card"] = _measured(lambda: sweep("cuda", dev), dev.type)
+        host, rec["host_native"] = _measured(lambda: sweep("native", "cpu"),
+                                             "cpu")
+        rec.update(shape=list(msa.shape), block_rows=bs,
+                   widths=[card.width(), host.width()],
+                   pairs=[card.overall_pair(), host.overall_pair()],
+                   equal=bool(np.array_equal(card.msa, host.msa)
+                              and np.array_equal(card.counts, host.counts)))
     elif a.step == "probe:maxcorr":
         msareal = rio.read_msa(f["msareal"])
         mc, rec["device"] = _measured(

@@ -28,8 +28,9 @@ no GPU; nothing falls back to the CPU):
   cuda  each stage's route in run_pipeline(device="cuda"): cut and
         align through kernels C and D (the full edit DP: --align-band
         is ignored, as the JAX package's device route has no band), the
-        resident realign engine (kernels A and B; the host native
-        anneal tail below RESIDENT_MIN_BS), MaxCorrs through
+        resident realign engine (kernels A and B; the anneal tail below
+        RESIDENT_MIN_BS on kernels F and G, block 1 on the host native
+        engine), MaxCorrs through
         maxcorr.compute_maxcorrs_routed (the device scan at the sizes
         its gate names), resolve with the exact products on the card.
 """

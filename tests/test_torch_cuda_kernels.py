@@ -581,9 +581,13 @@ def test_exact_kernels_match_plain(dev, seed, b, c, l, w):
 
 
 # wide bands: 4,200 (past kernel A's 4,096 lanes, four CTAs a row),
-# 8,192 (four) and the cap (eight)
+# 8,192 (four) and the clustered layout's cap (eight); past it the wide
+# layout: 20,000 (two groups of 2,048 lanes a CTA), 32,768 (two) and
+# 65,536 (four)
 EXACT_WIDE_CASES = [(9, 4, 12600, 96, 4200), (10, 4, 24600, 48, 8192),
-                    (11, 4, 49200, 48, 16384)]
+                    (11, 4, 49200, 48, 16384), (17, 4, 49300, 48, 16392),
+                    (14, 4, 60000, 48, 20000),
+                    (15, 4, 98400, 40, 32768), (16, 3, 196800, 32, 65536)]
 
 
 def _fill_same(dev, arrays, ncols, w):
@@ -599,8 +603,18 @@ def _fill_same(dev, arrays, ncols, w):
 
 @pytest.mark.parametrize("seed,b,c,l,w", EXACT_WIDE_CASES)
 def test_exact_fill_wide_bands(dev, seed, b, c, l, w):
+    """F at each wide band, and G over its codes, bit-equal to their
+    plain versions."""
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
     *arrays, ncols = exact_shift_inputs(seed, b, c, l, w)
-    _fill_same(dev, arrays, ncols, w)
+    kern = _fill_same(dev, arrays, ncols, w)
+    anf, eb, lengths = (torch.from_numpy(a).to(dev) for a in (
+        *exact_bounds(arrays[3], arrays[4], w), arrays[4]))
+    walk = ce.exact_walk(*kern, eb, anf, lengths, ncols, cpad=c + 8)
+    walk_p = ce.exact_walk_plain(*kern, eb, anf, lengths, ncols,
+                                 cpad=c + 8)
+    for name, k, p in zip(("moves", "wayin", "best"), walk, walk_p):
+        assert torch.equal(k, p), name
 
 
 @pytest.mark.parametrize("w", [1000, 3000, 4200, 9000])
@@ -616,14 +630,15 @@ def test_exact_fill_geometries_and_shifts(dev, w, padded):
     _fill_same(dev, arrays, ncols, w)
 
 
-@pytest.mark.parametrize("ctas", [1, 2, 4, 8])
-def test_exact_fill_any_layout(dev, ctas):
+@pytest.mark.parametrize("ctas,wide", [(1, None), (2, None), (4, None),
+                                       (8, None), (None, True)])
+def test_exact_fill_any_layout(dev, ctas, wide):
     """Band 1,000 at each number of CTAs a row the wrapper can be asked
-    for: the same bits as the plain version."""
+    for, and in the wide layout: the same bits as the plain version."""
     from repeatresolver_tpu_torch.ops import cuda_exact as ce
     *arrays, ncols = exact_shift_inputs(13, 6, 9000, 300, 1000)
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
-    kern = ce.exact_fill(*t, ncols, bandwidth=1000, ctas=ctas)
+    kern = ce.exact_fill(*t, ncols, bandwidth=1000, ctas=ctas, wide=wide)
     plain = ce.exact_fill_plain(*t, ncols, bandwidth=1000)
     for name, k, p in zip(("codes", "band", "anf"), kern, plain):
         assert torch.equal(k, p), name
@@ -708,7 +723,7 @@ def test_exact_wrappers_reject_bad_input(dev):
                       bandwidth=16)
     with pytest.raises(ValueError, match="unsupported band"):
         ce.exact_fill(counts, rows, seqs, ways, lengths, ncols,
-                      bandwidth=ce.MAX_W + 1)
+                      bandwidth=0)
     codes, band, anf = ce.exact_fill(counts, rows, seqs, ways, lengths,
                                      ncols, bandwidth=16)
     with pytest.raises(ValueError, match="inconsistent"):

@@ -23,14 +23,20 @@ file keeps a numpy model of its arithmetic as the kernel splits it:
     CTA's strip of one warp (asserted); a chunk's first step reads any
     lane, and g from device memory where the plain version's rules need
     it (a shift below 0, the jump base past a row's end);
-  * a row past its end keeps its band frozen and still emits codes.
+  * a row past its end keeps its band frozen and still emits codes;
+  * the wide layout (bands past the clustered layout's cap, or asked
+    for): every step takes the chunk-first step's rules, and each lane's
+    running min is composed as the kernel composes it (its own lanes, its
+    warp's scan, the CTA's table of warp minima by group and warp, the
+    CTAs below).
 
 The model is held bit-equal to the torch exact band
 (ops/banded_realign.banded_fill) and, at the smaller bands, to the JAX
 package's `banded_fill`, on blocks with every kind of shift, rows that
 end mid-chunk, rows of length 0 and 1, padding columns, ways that are
 not edge-padded across x = 256, and bands 16, 1,000 (at 1, 2, 4 and 8
-CTAs a row), 4,200, 8,192 and the cap.
+CTAs a row), 4,200, 8,192 and the cap; the wide layout at bands 16,
+1,000, 16,392 and 20,000.
 Change it with the kernel.
 """
 import numpy as np
@@ -87,6 +93,29 @@ def chunk_starts(anf, aprev, gtab, geo):
     return starts
 
 
+def wide_prefix(av, geo):
+    """The wide layout's running min of the candidates av [lanes], as
+    the kernel composes it: a thread's four lanes, its warp's inclusive
+    scan of the threads' minima (exclusive for the thread), the CTA's
+    table of warp minima in (group, warp) order (exclusive), and the
+    CTAs below."""
+    nw = geo.threads // 32
+    a = av.reshape(geo.cs, geo.groups, nw, 32, 4)
+    loc = np.minimum.accumulate(a, axis=4)
+    xs = np.minimum.accumulate(loc[..., -1], axis=3)
+    ex = np.concatenate([np.full(xs.shape[:3] + (1,), NEUTRAL),
+                         xs[..., :-1]], axis=3)
+    table = xs[..., -1].reshape(geo.cs, -1)
+    tab_ex = np.concatenate([np.full((geo.cs, 1), NEUTRAL),
+                             np.minimum.accumulate(table, axis=1)[:, :-1]],
+                            axis=1).reshape(geo.cs, geo.groups, nw)
+    cta = table.min(axis=1)
+    cta_ex = np.concatenate([[NEUTRAL], np.minimum.accumulate(cta)[:-1]])
+    pre = np.minimum(np.minimum(cta_ex[:, None, None, None],
+                                tab_ex[..., None]), ex)
+    return np.minimum(pre[..., None], loc).reshape(-1)
+
+
 def model_row(counts, row, seq, way, length, ncols, w, geo):
     """Kernel F on one row: (codes uint8 [L, W], band int32 [W], anf)."""
     l = len(seq)
@@ -101,7 +130,10 @@ def model_row(counts, row, seq, way, length, ncols, w, geo):
         aprev[x] = anf[min(x, length) - 1] if length > 0 else 0
     gtab = np.array([aprev[x] if x % 256 == 0 else anf[x - 1]
                      for x in range(l)], np.int64)
-    starts = set(chunk_starts(anf, aprev, gtab, geo))
+    wide = geo.groups > 0
+    # the wide layout: every step a chunk's first
+    starts = set(range(l)) if wide else set(chunk_starts(anf, aprev, gtab,
+                                                         geo))
     lane = np.arange(nl)
     cta = lane // lc
     live = lane < w
@@ -117,8 +149,11 @@ def model_row(counts, row, seq, way, length, ncols, w, geo):
         d = a - ap
         y = a + lane
         wi = y - cw0                                    # window index
-        assert (wi - 1 >= 0).all() and (wi < lc + ce.FILL_SLACK + 4).all()
-        col = wi + cw0 + 4                              # scratch index
+        # the clustered layout stages a window; the wide one reads the
+        # planes in device memory
+        assert wide or ((wi - 1 >= 0).all()
+                        and (wi < lc + ce.FILL_SLACK + 4).all())
+        col = y + 4                                     # scratch index
         subg = pl[int(seq[x]), col]
         ins = pl[4, col]
         g1 = pl[5, col]                                 # g[y+1]
@@ -158,7 +193,8 @@ def model_row(counts, row, seq, way, length, ncols, w, geo):
         ok = (y > 0) & (y < ncols - 1)
         av = np.where(y < ncols, np.minimum(diag, np.where(ok, upr, bigr)),
                       bigr)
-        rn = np.minimum.accumulate(np.where(live, av, NEUTRAL))
+        av = np.where(live, av, NEUTRAL)
+        rn = wide_prefix(av, geo) if wide else np.minimum.accumulate(av)
         left = np.concatenate([[c0r], rn[:-1]])
         gap_hit = rn == left
         if x == length - 1:
@@ -172,8 +208,9 @@ def model_row(counts, row, seq, way, length, ncols, w, geo):
     return codes, band.astype(np.int32), np.int32(a_f)
 
 
-def model_fill(counts, rows, seqs, ways, lengths, ncols, w, cs=None):
-    geo = ce.fill_geometry(w, cs)
+def model_fill(counts, rows, seqs, ways, lengths, ncols, w, cs=None,
+               wide=None):
+    geo = ce.fill_geometry(w, cs, wide)
     out = [model_row(counts, rows[b], seqs[b], ways[b], int(lengths[b]),
                      ncols, w, geo) for b in range(len(lengths))]
     return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out]),
@@ -254,9 +291,28 @@ def test_model_shift_kinds():
         assert (m & act).any(), name
 
 
+@pytest.mark.parametrize("w,l", [(16, 60), (1000, 290), (ce.MAX_W + 8, 40),
+                                 (20000, 40)])
+def test_model_wide_layout(w, l):
+    """The wide layout, at the clustered layout's bands (asked for) and
+    past its cap: held to the torch exact band, and at the smaller bands
+    to the JAX package's `banded_fill`."""
+    *arrays, ncols = model_inputs(11, 4, 3 * w + 200, l, w)
+    if w == 1000:
+        arrays = unpad_ways(arrays, 11)
+    got = model_fill(*arrays, ncols, w, wide=True)
+    _same(got, _plain(arrays, ncols, w))
+    if w <= 1000:
+        jf = jbr.banded_fill(*arrays, np.int32(ncols), bandwidth=w)
+        _same(got, [np.asarray(v) for v in jf])
+
+
 def test_geometry():
     """Lanes a thread, threads a CTA and CTAs a row for the bands the
-    kernel takes, chosen or asked for; the cap is 16,384 lanes."""
+    kernel takes, chosen or asked for; the clustered layout's cap is
+    16,384 lanes, and past it (or asked for) the wide layout takes any
+    band: eight CTAs a row, as many groups of 2,048 lanes a CTA as the
+    band needs."""
     assert ce.MAX_W == 16384
     for w, cs, ask in [(16, 1, None), (1000, 1, None), (2048, 1, None),
                        (2049, 2, None), (4096, 2, None), (4097, 4, None),
@@ -267,7 +323,15 @@ def test_geometry():
         assert geo.cs * geo.lanes_cta >= w
         assert geo.threads % 32 == 0 and geo.threads <= 512
         assert (geo.cs - 1) * geo.lanes_cta < w   # the top CTA: a lane
-    for w, ask in [(ce.MAX_W + 1, None), (1000, 3), (100, 8), (4200, 8),
-                     (16384, 4)]:
+    for w, ask in [(1000, 3), (100, 8), (4200, 8), (16384, 4)]:
         with pytest.raises(ValueError):
             ce.fill_geometry(w, ask)
+    with pytest.raises(ValueError):
+        ce.fill_geometry(ce.MAX_W + 1, wide=False)
+    for w, wide, groups in [(ce.MAX_W + 1, None, 2), (32768, None, 2),
+                            (65536, None, 4), (100000, None, 7),
+                            (1000, True, 1)]:
+        geo = ce.fill_geometry(w, wide=wide)
+        assert (geo.cs, geo.threads, geo.groups) == (8, 512, groups), w
+        assert geo.lanes_cta == groups * 2048
+        assert geo.cs * geo.lanes_cta >= w

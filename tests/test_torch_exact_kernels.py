@@ -112,6 +112,32 @@ def test_exact_walk_plain_matches_jax(case):
     assert (got[0].numpy()[:, :ncols] != rows[:, :ncols]).any()
 
 
+def test_exact_band_past_the_clustered_cap_matches_jax():
+    """Band 20,000, past the 16,384 lanes of kernel F's clustered layout
+    (the card takes it in the wide layout), on a small block: the plain
+    fill's codes, band and band start, and the walk with its rebuild,
+    equal the JAX package's banded_fill and entry_and_backtrack."""
+    case = (18, 3, 50000, 24, 20000)
+    (counts, rows, seqs, ways, lengths), ncols, jf = _jax_fill(case)
+    w = case[-1]
+    assert w > pce.MAX_W and pce.fill_geometry(w).groups == 2
+    fill = pce.exact_fill(T(counts), T(rows), T(seqs), T(ways), T(lengths),
+                          ncols, bandwidth=w)
+    l = seqs.shape[1]
+    np.testing.assert_array_equal(psr.unpack_codes(fill[0], l).numpy(),
+                                  np.asarray(jf[0]))
+    np.testing.assert_array_equal(fill[1].numpy(), np.asarray(jf[1]))
+    np.testing.assert_array_equal(fill[2].numpy(), np.asarray(jf[2]))
+    anf, eb = exact_bounds(ways, lengths, w)
+    cpad = rows.shape[1]
+    ref = jbr.entry_and_backtrack(*jf, seqs, anf, eb, lengths,
+                                  np.int32(ncols), cpad=cpad, bandwidth=w)
+    got = pce.entry_and_backtrack(*fill, T(seqs), T(anf), T(eb),
+                                  T(lengths), ncols, cpad=cpad)
+    _same(got, ref)
+    assert (got[0].numpy()[:, :ncols] != rows[:, :ncols]).any()
+
+
 def _walk_case(seed):
     """Random codes [B, L, W] with nonzero lane-0 codes and band starts
     that stand still, so that diagonals from lane 0 leave the band."""
@@ -210,7 +236,7 @@ def test_exact_wrappers_reject_bad_input():
     assert pce.MAX_W == 16384
     with pytest.raises(ValueError, match="unsupported band"):
         pce.exact_fill(counts, rows, seqs, ways, lengths, ncols,
-                       bandwidth=pce.MAX_W + 1)
+                       bandwidth=0)
     codes, band, anf = pce.exact_fill(counts, rows, seqs, ways, lengths,
                                       ncols, bandwidth=16)
     with pytest.raises(ValueError, match="inconsistent"):
@@ -330,7 +356,8 @@ class _FakeExactKernels:
 
     def exact_fill_launch(self, *a):
         b, c, l, ncols, w, cs, threads, cps = a[9:17]
-        self.launches.append(("fill", (b, c, l, ncols, w, cs, threads, cps)))
+        self.launches.append(("fill", (b, c, l, ncols, w, cs, threads, cps,
+                                       a[18])))
         for p, n in ((a[6], -(-l // 16) * b * w), (a[7], b * w), (a[8], b)):
             ctypes.memset(p.value, 0, 4 * n)
         return 0
@@ -349,12 +376,17 @@ class _FakeExactKernels:
     exact_walk_error_string = exact_fill_error_string
 
 
+AMPLE = 1 << 40
+
+
 @pytest.fixture
 def fake_card(monkeypatch):
     from repeatresolver_tpu_torch.ops import _build
     fake = _FakeExactKernels()
     monkeypatch.setattr(_build, "load", lambda name: fake)
     monkeypatch.setattr(_build, "stream_ptr", lambda dev: ctypes.c_void_p())
+    # the memory budget of a card with ample memory (no card to ask)
+    monkeypatch.setenv("RR_DEVICE_HBM_BUDGET", str(AMPLE))
 
     def plain(*a, **k):
         raise AssertionError("the torch exact band ran on the card route")
@@ -376,23 +408,30 @@ def _card(arrays):
     return [T(a).as_subclass(_CardTyped) for a in arrays]
 
 
-def test_block_dp_card_route_by_band(fake_card):
+def test_block_dp_card_route_by_band(fake_card, monkeypatch):
     """block_dp's exact branch on the card: band 4,200 (past kernel A's
-    4,096 lanes) and F's cap launch F and G (four and eight CTAs a row);
-    a band past the cap raises ValueError and leaves the card for no
-    other engine."""
-    for w, cs in ((4200, 4), (pce.MAX_W, 8)):
+    4,096 lanes) and the clustered layout's cap launch F and G (four and
+    eight CTAs a row); bands 16,392 and 32,768 launch them in the wide
+    layout (eight CTAs a row, two groups of 2,048 lanes a CTA). A band
+    whose one row's codes pass the device memory budget raises
+    ValueError and leaves the card for no other engine."""
+    for w, cs, groups in ((4200, 4, 0), (pce.MAX_W, 8, 0),
+                          (pce.MAX_W + 8, 8, 2), (2 * pce.MAX_W, 8, 2)):
         fake_card.launches.clear()
         arrays, c = _block(w)
         out = prt.block_dp(*_card(arrays), c, bandwidth=w, chunk=256,
                            widen=1, staircase=False, kernel="cuda")
         assert [k for k, _ in fake_card.launches] == ["fill", "walk"]
-        assert fake_card.launches[0][1][4:6] == (w, cs)  # band, CTAs a row
+        # band, CTAs a row, the wide layout's groups
+        launch = fake_card.launches[0][1]
+        assert (launch[4], launch[5], launch[8]) == (w, cs, groups)
         assert out[0].shape == arrays[1].shape
     fake_card.launches.clear()
     w = pce.MAX_W + 8
     arrays, c = _block(w)
-    with pytest.raises(ValueError, match="lanes kernel F holds"):
+    monkeypatch.setenv("RR_DEVICE_HBM_BUDGET",
+                       str(pce.codes_bytes(arrays[2].shape[1], w) - 1))
+    with pytest.raises(ValueError, match="device memory budget"):
         prt.block_dp(*_card(arrays), c, bandwidth=w, chunk=256, widen=1,
                      staircase=False, kernel="cuda")
     assert fake_card.launches == []
@@ -413,37 +452,46 @@ def _resident_on_card(w):
 
 
 def test_resident_card_route_by_band(fake_card, monkeypatch):
-    """The resident engine's exact blocks on the card: band 4,200 runs
-    on F and G (route cuda); a block past F's cap raises and no other
-    engine runs it, and an engine on the card refuses that band when it
-    is made. On the CPU the same band runs on the host native engine
-    (route native, counted) and equals it."""
+    """The resident engine's exact blocks on the card: bands 4,200 and
+    16,392 run on F and G (route cuda; the wide layout at 16,392); under
+    a memory budget that one row's codes pass, the block raises and no
+    other engine runs it, and engines made on the card refuse the band.
+    On the CPU the band runs on the host native engine (route native,
+    counted) and equals it."""
     cls = prd.DeviceResidentRealigner
     monkeypatch.setattr(cls, "exact_blocks_run",
                         dict.fromkeys(cls.ROUTES, 0))
     monkeypatch.setattr(cls, "exact_block_s",
                         dict.fromkeys(cls.ROUTES, 0.0))
-    eng = _resident_on_card(4200)
-    eng._exact_block(eng._ord_host[:8], [])
-    assert cls.exact_blocks_run["cuda"] == 1
-    assert fake_card.launches[0][1][4] == 4200
     w = pce.MAX_W + 8
-    eng = _resident_on_card(w)
-    with pytest.raises(ValueError, match="lanes kernel F holds"):
+    for n, band in enumerate((4200, w)):
+        eng = _resident_on_card(band)
         eng._exact_block(eng._ord_host[:8], [])
-    assert len(fake_card.launches) == 2
-    assert cls.exact_blocks_run == {"cuda": 1, "native": 0, "torch": 0}
+        assert cls.exact_blocks_run["cuda"] == n + 1
+        assert fake_card.launches[2 * n][1][4] == band
+    assert fake_card.launches[2][1][8] == 2      # the wide layout's groups
     msa = make_msa(3, rows=16, tlen=240)
+    longest = int(prt.row_lengths(msa).max())
+    monkeypatch.setenv("RR_DEVICE_HBM_BUDGET",
+                       str(pce.codes_bytes(longest, w) - 1))
+    with pytest.raises(ValueError, match="device memory budget"):
+        eng._exact_block(eng._ord_host[:8], [])
+    assert len(fake_card.launches) == 4
+    assert cls.exact_blocks_run == {"cuda": 2, "native": 0, "torch": 0}
     # "cuda" resolves without a card
     monkeypatch.setattr(prd, "resolve_device", torch.device)
     monkeypatch.setattr(prt, "resolve_device", torch.device)
-    with pytest.raises(ValueError, match="lanes kernel F holds"):
+    with pytest.raises(ValueError, match="device memory budget"):
         cls(msa, bandwidth=w, block_rows=8, device="cuda")
-    for mode, kernel in (("staircase", "cuda"), ("exact", "torch")):
-        with pytest.raises(ValueError, match="lanes kernel F holds"):
+    for mode, kernel in (("staircase", "cuda"), ("exact", "torch"),
+                         ("exact", "cuda")):
+        with pytest.raises(ValueError, match="device memory budget"):
             prt.BatchedRealigner(msa, bandwidth=w, block_rows=8, mode=mode,
                                  kernel=kernel, device="cuda")
-    cls(msa, bandwidth=pce.MAX_W, block_rows=8, device="cuda")
+    monkeypatch.setenv("RR_DEVICE_HBM_BUDGET", str(AMPLE))
+    cls(msa, bandwidth=w, block_rows=8, device="cuda")
+    prt.BatchedRealigner(msa, bandwidth=w, block_rows=8, mode="exact",
+                         kernel="cuda", device="cuda")
     cls.exact_blocks_run["cuda"] = 0
     eng = cls(msa, bandwidth=w, block_rows=8, chunk=32, device="cpu")
     eng.ent_al_gapper()

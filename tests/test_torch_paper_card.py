@@ -8,9 +8,11 @@ written a best MSA. The probe steps then run the MaxCorrs scan and the
 first window's resolve on that MSA into probe_* files, beside the host
 checks; the driver's own later files stay unwritten. The same work
 directory, run again without the stand-in and the limit (a new --out
-that carries the first report's trajectory line, which skips that
-check), resumes realign from its checkpoint and runs the later stages
-beside their checks. Every check holds, and the work directory's files
+that carries the first report's trajectory and tail lines, which skips
+those checks), resumes realign from its checkpoint and runs the later
+stages beside their checks. Every check holds (the tail's: one sweep at
+block 4 through the card's tail engine, here on CPU tensors, equal to
+the host native engine), and the work directory's files
 equal a straight paper_run's, the probe files aside (the scorelog and
 stage_times.json as in test_torch_paper_run's interrupted realign).
 """
@@ -75,10 +77,14 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
                            pythonpath=[str(hold)])
     assert "status: realign limit" in stdout
     assert list(rep) == ["simulate", "cut", "align", "check:trajectory",
-                         "realign", "probe:maxcorr", "check:maxcorr",
-                         "probe:resolve", "check:resolve"]
-    traj = rep["check:trajectory"]
+                         "check:tail", "realign", "probe:maxcorr",
+                         "check:maxcorr", "probe:resolve", "check:resolve"]
+    traj, tail = rep["check:trajectory"], rep["check:tail"]
     assert traj["equal"] and len(traj["resident_log"]) >= 3
+    assert tail["equal"] and tail["block_rows"] == 4
+    assert tail["card"]["tail_sweeps"] == {"cuda": {"4": 1}}
+    assert tail["card"]["tail_card_split"]["blocks"] > 0
+    assert tail["host_native"]["tail_sweeps"] == {"native": {"4": 1}}
     assert rep["realign"]["stopped"]
     start = rep["realign"]["checkpoint"]["round"]
     assert 1 <= start <= 2
@@ -92,12 +98,13 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
                    or n.endswith(".done") for n in names)
 
     out2.mkdir()
-    (out2 / "report.jsonl").write_text(json.dumps(traj) + "\n")
+    (out2 / "report.jsonl").write_text(json.dumps(traj) + "\n"
+                                       + json.dumps(tail) + "\n")
     stdout, rep = card_run(wd, out2)
     assert "status: done" in stdout
-    assert list(rep) == ["check:trajectory", "realign", "maxcorr",
-                         "check:maxcorr", "resolve", "check:resolve",
-                         "assess"]
+    assert list(rep) == ["check:trajectory", "check:tail", "realign",
+                         "maxcorr", "check:maxcorr", "resolve",
+                         "check:resolve", "assess"]
     assert not rep["realign"]["stopped"]
     for k in ("check:maxcorr", "check:resolve"):
         assert rep[k]["equal"] and rep[k]["files"] == "*", rep[k]

@@ -41,7 +41,7 @@ def test_realign_batched_matches_jax():
     out_j = jr.realign_batched(msa.copy(), cfg, block_rows=4,
                                mode="staircase", kernel="pallas",
                                score_log=log_j)
-    sweeps0 = pr.BatchedRealigner.host_sweeps
+    sweeps0 = pr.BatchedRealigner.sweep_totals()[0]
     log_p: list = []
     out_p = pr.realign_batched(msa.copy(), cfg, block_rows=4,
                                kernel="cuda", device="cpu",
@@ -50,7 +50,7 @@ def test_realign_batched_matches_jax():
     assert log_p == log_j
     np.testing.assert_array_equal(out_p, out_j)
     # the anneal tail ran on the host native engine
-    assert pr.BatchedRealigner.host_sweeps > sweeps0
+    assert pr.BatchedRealigner.sweep_totals()[0] > sweeps0
     assert DeviceResidentRealigner.RESIDENT_MIN_BS > 4
 
 
