@@ -53,11 +53,13 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      24 lines; the JAX package's trajectory, identical on TPU and CPU),
      and both kernels must have launched. The anneal's tail runs blocks
      16 and 4 on kernels F and G (the non-resident exact engine) and
-     block 1 on the host's serial sweep: the phase prints the tail's
-     sweeps and seconds by route and block size and the split of its
-     blocks on the card (host work, transfers, device, inside F and G,
-     flushes), and fails if a tail block at 2 <= block < 32 took
-     another route or F and G never launched. Then the same MSA at band 2600
+     block 1 on its serial sweep a row at a time through F and G over a
+     column store on the card: the phase prints the tail's sweeps and
+     seconds by route and block size, the split of its blocks on the
+     card (host work, transfers, device, inside F and G, flushes) and of
+     its block-1 rows (upload, download, row steps, inside F and G, host
+     reads, splices, drops, regrows), and fails if a tail block (block 1
+     included) took another route or F and G never launched. Then the same MSA at band 2600
      (block 64, 2 rounds), past kernel A's 4,096-lane window at the
      default slack: the resident engine on the card must equal the
      port's host native exact engine line for line, with both kernels
@@ -76,9 +78,12 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      block at each of its block sizes on the card (16 and 4 rows),
      recorded during phase 4, through kernels F and G and their plain
      versions, bit-equal; then, from the MSA the resident engine handed
-     to the tail, a sweep at each of those block sizes on the card's
-     tail engine and on the host native engine (the median of TAIL_REPS
-     each, the card's with its split a block), MSA and histogram equal;
+     to the tail, the first SERIAL_REPLAY_ROWS rows of a block-1 sweep on
+     the card and on the host native engine, MSA and histogram equal
+     after each row, and a sweep at each of the tail's block sizes (16,
+     4 and 1) on the card's tail engine and on the host native engine
+     (the median of TAIL_REPS each, the card's with its split a block or
+     a row), MSA and histogram equal;
   6. the whole pipeline: the port's CLI `pipeline -c 40 -n 24 -d 1 -l
      4000 -t Tree --seed 11 -b 1000 -B 64 --device cuda` (615 MSA rows,
      so the MaxCorrs device scan's >= 512-row gate routes it to the
@@ -97,9 +102,9 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      and seconds inside it (CUDA events)
      and the assessment, the exact blocks by route (the host library's
      and the torch loop's must count 0), and the anneal tail by route
-     and block size (at 2 <= block < 32 on F and G only), then its
-     sweeps on the card against the host native engine from the
-     handoff's MSA, as in phase 5;
+     and block size (below block 32 on F and G only, block 1 included),
+     then its sweeps on the card against the host native engine from
+     the handoff's MSA, as in phase 5 (block 1 once on each route);
   7. the MaxCorrs device scan at the paper run's size: a synthetic MSA
      of 13,833 rows x 131,072 columns from seed 0; the band's first
      groups through kernel E and its plain version (bit-equal: max |dZ|
@@ -712,14 +717,29 @@ def reset_tail():
     eng.host_sweeps_by_route = {}
     eng.host_sweep_s_by_route = {}
     eng.card_tail_split = dict.fromkeys(eng.CARD_SPLIT, 0)
+    eng.card_serial_split = dict.fromkeys(eng.SERIAL_SPLIT, 0)
+
+
+def serial_split_line(sp):
+    """The split of the serial sweeps on the card (block 1), a row."""
+    n = max(1, sp["rows"])
+    return (f"{sp['sweeps']} block-1 sweeps of {sp['rows']} rows on the "
+            f"card, {sp['s']:.2f} s: upload {sp['upload_s']:.3f} s, "
+            f"download {sp['download_s']:.3f} s, row steps "
+            f"{sp['rows_s']:.2f} s ({sp['rows_s'] / n * 1e3:.3f} ms a row,"
+            f" inside F and G {sp['kernel_s'] / n * 1e3:.3f}); "
+            f"{sp['host_reads'] / n:.2f} host reads a row, "
+            f"{sp['splices']} columns spliced, {sp['drops']} dropped, "
+            f"{sp['regrows']} regrows")
 
 
 def report_tail(what, card):
-    """Print the anneal tail's sweeps and seconds by route and block size
-    and its blocks on the card, split into host work, transfers, the
-    device (of it inside kernels F and G) and flushes. On the card every
-    tail block at 2 <= block < RESIDENT_MIN_BS runs on F and G: fail if
-    another route swept there. Returns the sweeps by route."""
+    """Print the anneal tail's sweeps and seconds by route and block size,
+    its blocks on the card, split into host work, transfers, the device
+    (of it inside kernels F and G) and flushes, and its serial sweeps on
+    the card (block 1) split a row. On the card every tail block below
+    RESIDENT_MIN_BS, block 1 included, runs on F and G: fail if another
+    route swept there. Returns the sweeps by route."""
     from repeatresolver_tpu_torch.models.realigner import \
         BatchedRealigner as eng
     from repeatresolver_tpu_torch.models.realigner_device import \
@@ -736,8 +756,9 @@ def report_tail(what, card):
           f" s, device {sp['device_s']:.2f} s (inside F and G "
           f"{sp['kernel_s']:.3f} s); flushes {sp['flush_s']:.2f} s; on "
           f"{card}")
+    print(f"{what}: {serial_split_line(eng.card_serial_split)}")
     off = {route: bs for route, by in n.items() if route != "cuda"
-           for bs in by if 2 <= bs < DeviceResidentRealigner.RESIDENT_MIN_BS}
+           for bs in by if bs < DeviceResidentRealigner.RESIDENT_MIN_BS}
     if off:
         raise AssertionError(f"{what}: tail sweeps off kernels F and G: "
                              f"{off}")
@@ -800,13 +821,15 @@ def replay_tail_blocks(rec, sizes, errs, what):
 TAIL_REPS = 3
 
 
-def tail_routes(rec, sizes, band, card, dev, what):
+def tail_routes(rec, sizes, band, card, dev, what, serial_reps=TAIL_REPS):
     """The anneal tail from the MSA the resident engine handed to it: one
     sweep at each of `sizes` (in turn, each from the last one's result)
-    on the card's tail engine (kernels F and G) and on the host native
-    engine, each the median of TAIL_REPS sweeps from a fresh engine, the
-    card's with its last sweep's split; fails unless both give the same MSA and
-    histogram. Returns {block: (card s, host s)}."""
+    on the card's tail engine (kernels F and G; block 1 the serial sweep
+    over the column store on the card) and on the host native engine,
+    each the median of TAIL_REPS sweeps (serial_reps at block 1) from a
+    fresh engine, the card's with its last sweep's split; fails unless
+    both give the same MSA and histogram. Returns {block: (card s, host
+    s)}."""
     import numpy as np
 
     from repeatresolver_tpu_torch.models.realigner import \
@@ -815,16 +838,18 @@ def tail_routes(rec, sizes, band, card, dev, what):
 
     def median_sweep(msa, bs, kernel):
         ts = []
-        for _ in range(TAIL_REPS):
+        for _ in range(serial_reps if bs == 1 else TAIL_REPS):
             # a copy each: the engine writes its MSA in place
             e = eng(msa.copy(), bandwidth=band, block_rows=bs,
                     mode="exact", kernel=kernel, device=dev)
             eng.card_tail_split = dict.fromkeys(eng.CARD_SPLIT, 0)
+            eng.card_serial_split = dict.fromkeys(eng.SERIAL_SPLIT, 0)
             t0 = time.perf_counter()
             e.sweep()
             ts.append(time.perf_counter() - t0)
         ts.sort()
-        return e, ts, dict(eng.card_tail_split)
+        split = eng.card_serial_split if bs == 1 else eng.card_tail_split
+        return e, ts, dict(split)
 
     msa = rec["handoff"]
     if msa is None:
@@ -839,24 +864,63 @@ def tail_routes(rec, sizes, band, card, dev, what):
                     and np.array_equal(card_e.counts, host_e.counts)):
                 raise AssertionError(f"{what}: block-{bs} sweep on kernels"
                                      " F and G != the host native engine")
-            n = sp["blocks"]
-            out[bs] = (card_t[1], host_t[1])
+            mid = len(card_t) // 2
+            out[bs] = (card_t[mid], host_t[mid])
+            if bs == 1:
+                split = "the last sweep: " + serial_split_line(sp)
+            else:
+                n = sp["blocks"]
+                split = (f"{n} blocks, the last sweep's split: host work "
+                         f"{sp['host_s'] / n * 1e3:.3f} ms a block, "
+                         f"transfers {sp['transfer_s'] / n * 1e3:.3f}, "
+                         f"device {sp['device_s'] / n * 1e3:.3f} (inside F"
+                         f" and G {sp['kernel_s'] / n * 1e3:.3f}); flushes"
+                         f" {sp['flush_s']:.4f} s")
             print(f"{what}: a block-{bs} tail sweep from the same MSA "
-                  f"{msa.shape}: kernels F and G {card_t[1]:.4f} s "
-                  f"({card_t[0]:.4f}-{card_t[-1]:.4f}; {n} blocks, the "
-                  f"last sweep's split: host "
-                  f"work {sp['host_s'] / n * 1e3:.3f} ms a block, "
-                  f"transfers {sp['transfer_s'] / n * 1e3:.3f}, device "
-                  f"{sp['device_s'] / n * 1e3:.3f} (inside F and G "
-                  f"{sp['kernel_s'] / n * 1e3:.3f}); flushes "
-                  f"{sp['flush_s']:.4f} s), the host native engine "
-                  f"{host_t[1]:.4f} s ({host_t[0]:.4f}-{host_t[-1]:.4f}; "
-                  f"{os.cpu_count()} threads); medians of {TAIL_REPS}; MSA "
-                  f"and histogram equal, on {card}")
+                  f"{msa.shape}: kernels F and G {card_t[mid]:.4f} s "
+                  f"({card_t[0]:.4f}-{card_t[-1]:.4f}; {split}), the host "
+                  f"native engine {host_t[mid]:.4f} s ({host_t[0]:.4f}-"
+                  f"{host_t[-1]:.4f}; {os.cpu_count()} threads); medians "
+                  f"of {len(card_t)}; MSA and histogram equal, on {card}")
             msa = card_e.msa
     finally:
         _build.kernel_events = None
     return out
+
+
+SERIAL_REPLAY_ROWS = 8
+
+
+def serial_replay(rec, band, card, dev, what, nrows=SERIAL_REPLAY_ROWS):
+    """The first `nrows` rows of a block-1 sweep from the tail's handoff
+    MSA, on the card's serial sweep (kernels F and G over the column
+    store) and on the host native engine: after each row (the sweep's
+    rows= hook ends it there) the MSA and its histogram must be equal."""
+    import numpy as np
+
+    from repeatresolver_tpu_torch.models.realigner import \
+        BatchedRealigner as eng
+
+    msa = rec["handoff"]
+    if msa is None:
+        raise AssertionError(f"{what}: no handoff to the tail recorded")
+    t0 = time.perf_counter()
+    for n in range(1, nrows + 1):
+        card_e, host_e = (eng(msa.copy(), bandwidth=band, block_rows=1,
+                              mode="exact", kernel=kernel, device=d)
+                          for kernel, d in (("cuda", dev),
+                                            ("native", "cpu")))
+        card_e.sweep(rows=n)
+        host_e.sweep(rows=n)
+        if not (np.array_equal(card_e.msa, host_e.msa)
+                and np.array_equal(card_e.counts, host_e.counts)):
+            raise AssertionError(f"{what}: block-1 sweep on kernels F and "
+                                 f"G != the host native engine after row "
+                                 f"{n - 1}")
+    print(f"{what}: the first {nrows} rows of a block-1 sweep from the "
+          f"handoff MSA {msa.shape}, band {band}: the card's serial sweep "
+          f"and the host native engine equal after every row, MSA and "
+          f"histogram ({time.perf_counter() - t0:.1f} s), on {card}")
 
 
 def build_dataset(work):
@@ -1044,7 +1108,7 @@ def pipeline_phase(card, dev, errs):
         raise AssertionError(f"pipeline-615: no tail sweep on kernels F and "
                              f"G: {tail}")
     tail_routes(tail_rec, sorted(tail["cuda"], reverse=True), 1000, card,
-                dev, "pipeline-615")
+                dev, "pipeline-615", serial_reps=1)
 
     # MaxCorrs: the device scan again (it is deterministic: the same
     # file), against the host fast scan on the same MSAreal
@@ -3157,12 +3221,13 @@ def main() -> int:
         res_s = prd.DeviceResidentRealigner.resident_sweep_s
         print(f"seconds: resident sweeps {res_s:.2f}, anneal-tail sweeps "
               f"{host_s:.2f}, rest of the loop {wall - res_s - host_s:.2f}")
-        # the tail: blocks 16 and 4 on kernels F and G, block 1 on the
-        # host's serial sweep
-        if sorted(tail.get("cuda", {})) != [4, 16] \
-                or list(tail.get("native", {})) != [1]:
-            raise AssertionError(f"anneal tail routes {tail}: blocks 16 "
-                                 "and 4 on kernels F and G, block 1 on the "
+        # the tail: blocks 16, 4 and 1 on kernels F and G (block 1 the
+        # serial sweep over the column store on the card), none on the
+        # host
+        if sorted(tail.get("cuda", {})) != [1, 4, 16] or set(tail) \
+                != {"cuda"}:
+            raise AssertionError(f"anneal tail routes {tail}: blocks 16, "
+                                 "4 and 1 on kernels F and G, none on the "
                                  "host native engine expected")
         if min(launches["exact_fill"], launches["exact_walk"]) <= 0:
             raise AssertionError(f"kernels F and G never launched in the "
@@ -3201,7 +3266,9 @@ def main() -> int:
         # the anneal tail's own blocks through F and G, and its sweeps
         # on the card against the host native engine from the handoff
         tail_sizes = sorted(tail["cuda"], reverse=True)
-        replay_tail_blocks(tail_rec, tail_sizes, errs, "CLI realign")
+        replay_tail_blocks(tail_rec, [bs for bs in tail_sizes if bs > 1],
+                           errs, "CLI realign")
+        serial_replay(tail_rec, 1000, card, dev, "CLI realign")
         tail_routes(tail_rec, tail_sizes, 1000, card, dev, "CLI realign")
 
     with phase("6 main path: CLI pipeline on the card"):

@@ -10,8 +10,8 @@ Counterpart of repeatresolver_tpu/models/realigner.py:
     reference's serial Gauss-Seidel sweep. Its block DP runs on one of
     three routes: kernel="native", the exact band through the native
     C++ block DP (utils/native.realign_block; the anneal's tail on the
-    CPU and at block 1, and the exact blocks of a resident engine on the
-    CPU); kernel="torch", the plain torch
+    CPU, and the exact blocks of a resident engine on the CPU);
+    kernel="torch", the plain torch
     versions (ops/banded_realign, ops/staircase_realign) on `device`;
     kernel="cuda", the staircase fill and the walk through their
     wrappers (kernels A and B on a CUDA device). Whatever the kernel, a
@@ -21,7 +21,9 @@ Counterpart of repeatresolver_tpu/models/realigner.py:
     the CPU the torch exact band. mode="exact" with kernel="cuda" is the
     anneal's tail on the card (`tail_kernel`): every block through F and
     G in row groups within the budget, never halved, so its trajectory
-    is the native engine's. With a mesh (parallel/sharded.Mesh) each
+    is the native engine's; at block 1 the serial sweep a row at a time
+    through F and G over a column store held on the device
+    (`_sweep_serial_card`). With a mesh (parallel/sharded.Mesh) each
     block's rows are sharded over the ranks of a process group.
   * `realign_batched`, the main loop: best tracking, the anneal,
     checkpoints and resume.
@@ -30,7 +32,7 @@ The staircase band equals the exact band for any covering slack, and at
 a fixed block size the Jacobi trajectory does not depend on the kernel,
 so the engines are interchangeable mid-run (the anneal hands the
 resident engine's MSA to the tail's engine: F and G on the card, the
-host native engine at block 1 and on the CPU).
+host native engine on the CPU).
 
 The dense-array bookkeeping and the serial engine are copied from the
 JAX package's module, same arithmetic.
@@ -404,12 +406,13 @@ def validate_counts(msa: np.ndarray, counts: np.ndarray) -> None:
 
 def tail_kernel(block_rows: int, device) -> str:
     """The engine kernel of the anneal's tail, below the resident
-    engine's smallest block: "cuda" on a CUDA device at block 2 and up
-    (the non-resident exact engine, every block through kernels F and
-    G), "native" at block 1 (the reference's serial sweep on the host)
-    and on the CPU. Both give the native engine's trajectory."""
-    return "cuda" if block_rows >= 2 and torch.device(device).type \
-        == "cuda" else "native"
+    engine's smallest block: "cuda" on a CUDA device (the non-resident
+    exact engine, every block through kernels F and G; at block 1 the
+    reference's serial sweep a row at a time over a column store held on
+    the card, `BatchedRealigner._sweep_serial_card`), "native" on the
+    CPU (the host native engine). Both give the native engine's
+    trajectory."""
+    return "cuda" if torch.device(device).type == "cuda" else "native"
 
 
 def row_lengths(msa: np.ndarray) -> np.ndarray:
@@ -645,6 +648,17 @@ class BatchedRealigner:
     CARD_SPLIT = ("blocks", "s", "host_s", "transfer_s", "device_s",
                   "kernel_s", "flush_s")
     card_tail_split = dict.fromkeys(CARD_SPLIT, 0)
+    # the serial sweeps on the card (`_sweep_serial_card`): sweeps, rows
+    # and seconds, split into the column store's upload and download and
+    # the row steps (host clock, to the sync after the last row), of
+    # them inside F and G (their CUDA events, when ops/_build.
+    # kernel_events times launches); host reads (one a row with bases),
+    # inserted columns spliced, empty columns dropped and regrows of the
+    # store
+    SERIAL_SPLIT = ("sweeps", "rows", "s", "upload_s", "download_s",
+                    "rows_s", "kernel_s", "host_reads", "splices", "drops",
+                    "regrows")
+    card_serial_split = dict.fromkeys(SERIAL_SPLIT, 0)
 
     def __init__(self, msa: np.ndarray, bandwidth: int = 1000,
                  block_rows: int = 8, mode: str = "exact",
@@ -732,36 +746,32 @@ class BatchedRealigner:
 
     def _card_tail(self) -> bool:
         """The anneal's tail on the card: the exact band through kernels
-        F and G, in row groups, never a halved block."""
+        F and G, in row groups, never a halved block; at block 1 the
+        serial sweep over a column store on the device."""
         return self.mode == "exact" and self.kernel == "cuda" \
             and self.mesh is None
 
-    def _kernel_at(self, block_rows: int) -> str:
-        # the tail on the card hands block 1 to the host's serial sweep
-        return tail_kernel(block_rows, "cuda") if self._card_tail() \
-            else self.kernel
-
     def respawn(self, msa: np.ndarray, block_rows: int):
-        """A fresh engine of the same kind over `msa` (anneal restart);
-        the tail on the card takes the host native engine at block 1."""
+        """A fresh engine of the same kind over `msa` (anneal restart)."""
         return BatchedRealigner(msa, bandwidth=self.bandwidth,
                                 block_rows=block_rows, mode=self.mode,
-                                chunk=self.chunk,
-                                kernel=self._kernel_at(block_rows),
+                                chunk=self.chunk, kernel=self.kernel,
                                 mesh=self.mesh, device=self.device)
 
     def shrink(self, block_rows: int):
         """Adopt a smaller Jacobi block size (the anneal's non-restore
-        branch); engines may return a replacement (the tail on the card
-        at block 1: the host native engine over the same MSA)."""
-        if self._kernel_at(block_rows) != self.kernel:
-            return self.respawn(self.msa, block_rows)
+        branch); engines may return a replacement (the resident engine
+        hands its tail to this one)."""
         self.block_rows = block_rows
         return self
 
-    def sweep(self) -> None:
+    def sweep(self, rows: int | None = None) -> None:
+        """One sweep. rows: a test hook of the serial sweeps (block 1 on
+        the native and the card's route) that ends the sweep after its
+        first `rows` rows, to compare the routes on a prefix of a sweep;
+        the program never sets it."""
         t0 = time.perf_counter()
-        self._sweep()
+        self._sweep(rows)
         dt = time.perf_counter() - t0
         cls = BatchedRealigner
         for table, v in ((cls.host_sweeps_by_route, 1),
@@ -777,13 +787,20 @@ class BatchedRealigner:
                      for table in (cls.host_sweeps_by_route,
                                    cls.host_sweep_s_by_route))
 
-    def _sweep(self) -> None:
+    def _sweep(self, rows: int | None = None) -> None:
         r = self.msa.shape[0]
         bs = self.block_rows
+        if bs == 1 and self._card_tail():
+            self._pending = None
+            self._sweep_serial_card(rows)
+            return
         if bs == 1 and self.kernel == "native" and self.mode == "exact":
             self._pending = None
-            self._sweep_serial_indirect(_native())
+            self._sweep_serial_indirect(_native(), rows)
             return
+        if rows is not None:
+            raise ValueError("rows= ends a serial sweep (block 1, exact "
+                             "band, kernel native or cuda) early")
         # block 1 drops empty columns and splices inserted ones at every
         # row (the reference's W_Con and Column_Adder). Larger blocks are
         # Jacobi already: freeze the column geometry for the sweep and
@@ -828,14 +845,15 @@ class BatchedRealigner:
         pend.sort(key=lambda t: (t[0], t[1], -t[2]))
         self._do_inserts([(g, k, b) for g, k, o, b in pend])
 
-    def _sweep_serial_indirect(self, nat) -> None:
+    def _sweep_serial_indirect(self, nat, rows: int | None = None) -> None:
         """Serial (reference-order Gauss-Seidel) sweep at block_rows=1
         through the native row DP, with the MSA in an over-allocated
         physical column store plus a logical->physical column index: a
         splice is an insert into the index plus one column write into a
         free slot, an empty-column drop the reverse (the reference's
         linked-list W_Con / Column_Adder, PW_ReAligner.c:706-763,
-        1245-1332). Bit-identical to the direct block-1 path."""
+        1245-1332). Bit-identical to the direct block-1 path. rows: the
+        sweep's test hook (`sweep`)."""
         msa, counts = self.msa, self.counts
         r, c = msa.shape
         bw = self.bandwidth
@@ -847,7 +865,7 @@ class BatchedRealigner:
         cphys[:c] = counts
         l2p = np.arange(c, dtype=np.int64)
         free = list(range(c, c + slack))
-        for k in range(r):
+        for k in range(r if rows is None else min(rows, r)):
             # W_Con: free empty columns before every row (counts-read)
             cl = cphys[l2p]
             keep = (cl[:, 0] | cl[:, 1] | cl[:, 2] | cl[:, 3]) > 0
@@ -915,6 +933,173 @@ class BatchedRealigner:
                 l2p = np.insert(l2p, gaps + 1, slots)
         self.msa = np.ascontiguousarray(phys[:, l2p])
         self.counts = np.ascontiguousarray(cphys[l2p])
+
+    def _sweep_serial_card(self, rows: int | None = None,
+                           slack: int | None = None) -> None:
+        """The serial sweep of `_sweep_serial_indirect`, step for step,
+        with its column store on the engine's device: the physical store
+        phys [R, C + slack] int8, its histogram cphys [C + slack, 6]
+        int32 and the logical->physical index l2p are uploaded once and
+        the MSA and its histogram downloaded once (phys[:, l2p],
+        cphys[l2p]). Each row, in sweep order: W_Con (the empty columns'
+        slots freed; their count is known from the previous row's read),
+        the row's gather and compaction (its base count is the
+        realignment-invariant row_lengths), kernels F and G at one row
+        against the current histogram (the row's own contribution
+        removed by F), the changed columns into cphys and phys, then the
+        row's one host read (the insert count, and how many columns
+        emptied; the walk's insert lists are sized by the row's bases) and
+        Column_Adder: the inserts in reverse discovery within their gap,
+        fills from the pre-splice neighbours (' ' next to a coverage gap,
+        '-' otherwise, ' ' after the last column), their histograms and
+        the index's insert. A row without bases becomes all ' '. The
+        free slots run out: compact and regrow, as on the host.
+
+        On CPU tensors F and G run their plain versions; on CUDA tensors
+        the kernels, and a failure raises (no route back to the host).
+        The trajectory does not depend on the memory budget: one row's
+        codes fit it (checked when the engine is made). slack: the
+        store's spare columns (the host sweep's max(4096, C // 8) by
+        default; a test hook for the regrow). rows: `sweep`'s hook."""
+        t0 = time.perf_counter()
+        dev = self.device
+        cuda = dev.type == "cuda"
+        r, c = self.msa.shape
+        bh = self.bandwidth // 2
+        if slack is None:
+            slack = max(4096, c // 8)
+        lens = row_lengths(self.msa)
+        i64, i32, i8 = torch.int64, torch.int32, torch.int8
+
+        def ar(n):
+            return torch.arange(n, dtype=i64, device=dev)
+
+        # the store, its free slots (a stack: the first nfree entries of
+        # `free`) and the logical order; rows index with int64 (the store
+        # passes 2**31 bytes at the paper's size)
+        phys = torch.full((r, c + slack), 5, dtype=i8, device=dev)
+        phys[:, :c] = torch.from_numpy(self.msa).to(dev)
+        cphys = torch.zeros((c + slack, 6), dtype=i32, device=dev)
+        cphys[:c] = torch.from_numpy(self.counts.astype(np.int32)).to(dev)
+        lens_d = torch.from_numpy(lens).to(dev)
+        free = torch.empty(c + slack, dtype=i64, device=dev)
+        free[:slack] = ar(slack) + c
+        nfree = slack
+        l2p = ar(c)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        events = _build.kernel_events
+        marks = {k: len(events.get(k, ())) for k in _FG} \
+            if events is not None else None
+        cc = c
+        # W_Con before the first row reads the host's histogram
+        ne = int((self.counts[:, 0:4].sum(axis=1) == 0).sum())
+        reads = splices = drops = regrows = 0
+        n_rows = r if rows is None else min(rows, r)
+        flat = cphys.view(-1)
+        # +1 and -1 for every column of a row: an unchanged column's cancel
+        one = torch.ones((), dtype=i32, device=dev)
+        for k in range(n_rows):
+            if ne:
+                # W_Con: free the empty columns' slots
+                keep = cphys.index_select(0, l2p)[:, 0:4].any(dim=1)
+                free[nfree:nfree + ne] = l2p.index_select(
+                    0, torch.nonzero_static(~keep, size=ne)[:, 0])
+                l2p = l2p.index_select(
+                    0, torch.nonzero_static(keep, size=cc - ne)[:, 0])
+                nfree += ne
+                cc -= ne
+                drops += ne
+                ne = 0
+            prow = phys[k]
+            row_old = prow.index_select(0, l2p)
+            ln = int(lens[k])
+            if ln:
+                way = torch.nonzero_static(row_old < 4, size=ln)[:, 0]
+                seq = row_old.index_select(0, way)[None]
+                way = way.to(i32)
+                ln_d = lens_d[k:k + 1]
+                codes, fband, fanf = ce.exact_fill(
+                    cphys.index_select(0, l2p), row_old[None], seq,
+                    way[None], ln_d, cc, bandwidth=self.bandwidth)
+                new, _, iy, ib, inn = ce.entry_and_backtrack(
+                    codes, fband, fanf, seq, (way - bh).clamp_(min=0)[None],
+                    (way[ln - 1:] - bh).clamp_(min=-1), ln_d, cc, cpad=cc,
+                    ins_cap=ln)
+                new = new[0]
+            else:
+                new = torch.full_like(row_old, 5)
+            at6 = l2p * 6
+            flat.index_add_(0, at6 + row_old, -one.expand(cc))
+            flat.index_add_(0, at6 + new, one.expand(cc))
+            prow.index_copy_(0, l2p, new)
+            if not ln:
+                continue            # no base left a column: none emptied
+            # only this row's changed columns can have emptied; the
+            # inserted ones hold its bases
+            keep = cphys.index_select(0, l2p)[:, 0:4].any(dim=1)
+            n, ne = torch.stack([inn[0].to(i64), (~keep).sum()]).tolist()
+            reads += 1
+            if not n:
+                continue
+            if nfree < n:
+                # the store's free slots ran out: compact and regrow
+                grow = max(4096, cc // 8) + n
+                ph2 = torch.full((r, cc + grow), 5, dtype=i8, device=dev)
+                ph2[:, :cc] = phys.index_select(1, l2p)
+                c2 = torch.zeros((cc + grow, 6), dtype=i32, device=dev)
+                c2[:cc] = cphys.index_select(0, l2p)
+                phys, cphys = ph2, c2
+                del ph2, c2
+                flat = cphys.view(-1)
+                l2p = ar(cc)
+                free = torch.empty(cc + grow, dtype=i64, device=dev)
+                free[:grow] = ar(grow) + cc
+                nfree = grow
+                regrows += 1
+            # the walk discovers inserts at non-increasing columns, so
+            # their reverse is the splice order: gap ascending, reverse
+            # discovery within a gap (Column_Adder); every fill against
+            # the pre-splice MSA (a free slot is invisible through l2p
+            # until spliced)
+            gaps = iy[0, :n].flip(0).to(i64)
+            slots = free[nfree - n:nfree].clone()
+            nfree -= n
+            prv = phys.index_select(1, l2p.index_select(0, gaps))
+            nxt = phys.index_select(1, l2p.index_select(
+                0, (gaps + 1).clamp_(max=cc - 1)))
+            cols = ((prv == 5) | (nxt == 5) | (gaps == cc - 1)).to(i8) + 4
+            cols[k] = ib[0, :n].flip(0)
+            phys.index_copy_(1, slots, cols)
+            cphys.index_copy_(0, slots, torch.zeros(
+                (n, 6), dtype=i32, device=dev).scatter_add_(
+                1, cols.t().to(i64), one.expand(n, r)))
+            # np.insert(l2p, gaps + 1, slots)
+            at = gaps + 1
+            out = torch.empty(cc + n, dtype=i64, device=dev)
+            out[ar(cc) + torch.searchsorted(at, ar(cc), right=True)] = l2p
+            out[at + ar(n)] = slots
+            l2p = out
+            cc += n
+            splices += n
+        if cuda:
+            torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        self.msa = phys.index_select(1, l2p).cpu().numpy()
+        self.counts = cphys.index_select(0, l2p).cpu().numpy()
+        t3 = time.perf_counter()
+        split = BatchedRealigner.card_serial_split
+        for key, v in (("sweeps", 1), ("rows", n_rows), ("s", t3 - t0),
+                       ("upload_s", t1 - t0), ("rows_s", t2 - t1),
+                       ("download_s", t3 - t2), ("host_reads", reads),
+                       ("splices", splices), ("drops", drops),
+                       ("regrows", regrows)):
+            split[key] += v
+        if marks is not None:
+            split["kernel_s"] += sum(
+                a.elapsed_time(b) for k in _FG
+                for a, b in events.get(k, [])[marks[k]:]) / 1e3
 
     def _realign_block(self, rows: list[int]) -> None:
         t0 = time.perf_counter()
@@ -1166,13 +1351,14 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
     staircase with kernel "cuda" above block 1 runs the resident engine
     (kernels A and B) on `device`: "cuda", or "cpu" for the plain torch
     versions; RR_RESIDENT=0 keeps the MSA on the host instead
-    (`BatchedRealigner`). Under "auto", block 1 runs on the host native
-    engine, and kernel="auto" hands a run resumed inside the anneal's
-    tail (a block size below RESIDENT_MIN_BS) to the tail's engine
-    (`tail_kernel`: kernels F and G on a CUDA device, the host native
-    engine at block 1 and on the CPU), as the resident engine's own
-    shrink() does; kernel="cuda" keeps such a run on the resident engine
-    (the JAX package's explicit "pallas").
+    (`BatchedRealigner`). Under "auto", block 1 runs on the tail's
+    engine (`tail_kernel`: the serial sweep through kernels F and G over
+    a column store on a CUDA device, the host native engine on the CPU
+    and on a mesh), and kernel="auto" hands a run resumed inside the
+    anneal's tail (a block size below RESIDENT_MIN_BS) to the tail's
+    engine, as the resident engine's own shrink() does; kernel="cuda"
+    keeps such a run on the resident engine above block 1 (the JAX
+    package's explicit "pallas").
 
     mesh: a parallel/sharded.Mesh. Each block's rows are sharded over
     its ranks, the histogram delta summed over them, on the
@@ -1218,9 +1404,12 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
             kernel == "auto" and ck_bs
             and ck_bs < DeviceResidentRealigner.RESIDENT_MIN_BS):
         # the anneal's tail (1 = the reference's serial Gauss-Seidel):
-        # kernels F and G on a CUDA device, the host native engine at
-        # block 1 and on the CPU
-        mode, kernel = "exact", tail_kernel(bs, device)
+        # kernels F and G on a CUDA device, the host native engine on the
+        # CPU, when asked for, and at block 1 on a mesh (every rank runs
+        # the serial sweep on its host)
+        host = kernel == "native" or (mesh is not None and bs == 1)
+        mode, kernel = "exact", ("native" if host
+                                 else tail_kernel(bs, device))
     if mode == "auto":
         mode = "exact" if kernel == "native" else "staircase"
     if kernel == "auto":

@@ -143,8 +143,9 @@ class DeviceResidentRealigner(BatchedRealigner):
     band, kernels A and B; the exact band's blocks through kernels F and
     G on a CUDA device; block_rows > 1). The anneal hands block sizes
     below RESIDENT_MIN_BS to the tail's engine (`tail_kernel`): on a
-    CUDA device the non-resident exact engine through kernels F and G,
-    on the CPU and at block 1 the host native engine."""
+    CUDA device the non-resident exact engine through kernels F and G
+    (block 1 too: the serial sweep over a column store on the card), on
+    the CPU the host native engine."""
 
     # below this block size the anneal continues on the non-resident
     # engine (the JAX package's threshold and its variable,

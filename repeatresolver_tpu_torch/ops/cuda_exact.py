@@ -16,8 +16,8 @@ banded_realign.py (`banded_fill`, `entry_scan`, `entry_and_backtrack`):
     [ceil(L/16), B, 16], and the entry column and best value a row.
   * `entry_and_backtrack`: the walk, then the rows and insert lists
     (cuda_backtrack.moves_to_outputs), the lists as wide as the walk's
-    largest insert count (at least MAX_INSERTS): any count is listed, as
-    the host native engine lists it.
+    largest insert count (at least MAX_INSERTS; or a bound the caller
+    gives): any count is listed, as the host native engine lists it.
 
 The walk is the lockstep walk of banded_realign.entry_and_backtrack,
 one x-move a position: below the band (reachable only by a diagonal from
@@ -319,17 +319,22 @@ def _insert_counts(moves, lengths):
 
 
 def entry_and_backtrack(codes, final_band, final_anf, seqs, anf_full,
-                        entry_bound, lengths, ncols: int, *, cpad: int):
+                        entry_bound, lengths, ncols: int, *, cpad: int,
+                        ins_cap: int | None = None):
     """The walk over exact_fill's codes, then the rows and insert lists:
     (new_rows int8 [B, cpad], best int32 [B], ins_y int32 [B, K],
     ins_base int8 [B, K], ins_n int32 [B]) with K the largest insert
-    count of the block, at least MAX_INSERTS (one host read)."""
+    count of the block, at least MAX_INSERTS (one host read), or
+    `ins_cap` from a caller that knows a bound (no host read): a row
+    inserts at most its bases."""
     moves, _wayin, best = exact_walk(codes, final_band, final_anf,
                                      entry_bound, anf_full, lengths, ncols,
                                      cpad=cpad)
     nw, b, _ = moves.shape
     if nw * 16 != seqs.shape[1]:
         seqs = torch.nn.functional.pad(seqs, (0, nw * 16 - seqs.shape[1]))
-    most = int(_insert_counts(moves, lengths).max()) if b else 0
+    if ins_cap is None:
+        most = int(_insert_counts(moves, lengths).max()) if b else 0
+        ins_cap = max(br.MAX_INSERTS, most)
     return moves_to_outputs(moves, seqs, lengths, best, cpad=cpad,
-                            ins_cap=max(br.MAX_INSERTS, most))
+                            ins_cap=ins_cap)

@@ -2,7 +2,7 @@
 
     python -m repeatresolver_tpu_torch.paper_card run --workdir DIR
         --out DIR [--deadline-s S] [--realign-limit-s S]
-        [-- paper_run flags]
+        [--serial-rows N] [-- paper_run flags]
 
 `run` drives repeatresolver_tpu_torch.paper_run one stage at a time,
 each in a process of its own (`--until STAGE`: the driver skips the
@@ -16,8 +16,10 @@ reads, and for realign the resident sweeps (each sweep's seconds and its
 exact-band blocks and their seconds by route), the anneal tail's sweeps
 and seconds by route (kernels F and G: "cuda"; the host native engine:
 "native") and block size, the split of its blocks on the card (host
-work, transfers, device, inside F and G, flushes), the best-MSA writes
-and the waits for them, and the scorelog's line count over time.
+work, transfers, device, inside F and G, flushes) and of its serial
+sweeps at block 1 on the card (upload, download, row steps, inside F
+and G, host reads, splices, drops, regrows), the best-MSA writes and
+the waits for them, and the scorelog's line count over time.
 Between the stages it runs four checks on the run's own files:
 
   trajectory  after align: 2 rounds at the run's band and block of the
@@ -30,7 +32,10 @@ Between the stages it runs four checks on the run's own files:
   tail        after align: one sweep at the anneal's first tail block
               (the run's block // 4, 16 at the defaults) through
               kernels F and G on the card against the host native
-              engine from the same MSA: the MSA and its histogram equal
+              engine from the same MSA, then the first --serial-rows
+              rows (512) of a block-1 sweep on both routes (the serial
+              sweep over the column store on the card; the sweep's rows=
+              hook ends it): each time the MSA and its histogram equal
               byte for byte;
   maxcorr     after maxcorr (not beside it: the device scan is timed
               alone): the stage's MaxCorrs against the host fast scan
@@ -162,6 +167,7 @@ def _measured(fn, dev_type):
     c["host"].host_sweeps_by_route = {}
     c["host"].host_sweep_s_by_route = {}
     c["host"].card_tail_split = dict.fromkeys(c["host"].CARD_SPLIT, 0)
+    c["host"].card_serial_split = dict.fromkeys(c["host"].SERIAL_SPLIT, 0)
     c["dev"].resident_sweep_s = 0.0
     c["dev"].exact_blocks_run = dict.fromkeys(c["dev"].ROUTES, 0)
     c["dev"].exact_block_s = dict.fromkeys(c["dev"].ROUTES, 0.0)
@@ -193,6 +199,7 @@ def _measured(fn, dev_type):
            "tail_sweeps": _by_route(c["host"].host_sweeps_by_route),
            "tail_sweep_s": _by_route(c["host"].host_sweep_s_by_route),
            "tail_card_split": dict(c["host"].card_tail_split),
+           "card_serial_split": dict(c["host"].card_serial_split),
            "exact_blocks": dict(c["dev"].exact_blocks_run),
            "exact_block_s": dict(c["dev"].exact_block_s),
            "resident_sweeps": list(c["dev"].sweep_log),
@@ -314,21 +321,35 @@ def step_check(a, driver_args):
         msa = rio.read_msa(f["msa"])
         bs = max(1, args.block_rows // 4)
 
-        def sweep(kernel, device):
+        def sweep(kernel, device, bs, rows=None):
             eng = realigner.BatchedRealigner(
                 msa.copy(), bandwidth=args.band, block_rows=bs,
                 mode="exact", kernel=kernel, device=device)
             eng.ent_al_gapper()
-            eng.sweep()
+            eng.sweep(rows=rows)
             return eng
-        card, rec["card"] = _measured(lambda: sweep("cuda", dev), dev.type)
-        host, rec["host_native"] = _measured(lambda: sweep("native", "cpu"),
-                                             "cpu")
+
+        def same(card, host):
+            return bool(np.array_equal(card.msa, host.msa)
+                        and np.array_equal(card.counts, host.counts))
+        card, rec["card"] = _measured(lambda: sweep("cuda", dev, bs),
+                                      dev.type)
+        host, rec["host_native"] = _measured(
+            lambda: sweep("native", "cpu", bs), "cpu")
         rec.update(shape=list(msa.shape), block_rows=bs,
                    widths=[card.width(), host.width()],
                    pairs=[card.overall_pair(), host.overall_pair()],
-                   equal=bool(np.array_equal(card.msa, host.msa)
-                              and np.array_equal(card.counts, host.counts)))
+                   equal=same(card, host))
+        del card, host
+        n = a.serial_rows
+        serial = {"rows": min(n, msa.shape[0])}
+        card, serial["card"] = _measured(
+            lambda: sweep("cuda", dev, 1, rows=n), dev.type)
+        host, serial["host_native"] = _measured(
+            lambda: sweep("native", "cpu", 1, rows=n), "cpu")
+        serial.update(widths=[card.width(), host.width()],
+                      equal=same(card, host))
+        rec["serial"] = serial
     elif a.step == "probe:maxcorr":
         msareal = rio.read_msa(f["msareal"])
         mc, rec["device"] = _measured(
@@ -442,7 +463,8 @@ def _run_group(steps, a, report, driver_args, deadline):
             procs.append((step, log, _popen(
                 [sys.executable, "-m", PROG, "step", "--step", step,
                  "--workdir", a.workdir, "--out", a.out, "--report",
-                 report, "--"] + driver_args, log)))
+                 report, "--serial-rows", str(a.serial_rows), "--"]
+                + driver_args, log)))
         for step, _, p in procs:
             until = deadline
             if step == "realign" and a.realign_limit_s:
@@ -519,6 +541,9 @@ def main(argv=None):
     ap.add_argument("--realign-limit-s", type=float, default=0.0,
                     help="stop realign after this long and measure the "
                     "later stages on its best MSA so far (0: no limit)")
+    ap.add_argument("--serial-rows", type=int, default=512,
+                    help="rows of the block-1 sweep that the tail check "
+                    "runs on both routes")
     a = ap.parse_args(argv)
     if a.command == "run":
         return run(a, driver_args)

@@ -29,8 +29,8 @@ no GPU; nothing falls back to the CPU):
         align through kernels C and D (the full edit DP: --align-band
         is ignored, as the JAX package's device route has no band), the
         resident realign engine (kernels A and B; the anneal tail below
-        RESIDENT_MIN_BS on kernels F and G, block 1 on the host native
-        engine), MaxCorrs through
+        RESIDENT_MIN_BS on kernels F and G, block 1's serial sweep
+        too), MaxCorrs through
         maxcorr.compute_maxcorrs_routed (the device scan at the sizes
         its gate names), resolve with the exact products on the card.
 """

@@ -730,3 +730,46 @@ def test_exact_wrappers_reject_bad_input(dev):
         ce.exact_walk(codes, band, anf, lengths,
                       ways[:, :16].contiguous(), lengths,
                       ncols, cpad=rows.shape[1])
+
+
+def serial_msa(seed, rows, tlen, d=0.06):
+    """tests/test_realigner_device.make_msa's MSA, without jax: rows of a
+    template with substitutions, '-' and ragged ends."""
+    rng = np.random.default_rng(seed)
+    template = rng.integers(0, 4, tlen)
+    msa = np.full((rows, tlen), 5, np.int8)
+    for k in range(rows):
+        row = template.copy()
+        muts = rng.random(tlen) < d
+        row[muts] = rng.integers(0, 4, int(muts.sum()))
+        row[rng.random(tlen) < 0.08] = 4
+        lo = rng.integers(0, tlen // 8)
+        hi = tlen - rng.integers(0, tlen // 8)
+        msa[k, lo:hi] = row[lo:hi]
+    return msa
+
+
+@pytest.mark.parametrize("w,slack", [(96, None), (1000, None), (96, 0)])
+def test_serial_sweep_on_the_card_matches_host(dev, w, slack):
+    """Two block-1 sweeps on the card (BatchedRealigner._sweep_serial_card:
+    kernels F and G a row over the column store on the device; slack 0
+    regrows the store at the first insert) equal the host serial sweep
+    on the native engine, MSA and histogram, after each sweep; F and G
+    launch once a row with bases."""
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.ops import cuda_exact as ce
+    msa = serial_msa(5, rows=24, tlen=1500)
+    msa[7] = 5                                  # a row without bases
+    card = prt.BatchedRealigner(msa.copy(), bandwidth=w, block_rows=1,
+                                mode="exact", kernel="cuda", device=dev)
+    host = prt.BatchedRealigner(msa.copy(), bandwidth=w, block_rows=1,
+                                mode="exact", kernel="native", device="cpu")
+    f0, g0 = ce.exact_fill.launches, ce.exact_walk.launches
+    for _ in range(2):
+        card._sweep_serial_card(slack=slack)
+        host.sweep()
+        np.testing.assert_array_equal(card.msa, host.msa)
+        np.testing.assert_array_equal(card.counts, host.counts)
+    assert ce.exact_fill.launches - f0 == ce.exact_walk.launches - g0 \
+        == 2 * 23
+    torch.cuda.synchronize()

@@ -12,7 +12,8 @@ that carries the first report's trajectory and tail lines, which skips
 those checks), resumes realign from its checkpoint and runs the later
 stages beside their checks. Every check holds (the tail's: one sweep at
 block 4 through the card's tail engine, here on CPU tensors, equal to
-the host native engine), and the work directory's files
+the host native engine, then the first SERIAL_ROWS rows of a block-1
+sweep on both routes), and the work directory's files
 equal a straight paper_run's, the probe files aside (the scorelog and
 stage_times.json as in test_torch_paper_run's interrupted realign).
 """
@@ -29,6 +30,7 @@ ARGS = ["-c", "30", "-n", "4", "-l", "2000", "-d", "2", "--seed", "7",
         "--threads", "2", "--device", "cpu"]
 NAME = "Tree_2perc_2000kb"
 LIMIT_S = 20
+SERIAL_ROWS = 6
 TIMEOUT_S = 400
 HOLD_THIRD_SWEEP = """
 import sys
@@ -74,6 +76,7 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
     wd, out1, out2 = (tmp_path / k for k in ("work", "out1", "out2"))
 
     stdout, rep = card_run(wd, out1, "--realign-limit-s", str(LIMIT_S),
+                           "--serial-rows", str(SERIAL_ROWS),
                            pythonpath=[str(hold)])
     assert "status: realign limit" in stdout
     assert list(rep) == ["simulate", "cut", "align", "check:trajectory",
@@ -85,6 +88,11 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
     assert tail["card"]["tail_sweeps"] == {"cuda": {"4": 1}}
     assert tail["card"]["tail_card_split"]["blocks"] > 0
     assert tail["host_native"]["tail_sweeps"] == {"native": {"4": 1}}
+    serial = tail["serial"]
+    assert serial["equal"] and serial["rows"] == SERIAL_ROWS
+    assert serial["card"]["tail_sweeps"] == {"cuda": {"1": 1}}
+    assert serial["card"]["card_serial_split"]["rows"] == SERIAL_ROWS
+    assert serial["host_native"]["tail_sweeps"] == {"native": {"1": 1}}
     assert rep["realign"]["stopped"]
     start = rep["realign"]["checkpoint"]["round"]
     assert 1 <= start <= 2

@@ -1,16 +1,16 @@
 """The anneal's tail on the card (models/realigner.py::tail_kernel): below
-the resident engine's smallest block, blocks 2 and up run on the
-non-resident exact engine through kernels F and G, block 1 on the host's
-serial sweep, and an engine on the CPU keeps the host native engine.
-Inputs are numpy arrays from a seed; every comparison is exact (integer
-DP, byte-equal MSAs).
+the resident engine's smallest block, every block runs on the
+non-resident exact engine through kernels F and G (block 1 as the serial
+sweep over a column store on the card, `_sweep_serial_card`), and an
+engine on the CPU keeps the host native engine. Inputs are numpy arrays
+from a seed; every comparison is exact (integer DP, byte-equal MSAs).
 
   * the route function at blocks 31, 16, 4, 2 and 1 on "cuda" and on
     "cpu", and the three places that choose the tail's engine through
     it: the resident engine's shrink() and respawn() and a resume of
-    realign_batched inside the tail (at checkpoint blocks 16 and 1), on
-    a stood-in card (F and G's libraries stood in for, tensors that
-    claim the card stay on the CPU);
+    realign_batched inside the tail (at checkpoint blocks 16 and 1, on
+    the card and on the CPU), on a stood-in card (F and G's libraries
+    stood in for, tensors that claim the card stay on the CPU);
   * the tail 16 -> 4 -> 1 through the card's engine class
     (BatchedRealigner(mode="exact", kernel="cuda")) on CPU tensors, where
     kernels F and G run their plain versions: score log and final MSA
@@ -42,7 +42,7 @@ torch.set_num_threads(2)
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("bs", [31, 16, 4, 2, 1])
 def test_tail_kernel_route(bs, device):
-    want = "cuda" if device == "cuda" and bs >= 2 else "native"
+    want = "cuda" if device == "cuda" else "native"
     assert prt.tail_kernel(bs, device) == want
     assert prt.tail_kernel(bs, torch.device(device)) == want
 
@@ -61,9 +61,9 @@ def on_card(fake_card, monkeypatch):  # noqa: F811
 
 def test_resident_hands_the_tail_to_f_and_g(on_card):
     """shrink() and respawn() of the resident engine on the card take
-    the non-resident exact engine on the card at blocks 16 and 4 (its
-    own shrink and respawn keep it there) and the host native engine at
-    block 1; on the CPU every tail block takes the host native engine."""
+    the non-resident exact engine on the card at blocks 16, 4 and 1 (its
+    own shrink and respawn keep it there, block 1 included); on the CPU
+    every tail block takes the host native engine."""
     msa = make_msa(3, rows=40, tlen=240)
     eng = prd.DeviceResidentRealigner(msa, bandwidth=96, block_rows=64,
                                       device="cuda")
@@ -75,12 +75,12 @@ def test_resident_hands_the_tail_to_f_and_g(on_card):
     assert _kind(eng.respawn(msa, 4)) == ("BatchedRealigner", "exact",
                                           "cuda", 4)
     assert _kind(eng.respawn(msa, 1)) == ("BatchedRealigner", "exact",
-                                          "native", 1)
+                                          "cuda", 1)
     assert tail.shrink(4) is tail and tail.block_rows == 4
     assert _kind(tail.respawn(msa, 2)) == ("BatchedRealigner", "exact",
                                            "cuda", 2)
-    assert _kind(tail.shrink(1)) == ("BatchedRealigner", "exact", "native",
-                                     1)
+    assert tail.shrink(1) is tail
+    assert _kind(tail) == ("BatchedRealigner", "exact", "cuda", 1)
     cpu = prd.DeviceResidentRealigner(msa, bandwidth=96, block_rows=64,
                                       device="cpu")
     for bs in (16, 4, 1):
@@ -94,12 +94,13 @@ class _Started(Exception):
     pass
 
 
-@pytest.mark.parametrize("ck_bs,kernel", [(16, "cuda"), (1, "native")])
+@pytest.mark.parametrize("ck_bs,kernel", [(16, "cuda"), (1, "native"),
+                                         (1, "cuda"), (16, "native")])
 def test_resume_inside_the_tail(on_card, monkeypatch, tmp_path, ck_bs,
                                 kernel):
     """realign_batched resumed from a checkpoint inside the tail makes
-    the tail's engine: F and G on the card at block 16, the host native
-    engine at block 1."""
+    the tail's engine: F and G on the card at blocks 16 and 1 (kernel
+    "cuda"), the host native engine on the CPU (kernel "native")."""
     from repeatresolver_tpu_torch.utils import checkpoint as ckpt
     msa = make_msa(3, rows=24, tlen=240)
     path = str(tmp_path / "ck")
@@ -118,8 +119,8 @@ def test_resume_inside_the_tail(on_card, monkeypatch, tmp_path, ck_bs,
         prt.realign_batched(msa, RealignerConfig(bandwidth=96,
                                                  block_rows=64),
                             checkpoint_path=path, resume=True,
-                            device="cuda")
-    device = torch.device("cuda") if kernel == "cuda" else "cuda"
+                            device="cuda" if kernel == "cuda" else "cpu")
+    device = torch.device("cuda") if kernel == "cuda" else "cpu"
     assert made == [("Recording", "exact", kernel, ck_bs, device)]
 
 
@@ -132,9 +133,10 @@ def _run(msa, w, kernel, log, **kw):
 @pytest.mark.parametrize("w,tlen", [(96, 260), (800, 900)])
 def test_tail_on_the_card_engine_matches_native(monkeypatch, w, tlen):
     """The tail 16 -> 4 -> 1 through the card's engine class on CPU
-    tensors equals the port's native engine and the JAX package's native
-    route, score log and final MSA, byte for byte (RR_FLUSH_CAP high for
-    the JAX run, as for the port's; the cap is shared code)."""
+    tensors (block 1: its serial sweep over the column store) equals the
+    port's native engine and the JAX package's native route, score log
+    and final MSA, byte for byte (RR_FLUSH_CAP high for the JAX run, as
+    for the port's; the cap is shared code)."""
     from repeatresolver_tpu.config import RealignerConfig as JCfg
     from repeatresolver_tpu.models import realigner as jr
     monkeypatch.setenv("RR_FLUSH_CAP", str(1 << 30))
@@ -142,6 +144,8 @@ def test_tail_on_the_card_engine_matches_native(monkeypatch, w, tlen):
     monkeypatch.setattr(cls, "host_sweeps_by_route", {})
     monkeypatch.setattr(cls, "card_tail_split",
                         dict.fromkeys(cls.CARD_SPLIT, 0))
+    monkeypatch.setattr(cls, "card_serial_split",
+                        dict.fromkeys(cls.SERIAL_SPLIT, 0))
     msa = make_msa(17, rows=36, tlen=tlen)
     log_c, log_n, log_j = [], [], []
     out_c = _run(msa, w, "cuda", log_c)
@@ -153,12 +157,13 @@ def test_tail_on_the_card_engine_matches_native(monkeypatch, w, tlen):
     assert log_c == log_n == log_j and min(log_c) < log_c[0]
     np.testing.assert_array_equal(out_c, out_n)
     np.testing.assert_array_equal(out_c, np.asarray(out_j))
-    # blocks 16 and 4 on the card's engine, block 1 on the host's
-    # serial sweep
-    assert sorted(sweeps["cuda"]) == [4, 16] and list(sweeps["native"]) \
-        == [1]
+    # blocks 16, 4 and 1 on the card's engine, none on the host's
+    assert sorted(sweeps["cuda"]) == [1, 4, 16] and "native" not in sweeps
     split = cls.card_tail_split
     assert split["blocks"] > 0 and split["s"] >= split["device_s"] > 0
+    serial = cls.card_serial_split
+    assert serial["sweeps"] == sweeps["cuda"][1]
+    assert serial["rows"] == serial["sweeps"] * msa.shape[0]
     # the engine's chunk (128 at band 800) does not enter the exact band
     eng = cls(msa, bandwidth=w, block_rows=16, mode="exact", kernel="cuda",
               device="cpu")
