@@ -7,7 +7,7 @@ Phases (each raises on failure, or when jax or any module of the JAX
 package repeatresolver_tpu was imported, so any failure exits non-zero):
 
   1. card and build: the card's name, power limit and SM clock, torch /
-     CUDA versions, the nvcc build of the seven kernels from csrc/ (one
+     CUDA versions, the nvcc build of the eight kernels from csrc/ (one
      nvcc each, started together) and the g++ build of the port's host
      library;
   2. kernels vs plain versions, small random blocks (gap-dense paths,
@@ -192,7 +192,21 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      same stages; .done: the same rounds; the realign checkpoint, an
      npz whose zip members carry their write time: the same arrays).
      Kernels A-D must each have launched, the plain edit-DP loop and the
-     exact band's torch loop not at all.
+     exact band's torch loop not at all;
+ 14. resolve on the card (kernel H, relative_vars' pair pass, and the
+     card route of models/resolver.resolve_window): phase 6's windows
+     through the card route, with H's launch count set to 0 before, each
+     window's three subdivision files byte-equal to the host route's
+     (device "cpu"), H launched, the host route's candidate statistics
+     and relative_vars never called; a synthetic window at the paper
+     run's shape (3,000 rows of 100 copy groups over 17,733 columns,
+     MaxCorrs from the device scan) through the card route, timed with
+     its split; H against its plain version on every launch recorded
+     in both (bit-equal marks and table bits); the host route's
+     relative_vars on the synthetic window's clusters for
+     RELVARS_HOST_S seconds, the same var lists; H's time (the launch
+     alone, median of KERNEL_REPS) and its plain version's on the
+     synthetic window's lookup launch, beside its bound.
 
 Every process a phase starts gets a time limit and is stopped when it
 passes it; a rank that fails or hangs fails the phase, and so does a
@@ -248,6 +262,12 @@ KERNELS = {
         source="repeatresolver_tpu_torch/csrc/exact_walk.cu",
         replaces="repeatresolver_tpu/ops/banded_realign.py:210-244, "
                  ":247-401 (XLA)"),
+    # kernel H replaces host numpy code of the JAX package: the pair loop
+    # of relative_vars
+    "resolver_pairs": dict(
+        source="repeatresolver_tpu_torch/csrc/resolver_pairs.cu",
+        replaces="repeatresolver_tpu/models/resolver.py:534-570 "
+                 "(relative_vars' pair loop, host numpy)"),
 }
 # the path whose launches stand in a kernel's `launches`
 MAIN_PATH = {"staircase_fill": "realign_tpu_converge",
@@ -255,7 +275,8 @@ MAIN_PATH = {"staircase_fill": "realign_tpu_converge",
              "editdp_fill": "pipeline_615", "editdp_walk": "pipeline_615",
              "maxcorr_tile": "pipeline_615",
              "exact_fill": "realign_tpu_converge",
-             "exact_walk": "realign_tpu_converge"}
+             "exact_walk": "realign_tpu_converge",
+             "resolver_pairs": "pipeline_615"}
 REALIGN_KERNELS = ("staircase_fill", "walk_backtrack")
 
 
@@ -294,11 +315,12 @@ def launch_counters():
     from repeatresolver_tpu_torch.ops import cuda_exact as cx
     from repeatresolver_tpu_torch.ops import cuda_maxcorr as cm
     from repeatresolver_tpu_torch.ops import cuda_realign as cr
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     return {"staircase_fill": cr.staircase_fill,
             "walk_backtrack": cb.backtrack_moves,
             "editdp_fill": ce.editdp_fill, "editdp_walk": ce.editdp_walk,
             "maxcorr_tile": cm.maxcorr_group, "exact_fill": cx.exact_fill,
-            "exact_walk": cx.exact_walk}
+            "exact_walk": cx.exact_walk, "resolver_pairs": cv.pair_pass}
 
 
 def reset_launches():
@@ -1003,6 +1025,7 @@ def pipeline_phase(card, dev, errs):
     cuda_maxcorr.maxcorr_group.tiles = 0
     reset_exact_blocks()
     reset_tail()
+    pres.resolve_window.log = []
     # every resolver product to the card: at 615 rows no product reaches
     # the JAX package's 3e9-op gate
     os.environ["RR_DEVICE_MM_MIN"] = "0"
@@ -1035,6 +1058,9 @@ def pipeline_phase(card, dev, errs):
             stage_s[stage] = stage_s.get(stage, 0.0) + t - t_prev
             t_prev = t
     ex = exact_blocks()
+    print_resolve_records("pipeline-615's resolve",
+                          sorted(pres.resolve_window.log,
+                                 key=lambda r: r["window"]), card)
     print(f"device routes fired in the pipeline run: {fired}; "
           f"exact blocks by route {ex}")
     check_exact_routes("pipeline-615", ex)
@@ -1143,6 +1169,7 @@ def pipeline_phase(card, dev, errs):
     # one window's subdivisions with every product on the host; the
     # window again with every product on the card, for its time
     von, bis = window_boundaries(real, WindowConfig())[:2]
+    pres.resolve_window.log = []
     t1 = time.perf_counter()
     os.environ["RR_RESOLVER_DEVICE"] = "0"
     calls = devmm.matmul_t.device_calls
@@ -1164,6 +1191,8 @@ def pipeline_phase(card, dev, errs):
     print(f"window {von}-{bis} resolve: {t_host:.2f} s with host "
           f"products, {time.perf_counter() - t1:.2f} s with "
           f"{devmm.matmul_t.device_calls - calls} products on {card}")
+    print_resolve_records("RR_RESOLVER_DEVICE=0, then RR_DEVICE_MM_MIN=0:",
+                          pres.resolve_window.log, card)
     for kind, u in res.items():
         name = rio.subdivision_path(kind, von, bis, PIPE_NAME + "_MSAreal")
         rio.write_subdivision(os.path.join(hdir, name), u)
@@ -2657,12 +2686,13 @@ from repeatresolver_tpu_torch.ops import cuda_editdp as ce
 from repeatresolver_tpu_torch.ops import cuda_exact as cx
 from repeatresolver_tpu_torch.ops import cuda_maxcorr as cm
 from repeatresolver_tpu_torch.ops import cuda_realign as cr
+from repeatresolver_tpu_torch.ops import cuda_resolver as cv
 from repeatresolver_tpu_torch.ops import editdp, maxcorr_tile
 counters = dict(staircase_fill=cr.staircase_fill,
                 walk_backtrack=cb.backtrack_moves,
                 editdp_fill=ce.editdp_fill, editdp_walk=ce.editdp_walk,
                 maxcorr_tile=cm.maxcorr_group, exact_fill=cx.exact_fill,
-                exact_walk=cx.exact_walk)
+                exact_walk=cx.exact_walk, resolver_pairs=cv.pair_pass)
 plain = (editdp.forward_plain, editdp.walk_plain,
          maxcorr_tile.group_pass_plain, br.banded_fill)
 kept = {"blocks": {}}
@@ -2855,6 +2885,290 @@ def paper_driver_phase(card, errs):
           f"{first}, resumed {resumed}; the first three processes "
           f"{t_first:.1f} s, the resume {t_resume:.1f} s, on {card}")
     return straight
+
+
+RESOLVE_ROWS, RESOLVE_COPIES, RESOLVE_COLS = 3000, 100, 17733
+# seconds the host route's relative_vars gets on the synthetic window
+RELVARS_HOST_S = 60.0
+
+
+def resolve_window_msa(seed=0, rows=RESOLVE_ROWS, copies=RESOLVE_COPIES,
+                       cols=RESOLVE_COLS):
+    """A resolver window at the paper run's shape: `rows` rows of
+    `copies` copy groups (row i of copy i % copies) over `cols` columns,
+    every row covering the window. SNPs follow a random binary tree of
+    the copies: two columns an edge, the clade below carrying another
+    base; then 1% substitutions and 1% gaps as noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    consensus = rng.integers(0, 4, cols).astype(np.int8)
+    clades = []
+
+    def split(ids):
+        clades.append(ids)
+        if len(ids) > 1:
+            cut = int(rng.integers(1, len(ids)))
+            split(ids[:cut])
+            split(ids[cut:])
+    split(rng.permutation(copies))
+    hap = np.tile(consensus, (copies, 1))
+    snp = rng.choice(cols, 2 * (len(clades) - 1), replace=False)
+    for j, col in enumerate(snp):
+        hap[clades[1 + j // 2], col] = (consensus[col] + 1
+                                        + rng.integers(0, 3)) % 4
+    msa = hap[np.arange(rows) % copies]
+    noise = rng.random((rows, cols))
+    msa[noise < 0.01] = rng.integers(0, 4, int((noise < 0.01).sum()))
+    msa[(noise >= 0.01) & (noise < 0.02)] = 4
+    return np.ascontiguousarray(msa.astype(np.int8))
+
+
+def recording_pairs(rec):
+    """Stand-in for ops/cuda_resolver as the resolver sees it: every
+    pair_pass call's inputs (clones) go to the list `rec` before the
+    kernel runs."""
+    from repeatresolver_tpu_torch.models import resolver as pres
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+
+    def pair_pass(p, tables, marked, count=False):
+        rec.append((cv.PairPass(**{k: v.clone() for k, v in
+                                   vars(p).items()}),
+                    tables.clone(), count))
+        return cv.pair_pass(p, tables, marked, count)
+
+    @contextlib.contextmanager
+    def ctx():
+        pres.cv = types.SimpleNamespace(**{**vars(cv),
+                                           "pair_pass": pair_pass})
+        try:
+            yield
+        finally:
+            pres.cv = cv
+    return ctx()
+
+
+def pair_pass_bound(p, sm_count, sm_hz):
+    """(ms, by, detail) of the least time for kernel H's work on p: the
+    pairs its inputs hold (sel[b] >= sel[a] + ROW_GAP within a cluster),
+    each word of a pair an AND, a popcount and an add of 64 bits (two
+    int32 operations each but the add), each pair 8 more (its table
+    index, shift, load and test), over the card's int32 rate; the bytes
+    of its inputs and marks read and written once."""
+    import numpy as np
+
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    sel = p.sel.cpu().numpy().astype(np.int64)
+    off = p.row_off.cpu().numpy()
+    words = p.words.cpu().numpy()
+    pairs = word_pairs = 0
+    for k in range(len(words)):
+        s = sel[off[k]:off[k + 1]]
+        n = int((s.size - np.searchsorted(s, s + cv.ROW_GAP)).sum())
+        pairs += n
+        word_pairs += n * int(words[k])
+    ops = word_pairs * 5 + pairs * 8
+    rate = sm_count * 64 * sm_hz
+    nbytes = sum(int(x.numel()) * x.element_size() for x in vars(p).values()
+                 ) + int(p.nrows)
+    ms_ops, ms_bytes = ops / rate * 1e3, nbytes / 3.35e12 * 1e3
+    by = "operations" if ms_ops >= ms_bytes else "bytes"
+    return (max(ms_ops, ms_bytes), by,
+            f"{pairs:,} pairs, {word_pairs:,} pair-words, {ops:.4g} int32 "
+            f"operations over {sm_count} SMs x 64 lanes x "
+            f"{sm_hz / 1e6:.0f} MHz = {ms_ops:.4g} ms; {nbytes:,} bytes "
+            f"over 3.35 TB/s = {ms_bytes:.4g} ms")
+
+
+def replay_pairs(rec, label, dev):
+    """Kernel H against its plain version on recorded inputs; returns
+    the largest difference of a mark or a table word (0 or 1)."""
+    import torch
+
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    worst = 0
+    for p, tables, count in rec:
+        got = []
+        for run in (cv.pair_pass, cv.pair_pass_plain):
+            t = torch.zeros_like(tables) if count else tables
+            m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+            run(p, t, m, count)
+            got.append((t if count else m).cpu())
+        diff = int((got[0] != got[1]).sum())
+        worst = max(worst, int(diff > 0))
+        if diff:
+            raise AssertionError(f"{label}: kernel H != pair_pass_plain "
+                                 f"({'count' if count else 'lookup'} mode, "
+                                 f"{diff} entries differ)")
+    print(f"{label}: kernel H bit-equal to pair_pass_plain on {len(rec)} "
+          f"recorded launches ({sum(c for *_, c in rec)} in counting mode)")
+    return worst
+
+
+def print_resolve_records(label, records, card):
+    """One line a resolve_window record: seconds, split, tallies."""
+    for r in records:
+        split = ", ".join(f"{k} {v:.2f}" for k, v in r["split"].items()
+                          if v >= 0.005)
+        tallies = {k: v for k, v in r.items() if k not in (
+            "window", "route", "device", "split", "s", "rows", "cols")}
+        print(f"  {label} window {r['window'][0]}-{r['window'][1]} "
+              f"({r['route']} route, {r['rows']} x {r['cols']}): "
+              f"{r['s']:.2f} s on {card}'s host; split: {split}; {tallies}")
+
+
+def resolve_card_phase(card, dev, errs, sm_count, sm_hz):
+    """Phase 14; returns (H's launches on phase 6's windows, on the
+    synthetic window), H's (ms, plain ms) and its bound."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch.config import (MaxCorrConfig,
+                                                 ResolverConfig,
+                                                 WindowConfig)
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.models import resolver as pres
+    from repeatresolver_tpu_torch.models.window import window_boundaries
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    from repeatresolver_tpu_torch.utils import io as rio
+
+    def host_calls():
+        return pres._cliques_host.calls + pres.relative_vars.calls
+
+    # phase 6's windows through the card route, against the host route
+    pdir = os.path.join(WORK, "pipeline")
+    real = rio.read_msa(os.path.join(pdir, PIPE_NAME + "_MSAreal"))
+    mc = rio.read_maxcorrs(os.path.join(
+        pdir, "MaxCorrsOf_" + PIPE_NAME + "_MSAreal"))
+    bounds = window_boundaries(real, WindowConfig())
+    rec615: list = []
+    pres.resolve_window.log = []
+    reset_launches()
+    calls0 = host_calls()
+    outs, s_card = [], 0.0
+    with recording_pairs(rec615):
+        for von, bis in zip(bounds[:-1], bounds[1:]):
+            t0 = time.perf_counter()
+            outs.append(pres.resolve_window(real, mc, von, bis,
+                                            ResolverConfig(), dev))
+            s_card += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    win_launches = launches_now()
+    if host_calls() != calls0:
+        raise AssertionError("the card route took a host route's "
+                             "candidate statistics or relative_vars")
+    card_recs = list(pres.resolve_window.log)
+    t0 = time.perf_counter()
+    for (von, bis), out in zip(zip(bounds[:-1], bounds[1:]), outs):
+        host = pres.resolve_window(real, mc, von, bis, ResolverConfig(),
+                                   "cpu")
+        for kind, u in out.items():
+            a, b = (os.path.join(WORK, f"resolve_{r}") for r in ("c", "h"))
+            rio.write_subdivision(a, u)
+            rio.write_subdivision(b, host[kind])
+            with open(a, "rb") as f1, open(b, "rb") as f2:
+                if f1.read() != f2.read():
+                    raise AssertionError(f"window {von}-{bis} {kind}: "
+                                         "card route != host route")
+    s_host = time.perf_counter() - t0
+    print_resolve_records("pipeline-615", card_recs, card)
+    print(f"pipeline-615: {len(outs)} windows, subdivision files "
+          f"byte-equal between the card route ({s_card:.2f} s) and the "
+          f"host route ({s_host:.2f} s); kernel H launched "
+          f"{win_launches['resolver_pairs']} times, the host route's "
+          "statistics and relative_vars never")
+    if win_launches["resolver_pairs"] <= 0:
+        raise AssertionError("kernel H never launched on phase 6's windows")
+    errs["resolver_pairs"] = max(errs["resolver_pairs"],
+                                 replay_pairs(rec615, "pipeline-615", dev))
+
+    # the synthetic window at the paper's shape, MaxCorrs from the scan
+    t0 = time.perf_counter()
+    msa = resolve_window_msa(rows=RESOLVE_ROWS, copies=RESOLVE_COPIES,
+                             cols=RESOLVE_COLS)
+    mcs = pmc.compute_maxcorrs_device(msa, MaxCorrConfig(), device=dev)
+    torch.cuda.synchronize()
+    print(f"synthetic window {msa.shape} ({RESOLVE_COPIES} copies): "
+          f"MaxCorrs device scan {time.perf_counter() - t0:.2f} s with the "
+          f"MSA's build, {int((mcs > 0).sum())} nonzero")
+    cfg = ResolverConfig(cov=RESOLVE_ROWS // RESOLVE_COPIES)
+    rec_paper: list = []
+    relv: dict = {}
+    card_fn = pres._relative_vars_card
+
+    def recording_relv(card_g, u, ks, maxcorrs, cutoff, mingroup, clock):
+        out = card_fn(card_g, u, ks, maxcorrs, cutoff, mingroup, clock)
+        relv.update(u=u.copy(), ks=list(ks), maxcorrs=maxcorrs.copy(),
+                    cutoff=cutoff, mingroup=mingroup, out=out)
+        return out
+    pres.resolve_window.log = []
+    reset_launches()
+    calls0 = host_calls()
+    torch.cuda.reset_peak_memory_stats()
+    pres._relative_vars_card = recording_relv
+    t0 = time.perf_counter()
+    try:
+        with recording_pairs(rec_paper):
+            res = pres.resolve_window(msa, mcs, 0, RESOLVE_COLS - 1, cfg,
+                                      dev)
+        torch.cuda.synchronize()
+    finally:
+        pres._relative_vars_card = card_fn
+    s_paper = time.perf_counter() - t0
+    paper_launches = launches_now()
+    if host_calls() != calls0:
+        raise AssertionError("the card route took a host route on the "
+                             "synthetic window")
+    print_resolve_records("synthetic", pres.resolve_window.log, card)
+    n_k = int(res["Kmeans"].max()) + 1
+    print(f"synthetic window: card route {s_paper:.2f} s, {n_k} Kmeans "
+          f"clusters, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if paper_launches["resolver_pairs"] <= 0 or not relv.get("ks"):
+        raise AssertionError("kernel H never launched on the synthetic "
+                             "window")
+    for kind, u in res.items():
+        if u.shape != (RESOLVE_ROWS,) or u.min() < 0:
+            raise AssertionError(f"synthetic window {kind}: labels "
+                                 f"{u.shape}, min {u.min()}")
+    errs["resolver_pairs"] = max(errs["resolver_pairs"],
+                                 replay_pairs(rec_paper, "synthetic", dev))
+
+    # relative_vars on the host route, cluster by cluster, for 60 s
+    gd = pres.GroupData.from_window(pres.extract_window(
+        msa, 0, RESOLVE_COLS - 1))
+    t0 = time.perf_counter()
+    done = 0
+    for k in relv["ks"]:
+        if time.perf_counter() - t0 > RELVARS_HOST_S:
+            break
+        host = pres.relative_vars(gd, relv["u"], k, relv["maxcorrs"],
+                                  relv["cutoff"], relv["mingroup"], "cpu")
+        if host != relv["out"][k]:
+            raise AssertionError(f"synthetic window cluster {k}: card "
+                                 f"route's vars != host route's")
+        done += 1
+    print(f"relative_vars: {done} of {len(relv['ks'])} clusters on the "
+          f"host route in {time.perf_counter() - t0:.1f} s, the same var "
+          "lists as the card route")
+    if done == 0:
+        raise AssertionError("no cluster's relative_vars checked on the "
+                             "host route")
+
+    # H and its plain version on the synthetic window's lookup launch
+    p, tables, _ = next(r for r in rec_paper if not r[2])
+    marked = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+    ms = launch_ms(lambda: cv.pair_pass(p, tables, marked),
+                   "resolver_pairs")
+    _, plain_ms = time_launches(
+        lambda: cv.pair_pass_plain(p, tables, marked), 1)
+    bound = pair_pass_bound(p, sm_count, sm_hz)
+    print(f"resolver_pairs on the synthetic window ({p.nrows} rows, "
+          f"{p.nclusters} clusters): kernel {ms:.3f} ms (median of "
+          f"{KERNEL_REPS} launches), plain {plain_ms:.3f} ms on {card}")
+    print(f"  bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.1%} "
+          f"of the kernel's time): {bound[2]}; library call: none (no "
+          "single PyTorch call computes the masked pair test)")
+    return (win_launches, paper_launches, (ms, plain_ms), bound)
 
 
 def main() -> int:
@@ -3300,9 +3614,14 @@ def main() -> int:
     with phase("13 main path: the paper-run driver, resumed after align"):
         driver_launches = paper_driver_phase(card, errs)
 
+    with phase("14 resolve on the card: kernel H and the card route"):
+        win_launches, rpaper_launches, times["resolver_pairs"], \
+            bounds["resolver_pairs"] = resolve_card_phase(
+                card, dev, errs, sm_count, sm_hz)
+
     # `launches` is the count on the kernel's MAIN_PATH (phase 4 for A
     # and B, as in every earlier report, and for F and G, which run its
-    # anneal tail; phase 6 for C, D and E); the counts of all eleven
+    # anneal tail; phase 6 for C, D, E and H); the counts of all thirteen
     # main paths stand in `launches_by_path` (the mesh
     # realign's is one rank's: both ranks launch the same number; the
     # striped MaxCorrs scan's is both ranks')
@@ -3319,7 +3638,9 @@ def main() -> int:
                           striped_launches * maxcorr_only[name],
                       "realign_forced_exact": forced_launches[name],
                       "cut_align_paper_width": cut_launches[name],
-                      "paper_run_driver": driver_launches[name]}
+                      "paper_run_driver": driver_launches[name],
+                      "resolve_615_windows": win_launches[name],
+                      "resolve_paper_window": rpaper_launches[name]}
                for name in KERNELS}
     report = [dict(name=name, route="cuda", **KERNELS[name],
                    launches=by_path[name][MAIN_PATH[name]],

@@ -9,15 +9,30 @@ the clustering (window extraction, the DropOff / RelativeDropoff
 subdivisions, the clique bookkeeping, the scalar significance and the
 greedy clique, the cutoff helpers the product path leaves unused, the
 flank-connection chain) is copied from that module, same arithmetic.
+
+resolve_window's card route (the default on a CUDA device) keeps the
+window's groups on the device (CardGroups) and runs there the two parts
+that scale as thousands x thousands: group_refinement's candidate
+statistics and cliques (_cliques_card) and every cluster's
+relative_vars pair pass in one pass (_relative_vars_card, kernel H).
+The float64 significance values still come from the host's own
+functions (ops/hypergeom), evaluated once for each distinct argument
+tuple the device found: they are elementwise, so a value looked up for
+a tuple is the value the host route computes for it, and the
+subdivisions equal the host route's byte for byte. SplitClock times a
+window's parts (SPLIT_PARTS) on either route.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..config import ResolverConfig
 from ..device import resolve_device
+from ..ops import cuda_resolver as cv
 from ..ops import devmm
 from ..ops import hypergeom as hg
 from ..utils import io as rio
@@ -25,6 +40,38 @@ from ..utils import native
 
 __all__ = ["group_refinement", "kmeans", "kmeans_subdivision",
            "relative_vars", "resolve_window", "run"]
+
+
+# resolve_window's parts, in the order a window runs them
+SPLIT_PARTS = ("extract", "refine_products", "refine_candidates",
+               "refine_significance", "refine_cliquer", "refine_tail",
+               "dropoff", "reldrop", "relvars_gather", "relvars_product",
+               "relvars_pairs", "kmeans")
+
+
+class SplitClock:
+    """Host seconds of a window's parts (SPLIT_PARTS). `lap(part)` books
+    the time since the previous lap to `part`; on a CUDA device each lap
+    first synchronises it, so a part holds its own device work.
+    `counts` holds the card route's tallies (candidates, tuples
+    evaluated on the host, pairs, launches)."""
+
+    def __init__(self, device="cpu"):
+        self.s = dict.fromkeys(SPLIT_PARTS, 0.0)
+        self.counts: dict[str, int] = {}
+        dev = torch.device(device)
+        self._sync = dev if dev.type == "cuda" else None
+        self._t = time.perf_counter()
+
+    def lap(self, part: str) -> None:
+        if self._sync is not None:
+            torch.cuda.synchronize(self._sync)
+        t = time.perf_counter()
+        self.s[part] += t - self._t
+        self._t = t
+
+    def count(self, key: str, n) -> None:
+        self.counts[key] = self.counts.get(key, 0) + n
 
 
 # ---- copied from repeatresolver_tpu/models/resolver.py: the host pieces
@@ -353,6 +400,46 @@ def dropoff_subdivision(ref: Refinement, cutoff: float,
     return u
 
 
+def _komprimierung_vec(u: np.ndarray) -> int:
+    """komprimierung in array operations: the same labels (the values
+    above -1 renumbered by first occurrence) and count. In place."""
+    keep = u > -1
+    vals, first = np.unique(u[keep], return_index=True)
+    rank = np.empty(len(vals), np.int64)
+    rank[np.argsort(first)] = np.arange(len(vals))
+    u[keep] = rank[np.searchsorted(vals, u[keep])]
+    return len(vals)
+
+
+def _dropoff_subdivision_vec(ref: Refinement, cutoff: float,
+                             dropoffcutoff: float, sizecutoff: int,
+                             mingroup: int, signumber: int) -> np.ndarray:
+    """dropoff_subdivision with its cluster loop in array operations
+    (the card route's; the same labels). Within one var i the loop's
+    clusters k < number split independently: a split relabels only k's
+    rows, to number2 and above (number2 >= number), so each k's counts
+    are those before the loop; the splits take their labels in k
+    order."""
+    order = _sorted_significant(ref, cutoff, sizecutoff)
+    u = np.zeros(signumber, np.int64)
+    number = number2 = 1
+    for i in order:
+        if ref.dropoff.get(i, 1000.0) < dropoffcutoff:
+            cg = ref.c_groups[i]
+            tot = np.bincount(u, minlength=number)[:number]
+            drinne = np.bincount(u[cg], minlength=number)[:number]
+            split = (drinne > mingroup) & (tot - drinne > mingroup)
+            ks = np.nonzero(split)[0]
+            if ks.size:
+                label = np.zeros(number, np.int64)
+                label[ks] = number2 + 2 * np.arange(ks.size)
+                moved = split[u]
+                u[moved] = label[u[moved]] + (~cg[moved])
+                number2 += 2 * ks.size
+            number = _komprimierung_vec(u)
+    return u
+
+
 def relative_dropoff_cutoff(gd: GroupData, clique: list[int],
                             s_trunc: int, u: np.ndarray,
                             k: int, signumber: int,
@@ -371,9 +458,16 @@ def relative_dropoff_cutoff(gd: GroupData, clique: list[int],
 def relative_dropoff_subdivision(gd: GroupData, ref: Refinement,
                                  u: np.ndarray, cutoff: float,
                                  dropoffcutoff: float, sizecutoff: int,
-                                 mingroup: int) -> None:
+                                 mingroup: int,
+                                 card: "CardGroups | None" = None) -> None:
     """RelativeDropoff_Subdivision (:3274-3378). Mutates u and
-    ref.dropoff (both, like the reference)."""
+    ref.dropoff (both, like the reference). With `card`, the (cluster,
+    var) loop's tests run at once on the device
+    (_relative_dropoff_card)."""
+    if card is not None:
+        _relative_dropoff_card(card, gd, ref, u, cutoff, dropoffcutoff,
+                               sizecutoff, mingroup)
+        return
     signumber = len(u)
     idx = [i for i in range(len(ref.maxcorrs))
            if ref.maxcorrs[i] > cutoff
@@ -421,79 +515,398 @@ def komplettierung(u: np.ndarray, ausgelassen: np.ndarray) -> np.ndarray:
 # ---- the functions that reach the exact products, on `device`
 
 
+class CardGroups:
+    """A window's one-hot groups [5w, n] and coverage [w, n] resident on
+    a device as int8 (the card route), with the group sizes."""
+
+    def __init__(self, gd: GroupData, device):
+        self.dev = torch.device(device)
+        self.groups = torch.from_numpy(
+            np.ascontiguousarray(gd.groups).view(np.int8)).to(self.dev)
+        self.coverage = torch.from_numpy(
+            np.ascontiguousarray(gd.coverage).view(np.int8)).to(self.dev)
+        self.sizes = torch.from_numpy(gd.sizes).to(self.dev)
+
+
+# seeds a chunk of the card route's candidate statistics (its
+# intermediates grow with it: ~28,000 candidates a seed at paper width)
+CARD_SEED_CHUNK = 512
+# bytes of the clique groups RelDrop's card pass gathers at once
+RELDROP_CHUNK_BYTES = 1 << 26
+
+
+def _unique_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distinct rows of an int64 [N, 6] tensor of counts below 2^21
+    and each row's index among them (torch.unique(dim=0)'s pair, in
+    another order): each half packed into one key, then the pair of the
+    halves' ranks, three 1-d uniques."""
+    if t.numel() and int(t.max()) >= 1 << 21:
+        raise ValueError("candidate counts of 2^21 rows or more")
+    mask = (1 << 21) - 1
+    keys = [(t[:, i] << 42) | (t[:, i + 1] << 21) | t[:, i + 2]
+            for i in (0, 3)]
+    (u1, i1), (u2, i2) = (torch.unique(k, return_inverse=True)
+                          for k in keys)
+    n2 = u2.numel()
+    key, inv = torch.unique(i1 * n2 + i2, return_inverse=True)
+    halves = (u1[key // n2], u2[key % n2])
+    rows = torch.stack([x for h in halves
+                        for x in (h >> 42, (h >> 21) & mask, h & mask)], 1)
+    return rows, inv
+
+
+def _significance(tuples: np.ndarray, fast: bool) -> np.ndarray:
+    """positive_significance (cap_base 97.90) of [U, 6] argument tuples
+    (schnitt, gr1, gr2, cov, size1, size2), as the host route evaluates
+    its candidates: in float64 behind the mode gate
+    (positive_significance_fast), else on the int64 values."""
+    cols = tuples.T.astype(np.float64) if fast else tuples.T
+    return hg.positive_significance(*cols, cap_base=97.90)
+
+
+def _cliques_card(card: CardGroups, seeds: np.ndarray, mincov: int,
+                  maxclique: int, greedy: float, seed_chunk: int,
+                  clock: SplitClock) -> dict[int, list[int]]:
+    """_cliques_host's cliques with the statistics on card.dev: the four
+    counts are exact int8 products over the resident matrices, the
+    candidates and the mode gate torch ops there, the significance the
+    host's own float64 function on the distinct argument tuples only,
+    and TheBestUpdater (_cliquer_from_stats) a stable sort there."""
+    dev = card.dev
+    chunk = max(seed_chunk, CARD_SEED_CHUNK)
+    grows = torch.nonzero(card.sizes > mincov // 4).flatten()
+    gmat = card.groups.index_select(0, grows)            # [G, n]
+    seeds_t = torch.from_numpy(seeds).to(dev)
+    fast = greedy >= 2.0     # _cliques_host's choice of sig_fn
+    cliques: dict[int, list[int]] = {}
+    clock.lap("refine_products")
+    for lo in range(0, len(seeds), chunk):
+        sc = seeds_t[lo:lo + chunk]
+        gseed = card.groups.index_select(0, sc)
+        cseed = card.coverage.index_select(0, sc // 5)
+        schnitt = devmm.int_matmul_t(gmat, gseed)        # [G, S]
+        gr1 = devmm.int_matmul_t(gmat, cseed)            # [G, S]
+        gr2 = devmm.int_matmul_t(card.coverage, gseed)   # [w, S]
+        cov = devmm.int_matmul_t(card.coverage, cseed)   # [w, S]
+        clock.lap("refine_products")
+        # the host's candidates in its order: seed by seed, partner
+        # groups ascending
+        cand = ((schnitt.t() > mincov // 4)
+                & (grows[None, :] != sc[:, None]))       # [S, G]
+        si, gi = torch.nonzero(cand, as_tuple=True)
+        col = grows[gi] // 5
+        s_ = schnitt[gi, si].to(torch.int64)
+        n_ = gr1[gi, si].to(torch.int64)
+        k_ = gr2[col, si].to(torch.int64)
+        nn = cov[col, si].to(torch.int64)
+        if fast:
+            # positive_significance_fast's gate: one torch op an IEEE
+            # operation (no two fused, so no FMA), each correctly
+            # rounded in float64, as numpy's
+            f64 = torch.float64
+            mode = (n_.to(f64) + 1.0) * (k_.to(f64) + 1.0) \
+                / (nn.to(f64) + 2.0)
+            rel = (s_.to(f64) > mode) & (s_ >= 1) & (n_ > 0) & (k_ > 0)
+            ridx = torch.nonzero(rel).flatten()
+        else:
+            ridx = torch.arange(si.shape[0], device=dev)
+        tup = torch.stack([s_[ridx], n_[ridx], k_[ridx], nn[ridx],
+                           card.sizes[grows[gi[ridx]]],
+                           card.sizes[sc[si[ridx]]]], 1)
+        clock.count("refine_candidates", si.shape[0])
+        clock.count("refine_relevant", ridx.shape[0])
+        clock.lap("refine_candidates")
+        z = torch.zeros(si.shape[0], dtype=torch.float64, device=dev)
+        if ridx.numel():
+            uq, inv = _unique_rows(tup)
+            zu = _significance(uq.cpu().numpy(), fast)
+            z[ridx] = torch.from_numpy(zu).to(dev)[inv]
+            clock.count("refine_tuples", uq.shape[0])
+        clock.lap("refine_significance")
+        # TheBestUpdater: keep z > greedy; by seed, then z descending,
+        # ties in candidate order (both sorts stable); the first
+        # maxclique - 1 of each seed
+        keep = torch.nonzero(z > greedy).flatten()
+        keep = keep[torch.sort(z[keep], descending=True, stable=True).indices]
+        keep = keep[torch.sort(si[keep], stable=True).indices]
+        ks_ = si[keep]
+        rank = torch.arange(keep.shape[0], device=dev) \
+            - torch.searchsorted(ks_, ks_)
+        chosen = keep[rank < maxclique - 1]
+        ch_si = si[chosen].cpu().numpy()
+        ch_g = grows[gi[chosen]].cpu().numpy()
+        lens = torch.bincount(si, minlength=sc.shape[0]).cpu().numpy()
+        bounds = np.searchsorted(ch_si, np.arange(sc.shape[0] + 1))
+        for j, seed in enumerate(seeds[lo:lo + chunk].tolist()):
+            chosen_j = [int(v) for v in ch_g[bounds[j]:bounds[j + 1]]]
+            if not chosen_j:
+                cliques[seed] = [seed] + [-1] * (maxclique if lens[j]
+                                                 else 1)
+            else:
+                cliques[seed] = ([seed] + chosen_j
+                                 + [-1] * (maxclique - len(chosen_j)))
+        clock.lap("refine_cliquer")
+    return cliques
+
+
+def _relative_dropoff_card(card: CardGroups, gd: GroupData,
+                           ref: Refinement, u: np.ndarray, cutoff: float,
+                           dropoffcutoff: float, sizecutoff: int,
+                           mingroup: int) -> None:
+    """relative_dropoff_subdivision's loop with its tests on card.dev.
+
+    Each cluster k the loop visits (more than 2 * mingroup rows) is split
+    at most once, into labels above every cluster's, and only its own
+    rows move: the clusters' decisions are independent. So for every
+    (k, var i) at once: the cutoff sizes are counts of k's rows by
+    membership (a histogram a pair, its suffix sums), dropoff_cutoff
+    runs batched in float64 (each division one correctly rounded IEEE
+    operation; argmin takes the first minimum, as the reference's strict
+    < does), and the split test counts k's rows in the full clique's
+    cutoff group. The host then applies each cluster's first splitting
+    var and writes ref.dropoff as the loop leaves it: the last visited
+    cluster's values, 1e6 for the vars after its split (the loop then
+    sees the cluster empty)."""
+    dev = card.dev
+    signumber = len(u)
+    idx = [i for i in range(len(ref.maxcorrs))
+           if ref.maxcorrs[i] > cutoff
+           and ref.sizes.get(i, 0) > sizecutoff]
+    number = komprimierung(u)
+    ks = [k for k in range(number) if int((u == k).sum()) > mingroup * 2]
+    if not ks or not idx:
+        komprimierung(u)
+        return
+    n_k, n_i = len(ks), len(idx)
+    st = np.array([ref.sizes[i] for i in idx], np.int64)
+    full = np.array([clique_len(ref.cliques[i]) for i in idx], np.int64)
+    width = max(1, int(full.max()))
+    cl = np.zeros((n_i, width), np.int64)
+    for j, i in enumerate(idx):
+        cl[j, :full[j]] = ref.cliques[i][:full[j]]
+    nv = width + 1                      # membership values 0..width
+    kidx = np.full(signumber, n_k, np.int64)      # n_k: not visited
+    for j, k in enumerate(ks):
+        kidx[u == k] = j
+    kidx_t, cl_t, st_t, full_t = (torch.from_numpy(x).to(dev)
+                                  for x in (kidx, cl, st, full))
+    size_k = torch.bincount(kidx_t, minlength=n_k + 1)[:n_k, None]
+    pos = torch.arange(width, device=dev)
+    t = torch.arange(nv, device=dev)
+    ok = torch.zeros((n_k, n_i), dtype=torch.bool, device=dev)
+    c_all = torch.zeros((n_k, n_i), dtype=torch.int64, device=dev)
+    d_all = torch.zeros((n_k, n_i), dtype=torch.float64, device=dev)
+    step = max(1, RELDROP_CHUNK_BYTES // (width * signumber))
+    for lo in range(0, n_i, step):
+        hi = min(lo + step, n_i)
+        g = card.groups[cl_t[lo:hi]]                     # [I, width, n]
+        above = []                # [K, I, nv]: k's rows with m > t
+        for upto in (st_t[lo:hi], full_t[lo:hi]):
+            keep = (pos[None, :] < upto[:, None]).to(torch.int8)
+            m = (g * keep[:, :, None]).sum(1)             # [I, n]
+            rows = torch.arange(hi - lo, device=dev)[:, None]
+            hist = torch.bincount(
+                (((rows * (n_k + 1) + kidx_t[None, :]) * nv) + m).flatten(),
+                minlength=(hi - lo) * (n_k + 1) * nv)
+            hist = hist.view(hi - lo, n_k + 1, nv)[:, :n_k].transpose(0, 1)
+            ge = hist.flip(2).cumsum(2).flip(2)           # m >= t
+            above.append(torch.cat([ge[:, :, 1:],
+                                    torch.zeros_like(ge[:, :, :1])], 2))
+        # dropoff_cutoff(sizes[:st], signumber, 0), t in [1, st - 1)
+        sizes = above[0].to(torch.float64)
+        lim = torch.minimum(float(signumber) - sizes, sizes)
+        inside = (t[None, None, :] >= 1) \
+            & (t[None, None, :] < (st_t[lo:hi] - 1)[None, :, None]) \
+            & (lim > 0)
+        drop = torch.full_like(sizes, torch.inf)
+        drop[:, :, 1:-1] = (sizes[:, :, :-2] - sizes[:, :, 2:]) \
+            / torch.where(lim > 0, lim, 1.0)[:, :, 1:-1]
+        drop = torch.where(inside, drop, torch.inf)
+        t_min = torch.argmin(drop, 2)                     # first minimum
+        d_min = drop.gather(2, t_min[:, :, None])[:, :, 0]
+        hit = d_min < 1000000.0
+        c = torch.where(hit, t_min, 1)
+        d = torch.where(hit, d_min, 1000000.0)
+        drinne = above[1].gather(2, c[:, :, None])[:, :, 0]
+        ok[:, lo:hi] = (d < dropoffcutoff) & (drinne > mingroup) \
+            & (size_k - drinne > mingroup)
+        c_all[:, lo:hi] = c
+        d_all[:, lo:hi] = d
+    first = torch.argmax(ok.to(torch.int8), 1)           # first True
+    split = ok.any(1)
+    first_h, split_h = first.cpu().numpy(), split.cpu().numpy()
+    c_h = c_all.gather(1, first[:, None])[:, 0].cpu().numpy()
+    last = d_all[-1].cpu().numpy()
+    if split_h[-1]:
+        last[first_h[-1] + 1:] = 1000000.0
+    for i, val in zip(idx, last.tolist()):
+        ref.dropoff[i] = val
+    for j, k in enumerate(ks):
+        if split_h[j]:
+            i = idx[first_h[j]]
+            cg = membership_counts(gd, ref.cliques[i],
+                                   clique_len(ref.cliques[i])) > c_h[j]
+            ink = u == k
+            u[ink & cg] = number + 1 + k * 2
+            u[ink & ~cg] = number + 2 + k * 2
+    komprimierung(u)
+
+
+def _decision_entries(vals: np.ndarray, size: int, cutoff: float,
+                      entries: np.ndarray | None) -> tuple[np.ndarray, int]:
+    """The set entries of a pair table over the distinct popcounts
+    `vals` of clusters of `size` rows (cuda_resolver's layout), from
+    hg.cum_hyp_geo_log(s, gr_b, gr_a, size) > cutoff with the host's
+    argument types; at `entries` only, or (None) at every s <= min(gr_b,
+    gr_a). Returns (the set entries, the tuples evaluated)."""
+    d = len(vals)
+    if entries is None:
+        ib, ia = np.divmod(np.arange(d * d, dtype=np.int64), d)
+        top = np.minimum(vals[ib], vals[ia])
+        reps = top + 1
+        pair = np.repeat(np.arange(d * d), reps)
+        s = np.arange(reps.sum()) - np.repeat(np.cumsum(reps) - reps, reps)
+        ib, ia = ib[pair], ia[pair]
+        entries = (s * d + ib) * d + ia
+    else:
+        s, rest = np.divmod(entries, d * d)
+        ib, ia = np.divmod(rest, d)
+    z = hg.cum_hyp_geo_log(s.astype(np.int64), vals[ib].astype(np.int64),
+                           vals[ia].astype(np.int64),
+                           np.full(s.shape, size))
+    return entries[z > cutoff], int(s.size)
+
+
+def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
+                        maxcorrs: np.ndarray, cutoff: float, mingroup: int,
+                        clock: SplitClock) -> dict[int, list[int]]:
+    """relative_vars of every cluster in `ks` at once on card.dev: the
+    clusters' intersections with every group as one exact product, the
+    selected groups' memberships packed, the decision tables from the
+    host's function, and kernel H over all pairs (its plain version on
+    CPU tensors)."""
+    if not ks:
+        return {}
+    dev = card.dev
+    u_t = torch.from_numpy(np.ascontiguousarray(u, np.int64)).to(dev)
+    ks_t = torch.tensor(ks, dtype=torch.int64, device=dev)
+    onehot = (u_t[None, :] == ks_t[:, None]).to(torch.int8)   # [K, n]
+    inter = devmm.int_matmul_t(card.groups, onehot)          # [5w, K]
+    clock.lap("relvars_product")
+    sig = torch.from_numpy(maxcorrs > cutoff).to(dev)
+    sel = sig[None, :] & (inter.t() >= mingroup)              # [K, 5w]
+    kk, gg = torch.nonzero(sel, as_tuple=True)
+    masks, gr, row_off, word_off, words, sizes = cv.pack_members(
+        card.groups, u_t, ks_t, kk, gg)
+    gr_h = gr.cpu().numpy()
+    off_h = row_off.cpu().numpy()
+    sizes_h = sizes.cpu().numpy()
+    clock.lap("relvars_gather")
+
+    # one table a cluster size, over the popcounts of its clusters
+    k_n = len(ks)
+    gidx = np.zeros(len(gr_h), np.int32)
+    tab_off = np.zeros(k_n, np.int32)
+    dims = np.zeros(k_n, np.int32)
+    kflag = np.zeros(k_n, np.int32)
+    tables_plan = []          # (size, vals, word offset, words, count?)
+    nwords = 0
+    for size in np.unique(sizes_h):
+        kl = np.nonzero(sizes_h == size)[0]
+        rows = np.concatenate([np.arange(off_h[k], off_h[k + 1])
+                               for k in kl])
+        vals = np.unique(gr_h[rows]).astype(np.int64)
+        d = len(vals)
+        n_entries = (int(vals.max()) + 1) * d * d if d else 0
+        if n_entries > cv.COUNT_TABLE_MAX:
+            raise ValueError(
+                f"relative_vars: clusters of {size} rows with {d} distinct "
+                f"popcounts need a table of {n_entries} entries, above "
+                f"COUNT_TABLE_MAX ({cv.COUNT_TABLE_MAX})")
+        count = n_entries > cv.FULL_TABLE_MAX
+        gidx[rows] = np.searchsorted(vals, gr_h[rows])
+        tab_off[kl], dims[kl], kflag[kl] = nwords, d, int(count)
+        tables_plan.append((int(size), vals, nwords, -(-n_entries // 32),
+                            count))
+        nwords += tables_plan[-1][3]
+    if nwords >= 2 ** 31:
+        raise ValueError(f"relative_vars: {nwords} table words pass int32 "
+                         "offsets")
+
+    def dev32(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
+    p = cv.PairPass(masks=masks, sel=gg.to(torch.int32), gidx=dev32(gidx),
+                    rowk=kk.to(torch.int32), row_off=row_off,
+                    word_off=word_off, words=words, tab_off=dev32(tab_off),
+                    dims=dev32(dims), kflag=dev32(kflag))
+    tables = torch.zeros(max(nwords, 1), dtype=torch.int32, device=dev)
+    marked = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+    timed = dev.type == "cuda"
+    if timed:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    launches = int(p.nrows > 0)          # pair_pass launches no empty pass
+    if kflag.any():
+        occ = torch.zeros_like(tables)
+        if timed:
+            ev[2].record()
+        cv.pair_pass(p, occ, marked, count=True)
+        if timed:
+            ev[3].record()
+        clock.count("relvars_h_launches", launches)
+        clock.count("relvars_count_clusters", int(kflag.sum()))
+    evaluated = 0
+    for size, vals, off, nw, count in tables_plan:
+        region = tables[off:off + nw]
+        at = (cv.set_entries(occ[off:off + nw]).cpu().numpy()
+              if count else None)
+        hits, n_eval = _decision_entries(vals, size, cutoff, at)
+        evaluated += n_eval
+        cv.or_bits(region, torch.from_numpy(hits).to(dev))
+    clock.count("relvars_tuples", evaluated)
+    if timed:
+        ev[0].record()
+    cv.pair_pass(p, tables, marked)
+    if timed:
+        ev[1].record()
+    clock.count("relvars_h_launches", launches)
+    marked_h = marked.cpu().numpy().astype(bool)
+    gg_h = gg.cpu().numpy()
+    if timed:
+        ms = ev[0].elapsed_time(ev[1]) + (ev[2].elapsed_time(ev[3])
+                                          if kflag.any() else 0.0)
+        clock.count("relvars_h_ms", ms)
+    clock.count("relvars_rows", p.nrows)
+    clock.count("relvars_clusters", k_n)
+    clock.lap("relvars_pairs")
+    return {k: [int(v) for v in gg_h[off_h[i]:off_h[i + 1]][
+        marked_h[off_h[i]:off_h[i + 1]]]] for i, k in enumerate(ks)}
+
+
+
+
 def group_refinement(gd: GroupData, maxcorrs: np.ndarray, cutoff: float,
                      mincov: int, maxclique: int, greedy: float,
                      min_clique_size: int = 5, seed_chunk: int = 128,
-                     device="cuda") -> Refinement:
+                     device="cuda", split: SplitClock | None = None,
+                     card: "CardGroups | None" = None) -> Refinement:
     """Group_Refinement (RepeatResolver.c:1634-1690) on a copy of
     maxcorrs: per-seed candidate statistics as chunked products over all
-    significant seeds, then the greedy TheBestUpdater tail per seed."""
+    significant seeds, then the greedy TheBestUpdater tail per seed.
+    With `card` (the window's groups resident on a device) the
+    statistics and the clique choice run there (_cliques_card);
+    otherwise on the host with the exact products above the devmm gate
+    on `device`."""
+    clock = split or SplitClock()
     mc = maxcorrs.copy()
     ref = Refinement(maxcorrs=mc)
     signumber = gd.groups.shape[1]
     seeds = np.nonzero(mc > cutoff)[0]
-    gf = gd.groups.astype(np.float32)
-    covf = gd.coverage.astype(np.float32)
-    gsizes = gd.sizes
-    # partners must pass schnitt > mincov//4, which groups of size
-    # <= mincov//4 never can: filter the group matrix once
-    grows = np.nonzero(gsizes > mincov // 4)[0]
-    gff = gf[grows]                                  # [G, R]
-    # the [G, R] group matrix is reused by every seed chunk: one device
-    # copy for the window
-    gff_o = devmm.Operand(gd.groups[grows])
-    use_dev = devmm.device_enabled(device)
-    cliques: dict[int, list[int]] = {}
-    for lo in range(0, len(seeds), seed_chunk):
-        sc = seeds[lo:lo + seed_chunk]
-        gseed = gf[sc]                               # [S, R]
-        covseed = covf[sc // 5]                      # [S, R]
-        schnitt_i = devmm.matmul_t(gff_o, gd.groups[sc], device).astype(
-            np.int64)                                # [G, S]
-        # sub-mode pairs have true Z < ~0.5: with greedy above 2 the
-        # mode-gated evaluator decides every candidate identically
-        sig_fn = (hg.positive_significance_fast if greedy >= 2.0
-                  else hg.positive_significance)
-        # one significance call per seed chunk (values are per element);
-        # coverage-side products only at the unique candidate rows
-        candg_list = []
-        for si, seed in enumerate(sc):
-            candg_list.append(np.nonzero(
-                (schnitt_i[:, si] > mincov // 4)
-                & (grows != seed))[0])
-        cand_list = [grows[cg] for cg in candg_list]
-        lens = np.array([cd.size for cd in cand_list])
-        if lens.sum():
-            catg = np.concatenate(candg_list)
-            catc = grows[catg]
-            si_rep = np.repeat(np.arange(len(sc)), lens)
-            if use_dev:
-                # one [G, S] product on the device copy of the group
-                # matrix instead of the unique-candidate host product
-                gr1_full = devmm.matmul_t(gff_o, gd.coverage[sc // 5],
-                                          device)
-                gr1v = gr1_full[catg, si_rep].astype(np.int64)
-            else:
-                ug, ug_inv = np.unique(catg, return_inverse=True)
-                gr1u = gff[ug] @ covseed.T           # [Ug, S]
-                gr1v = gr1u[ug_inv, si_rep].astype(np.int64)
-            uc, uc_inv = np.unique(catc // 5, return_inverse=True)
-            cu = covf[uc]                            # [Uc, R]
-            gr2u = cu @ gseed.T                      # [Uc, S]
-            covu = cu @ covseed.T                    # [Uc, S]
-            z_all = sig_fn(
-                schnitt_i[catg, si_rep],
-                gr1v,
-                gr2u[uc_inv, si_rep].astype(np.int64),
-                covu[uc_inv, si_rep].astype(np.int64),
-                gsizes[catc], gsizes[sc[si_rep]],
-                cap_base=97.90)
-        bounds = np.concatenate([[0], np.cumsum(lens)])
-        for si, seed in enumerate(sc):
-            z = (z_all[bounds[si]:bounds[si + 1]]
-                 if lens[si] else np.zeros(0))
-            cliques[int(seed)] = _cliquer_from_stats(
-                cand_list[si], z, int(seed), maxclique, greedy)
+    if card is not None:
+        cliques = _cliques_card(card, seeds, mincov, maxclique, greedy,
+                                seed_chunk, clock)
+    else:
+        cliques = _cliques_host(gd, seeds, mincov, maxclique, greedy,
+                                seed_chunk, device, clock)
 
     for i in range(len(mc)):
         if mc[i] <= cutoff:
@@ -512,25 +925,115 @@ def group_refinement(gd: GroupData, maxcorrs: np.ndarray, cutoff: float,
             ref.c_coverage[i] = clique_coverage(gd, clique, drop_c)
         else:
             mc[i] = 0.0
+    clock.lap("refine_tail")
     return ref
+
+
+def _cliques_host(gd: GroupData, seeds: np.ndarray, mincov: int,
+                  maxclique: int, greedy: float, seed_chunk: int, device,
+                  clock: SplitClock) -> dict[int, list[int]]:
+    """The JAX package's candidate statistics and cliques, on the host:
+    float32 BLAS products (the exact products above the devmm gate on
+    `device`) and the significance of every relevant candidate."""
+    _cliques_host.calls += 1
+    gf = gd.groups.astype(np.float32)
+    covf = gd.coverage.astype(np.float32)
+    gsizes = gd.sizes
+    # partners must pass schnitt > mincov//4, which groups of size
+    # <= mincov//4 never can: filter the group matrix once
+    grows = np.nonzero(gsizes > mincov // 4)[0]
+    gff = gf[grows]                                  # [G, R]
+    # the [G, R] group matrix is reused by every seed chunk: one device
+    # copy for the window
+    gff_o = devmm.Operand(gd.groups[grows])
+    use_dev = devmm.device_enabled(device)
+    cliques: dict[int, list[int]] = {}
+    clock.lap("refine_products")
+    for lo in range(0, len(seeds), seed_chunk):
+        sc = seeds[lo:lo + seed_chunk]
+        gseed = gf[sc]                               # [S, R]
+        covseed = covf[sc // 5]                      # [S, R]
+        schnitt_i = devmm.matmul_t(gff_o, gd.groups[sc], device).astype(
+            np.int64)                                # [G, S]
+        clock.lap("refine_products")
+        # sub-mode pairs have true Z < ~0.5: with greedy above 2 the
+        # mode-gated evaluator decides every candidate identically
+        sig_fn = (hg.positive_significance_fast if greedy >= 2.0
+                  else hg.positive_significance)
+        # one significance call per seed chunk (values are per element);
+        # coverage-side products only at the unique candidate rows
+        candg_list = []
+        for si, seed in enumerate(sc):
+            candg_list.append(np.nonzero(
+                (schnitt_i[:, si] > mincov // 4)
+                & (grows != seed))[0])
+        cand_list = [grows[cg] for cg in candg_list]
+        lens = np.array([cd.size for cd in cand_list])
+        clock.lap("refine_candidates")
+        if lens.sum():
+            catg = np.concatenate(candg_list)
+            catc = grows[catg]
+            si_rep = np.repeat(np.arange(len(sc)), lens)
+            if use_dev:
+                # one [G, S] product on the device copy of the group
+                # matrix instead of the unique-candidate host product
+                gr1_full = devmm.matmul_t(gff_o, gd.coverage[sc // 5],
+                                          device)
+                gr1v = gr1_full[catg, si_rep].astype(np.int64)
+            else:
+                ug, ug_inv = np.unique(catg, return_inverse=True)
+                gr1u = gff[ug] @ covseed.T           # [Ug, S]
+                gr1v = gr1u[ug_inv, si_rep].astype(np.int64)
+            uc, uc_inv = np.unique(catc // 5, return_inverse=True)
+            cu = covf[uc]                            # [Uc, R]
+            gr2u = cu @ gseed.T                      # [Uc, S]
+            covu = cu @ covseed.T                    # [Uc, S]
+            clock.lap("refine_products")
+            z_all = sig_fn(
+                schnitt_i[catg, si_rep],
+                gr1v,
+                gr2u[uc_inv, si_rep].astype(np.int64),
+                covu[uc_inv, si_rep].astype(np.int64),
+                gsizes[catc], gsizes[sc[si_rep]],
+                cap_base=97.90)
+            clock.count("refine_candidates", int(lens.sum()))
+            clock.lap("refine_significance")
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+        for si, seed in enumerate(sc):
+            z = (z_all[bounds[si]:bounds[si + 1]]
+                 if lens[si] else np.zeros(0))
+            cliques[int(seed)] = _cliquer_from_stats(
+                cand_list[si], z, int(seed), maxclique, greedy)
+        clock.lap("refine_cliquer")
+    return cliques
+
+
+_cliques_host.calls = 0
 
 
 def relative_vars(gd: GroupData, u: np.ndarray, u_no: int,
                   maxcorrs: np.ndarray, cutoff: float, mingroup: int,
-                  device="cuda") -> list[int]:
-    """Relative_Vars (RepeatResolver.c:2424-2493)."""
+                  device="cuda", split: SplitClock | None = None
+                  ) -> list[int]:
+    """Relative_Vars (RepeatResolver.c:2424-2493), on the host (the
+    exact product above the devmm gate on `device`)."""
+    relative_vars.calls += 1
+    clock = split or SplitClock()
     sel = maxcorrs > cutoff
     u_group = (u == u_no)
     inter = gd.groups[:, u_group].sum(axis=1)
     sel &= inter >= mingroup            # < mingroup dropped
     sel_idx = np.nonzero(sel)[0]
     if sel_idx.size == 0:
+        clock.lap("relvars_gather")
         return []
     # pairwise within the cluster, j >= i + 100 (>= 20 columns)
     sub = gd.groups[np.ix_(sel_idx, np.nonzero(u_group)[0])]
+    clock.lap("relvars_gather")
     schnitt = devmm.matmul_t(sub, sub, device)
     gr = sub.sum(axis=1).astype(np.int64)
     cov = int(u_group.sum())
+    clock.lap("relvars_product")
     marked = np.zeros(sel_idx.size, bool)
     # every (a, b) pair with sel_idx[b] >= sel_idx[a] + 100, in blocks of
     # seed rows (one hypergeometric call per block; per-element values)
@@ -549,7 +1052,13 @@ def relative_vars(gd: GroupData, u: np.ndarray, u_no: int,
         hits = z > cutoff
         marked[pa[hits]] = True
         marked[pb[hits]] = True
+        clock.count("relvars_pairs", int(pa.size))
+    clock.lap("relvars_pairs")
     return [int(v) for v in sel_idx[marked]]
+
+
+# host-route calls (the card route must leave both at 0)
+relative_vars.calls = 0
 
 
 def _grmatch_matrix(a: np.ndarray, b: np.ndarray, sc: int,
@@ -649,15 +1158,31 @@ def kmeans(gd: GroupData, u: np.ndarray, u_no: int, vars_: list[int],
 
 
 def kmeans_subdivision(gd: GroupData, ref: Refinement, u: np.ndarray,
-                       cutoff: float, mingroup: int,
-                       device="cuda") -> None:
-    """Kmeans_Subdivision (RepeatResolver.c:3382-3403). Mutates u."""
+                       cutoff: float, mingroup: int, device="cuda",
+                       split: SplitClock | None = None,
+                       card: "CardGroups | None" = None) -> None:
+    """Kmeans_Subdivision (RepeatResolver.c:3382-3403). Mutates u. With
+    `card`, every cluster's relative_vars runs first, in one pass on the
+    device (_relative_vars_card)."""
+    clock = split or SplitClock()
     number = komprimierung(u)
-    for k in range(number):
-        if int((u == k).sum()) > mingroup * 2:
-            vars_ = relative_vars(gd, u, k, ref.maxcorrs, cutoff,
-                                  mingroup, device)
-            kmeans(gd, u, k, vars_, mingroup, device=device)
+    # the clusters the loop subdivides, decided up front: kmeans(k)
+    # relabels only cluster k's rows, to labels above u.max() >=
+    # number - 1, so no cluster k' < number gains or loses a row
+    ks = [k for k in range(number) if int((u == k).sum()) > mingroup * 2]
+    # for the same reason, and because nothing here touches
+    # ref.maxcorrs, relative_vars(k) is the same before the first kmeans
+    # as after the kmeans of the clusters below k: the card route runs
+    # them all at once
+    vars_all = (_relative_vars_card(card, u, ks, ref.maxcorrs, cutoff,
+                                    mingroup, clock)
+                if card is not None else None)
+    for k in ks:
+        vars_ = (vars_all[k] if vars_all is not None else
+                 relative_vars(gd, u, k, ref.maxcorrs, cutoff, mingroup,
+                               device, clock))
+        kmeans(gd, u, k, vars_, mingroup, device=device)
+        clock.lap("kmeans")
     komprimierung(u)
 
 
@@ -695,13 +1220,31 @@ def back_and_forth(subdivisions: list[np.ndarray]) -> np.ndarray:
 
 def resolve_window(msa: np.ndarray, maxcorrs_full: np.ndarray,
                    von: int, bis: int, cfg: ResolverConfig,
-                   device="cuda") -> dict[str, np.ndarray]:
+                   device="cuda", route: str | None = None
+                   ) -> dict[str, np.ndarray]:
     """The reference main (RepeatResolver.c:3863-4084): the three
-    clusterings expanded to all MSA rows. `device` is where the exact
-    products above the devmm gate run ("cuda" raises without a GPU)."""
+    clusterings expanded to all MSA rows ("cuda" raises without a GPU).
+
+    route "card": the window's groups resident on `device`, where
+    group_refinement's candidate statistics and cliques and every
+    relative_vars' pair pass run (kernel H on a CUDA device, its plain
+    version on CPU tensors); "host": the JAX package's host code, with
+    the exact products above the devmm gate on `device`. None takes
+    "card" on a CUDA device unless RR_RESOLVER_DEVICE is "0", else
+    "host". Both give the same subdivisions. Each call appends its
+    record (seconds, the SplitClock parts and tallies, peak device
+    memory) to resolve_window.log."""
     device = resolve_device(device)
+    if route is None:
+        route = ("card" if device.type == "cuda"
+                 and devmm.device_enabled(device) else "host")
+    if route not in ("card", "host"):
+        raise ValueError(f"unknown resolve route {route!r}")
+    clock = SplitClock(device)
+    t0 = time.perf_counter()
     win = extract_window(msa, von, bis)
     gd = GroupData.from_window(win)
+    card = CardGroups(gd, device) if route == "card" else None
     w = win.siglength
     # MaxCorrs slice: file rows with i/5 in [von, bis] (:629-638)
     mc = maxcorrs_full.reshape(-1, 5)[von:win.bis + 1].reshape(-1)
@@ -712,19 +1255,37 @@ def resolve_window(msa: np.ndarray, maxcorrs_full: np.ndarray,
     maxcov = int(covcount.max()) if w else 0
     kill = (covcount * 10 < maxcov * 9)
     mc[np.repeat(kill, 5)] = 0.0
+    clock.lap("extract")
 
     ref = group_refinement(gd, mc, cutoff, cfg.cov, cfg.maxclique,
-                           cutoff, cfg.min_clique_size, device=device)
+                           cutoff, cfg.min_clique_size, device=device,
+                           split=clock, card=card)
     mingroup = cfg.mingroup
-    u = dropoff_subdivision(ref, cutoff, cfg.dropoffcutoff,
-                            cfg.sizecutoff, mingroup, win.signumber)
+    u = (_dropoff_subdivision_vec if card is not None
+         else dropoff_subdivision)(ref, cutoff, cfg.dropoffcutoff,
+                                   cfg.sizecutoff, mingroup, win.signumber)
     out = {"Dropoff": komplettierung(u, win.ausgelassen)}
+    clock.lap("dropoff")
     relative_dropoff_subdivision(gd, ref, u, cutoff, cfg.dropoffcutoff,
-                                 cfg.sizecutoff, mingroup)
+                                 cfg.sizecutoff, mingroup, card=card)
     out["RelDrop"] = komplettierung(u, win.ausgelassen)
-    kmeans_subdivision(gd, ref, u, cutoff, mingroup, device)
+    clock.lap("reldrop")
+    kmeans_subdivision(gd, ref, u, cutoff, mingroup, device, split=clock,
+                       card=card)
     out["Kmeans"] = komplettierung(u, win.ausgelassen)
+    rec = {"window": [int(von), int(bis)], "route": route,
+           "device": str(device), "rows": int(win.signumber), "cols": w,
+           "seeds": int((mc > cutoff).sum()),
+           "s": time.perf_counter() - t0, "split": dict(clock.s),
+           **clock.counts}
+    if device.type == "cuda":
+        rec["peak_device_bytes"] = torch.cuda.max_memory_allocated(device)
+    resolve_window.log.append(rec)
     return out
+
+
+# one record a resolve_window call (see there); callers clear it
+resolve_window.log = []
 
 
 def run(msa_path: str, von: int, bis: int, cfg: ResolverConfig,

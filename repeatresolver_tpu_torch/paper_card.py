@@ -41,18 +41,27 @@ Between the stages it runs four checks on the run's own files:
               alone): the stage's MaxCorrs against the host fast scan
               (compute_maxcorrs(fast=True)) on the same MSAreal:
               identical significance decisions, both times;
-  resolve     after resolve: the first window through the host route
-              (device "cpu") against the stage's three subdivision
-              files, byte for byte, given the same MaxCorrs.
+  resolve     beside resolve: the first window through the host route
+              (device "cpu", its split recorded) against the stage's
+              three subdivision files, byte for byte, given the same
+              MaxCorrs.
+
+The maxcorr check (about 500 s of the host scan on all cores but one)
+runs last, after assess. The resolve stage's record holds, a window,
+its seconds, its split (resolver.SPLIT_PARTS), kernel H's launches and
+milliseconds inside it, the tuples the host evaluated and the peak
+device memory (`resolve_windows`).
 
 A step that would start past the deadline is left out, and a step still
 running at it is stopped (SIGTERM: a stopped stage still reports what it
 measured, after the best-MSA write in flight completes). With
---realign-limit-s, realign is stopped so, and the MaxCorrs scan and the
-first window's resolve then run through the stages' own functions on
-the best MSA realign had written, with their checks, into probe_*
-files (the driver's files stay unwritten; none, if realign had written
-no best MSA yet). Run again with the same --workdir and --out, it goes
+--realign-limit-s, realign is stopped so, and the MaxCorrs scan, every
+window's resolve and the assessment then run through the stages' own
+functions on the best MSA realign had written, with their checks, into
+probe_* files (the driver's files stay unwritten; none, if realign had
+written no best MSA yet); the probe's assessment is of an MSA whose
+realign had not converged. --skip leaves a check or probe step out.
+Run again with the same --workdir and --out, it goes
 on where the files on disk say. The files' names and skip rules, the
 windows, the MaxCorrs scan and a window's resolve are paper_run's own
 functions.
@@ -79,13 +88,14 @@ from . import paper_run
 # the card's; the host MaxCorrs scan, on all cores but one, runs after
 # the device scan, which it would slow)
 PLAN = [("simulate",), ("cut",), ("align",), ("check:trajectory",),
-        ("check:tail",), ("realign",), ("maxcorr",), ("check:maxcorr",),
-        ("resolve", "check:resolve"), ("assess",)]
-# after a realign stopped at --realign-limit-s: the MaxCorrs scan and
-# the first window's resolve by the stages' own functions on the best
-# MSA written, into probe_* files (the driver's files stay unwritten)
-PROBE_PLAN = [("probe:maxcorr",), ("check:maxcorr",),
-              ("probe:resolve", "check:resolve")]
+        ("check:tail",), ("realign",), ("maxcorr",),
+        ("resolve", "check:resolve"), ("assess",), ("check:maxcorr",)]
+# after a realign stopped at --realign-limit-s: the MaxCorrs scan, every
+# window's resolve and the assessment by the stages' own functions on
+# the best MSA written, into probe_* files (the driver's files stay
+# unwritten)
+PROBE_PLAN = [("probe:maxcorr",), ("probe:resolve", "check:resolve"),
+              ("probe:assess",), ("check:maxcorr",)]
 STEPS = [s for group in PLAN + PROBE_PLAN for s in group]
 # seconds a step has between SIGTERM and SIGKILL: a best-MSA write in
 # flight (tens of seconds at the paper's size) completes
@@ -94,7 +104,8 @@ PROBE = "probe_"
 PROG = "repeatresolver_tpu_torch.paper_card"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("staircase_fill", "walk_backtrack", "editdp_fill",
-           "editdp_walk", "maxcorr_tile", "exact_fill", "exact_walk")
+           "editdp_walk", "maxcorr_tile", "exact_fill", "exact_walk",
+           "resolver_pairs")
 
 
 def _driver(workdir, driver_args, until):
@@ -120,7 +131,7 @@ def _probe(path):
 
 
 def _counters():
-    from .models import maxcorr, realigner
+    from .models import maxcorr, realigner, resolver
     from .models.realigner_device import DeviceResidentRealigner as Dev
     from .ops import cuda_backtrack as cb
     from .ops import banded_realign as br
@@ -128,17 +139,18 @@ def _counters():
     from .ops import cuda_exact as cx
     from .ops import cuda_maxcorr as cm
     from .ops import cuda_realign as cr
+    from .ops import cuda_resolver as cv
     from .ops import devmm, editdp, maxcorr_tile
     launch = dict(zip(KERNELS, (cr.staircase_fill, cb.backtrack_moves,
                                 ce.editdp_fill, ce.editdp_walk,
                                 cm.maxcorr_group, cx.exact_fill,
-                                cx.exact_walk)))
+                                cx.exact_walk, cv.pair_pass)))
     return launch, dict(
         plain=(editdp.forward_plain, editdp.walk_plain,
                maxcorr_tile.group_pass_plain, br.banded_fill),
         maxcorr=maxcorr.compute_maxcorrs_device, devmm=devmm.matmul_t,
         rb=realigner.realign_batched, host=realigner.BatchedRealigner,
-        dev=Dev)
+        dev=Dev, resolve=resolver.resolve_window)
 
 
 class Stopped(Exception):
@@ -172,6 +184,7 @@ def _measured(fn, dev_type):
     c["dev"].exact_blocks_run = dict.fromkeys(c["dev"].ROUTES, 0)
     c["dev"].exact_block_s = dict.fromkeys(c["dev"].ROUTES, 0.0)
     c["dev"].sweep_log = []
+    c["resolve"].log = []
     cuda = dev_type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -204,7 +217,8 @@ def _measured(fn, dev_type):
            "exact_block_s": dict(c["dev"].exact_block_s),
            "resident_sweeps": list(c["dev"].sweep_log),
            "best_write_s": list(c["rb"].write_s),
-           "best_write_wait_s": c["rb"].write_wait_s}
+           "best_write_wait_s": c["rb"].write_wait_s,
+           "resolve_windows": list(c["resolve"].log)}
     if cuda:
         rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         rec["peak_device_reserved"] = torch.cuda.max_memory_reserved()
@@ -360,14 +374,32 @@ def step_check(a, driver_args):
     elif a.step == "probe:resolve":
         msareal = rio.read_msa(f["msareal"])
         mc = rio.read_maxcorrs(_probe(f["maxcorrs"]))
-        von, bis = paper_run.windows(msareal)[0]
-        (out, cov), rec["device"] = _measured(lambda: paper_run.resolve(
-            msareal, mc, von, bis, args, dev), dev.type)
-        paths = paper_run.subdivision_files(f["msareal"], von, bis)
-        for kind, u in out.items():
-            rio.write_subdivision(_probe(paths[kind]), u)
-        rec.update(stage=f"resolve_{von}_{bis}", window=[von, bis],
-                   cov=cov, kmeans_clusters=int(out["Kmeans"].max()) + 1)
+        windows = []
+        for von, bis in paper_run.windows(msareal):
+            paths = paper_run.subdivision_files(f["msareal"], von, bis)
+            windows.append([von, bis])
+            if all(os.path.exists(_probe(p)) for p in paths.values()):
+                continue
+            (out, cov), wrec = _measured(lambda: paper_run.resolve(
+                msareal, mc, von, bis, args, dev), dev.type)
+            for kind, u in out.items():
+                rio.write_subdivision(_probe(paths[kind]), u)
+            wrec.update(step="probe:resolve/window",
+                        stage=f"resolve_{von}_{bis}", window=[von, bis],
+                        cov=cov,
+                        kmeans_clusters=int(out["Kmeans"].max()) + 1)
+            _finish(wrec, a.report)
+        rec.update(stage="resolve", windows=windows)
+    elif a.step == "probe:assess":
+        msareal = rio.read_msa(f["msareal"])
+        results = {}
+        for von, bis in paper_run.windows(msareal):
+            paths = paper_run.subdivision_files(f["msareal"], von, bis)
+            results[(von, bis)] = {k: np.array(rio.read_ints(_probe(p)))
+                                   for k, p in paths.items()}
+        rec.update(stage="assess", realign_converged=False,
+                   summary=paper_run.assess(a.workdir, results,
+                                            _probe(f["assessment"])))
     elif a.step == "check:maxcorr":
         # the host scan beside the stage, then the stage's file
         msareal = rio.read_msa(f["msareal"])
@@ -397,9 +429,12 @@ def step_check(a, driver_args):
         mc = rio.read_maxcorrs(name(f["maxcorrs"]))
         von, bis = paper_run.windows(msareal)[0]
         t0 = time.perf_counter()
+        from .models import resolver
+        resolver.resolve_window.log = []
         out, cov = paper_run.resolve(msareal, mc, von, bis, args, "cpu")
         rec.update(window=[von, bis], cov=cov, files=name("*"),
-                   host_s=time.perf_counter() - t0, differ=[])
+                   host_s=time.perf_counter() - t0, differ=[],
+                   host=resolver.resolve_window.log[-1])
         name = _wait_for(f, a.report, f"resolve_{von}_{bis}")
         paths = paper_run.subdivision_files(f["msareal"], von, bis)
         for kind, u in out.items():
@@ -496,7 +531,7 @@ def run(a, driver_args):
     while plan:
         group = plan.pop(0)
         steps = [s for s in group
-                 if not _step_done(s, f, report)]
+                 if s not in a.skip and not _step_done(s, f, report)]
         if not steps:
             continue
         if time.time() >= deadline:
@@ -541,6 +576,10 @@ def main(argv=None):
     ap.add_argument("--realign-limit-s", type=float, default=0.0,
                     help="stop realign after this long and measure the "
                     "later stages on its best MSA so far (0: no limit)")
+    ap.add_argument("--skip", action="append", default=[],
+                    choices=[s for s in STEPS
+                             if s.startswith(("check:", "probe:"))],
+                    help="leave this check or probe step out (repeatable)")
     ap.add_argument("--serial-rows", type=int, default=512,
                     help="rows of the block-1 sweep that the tail check "
                     "runs on both routes")

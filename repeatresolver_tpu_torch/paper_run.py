@@ -288,6 +288,15 @@ def _run(args):
 
     # ---- 8 assess
     t0 = time.perf_counter()
+    summary = assess(workdir, results, f["assessment"])
+    log_stage(workdir, "assess", time.perf_counter() - t0, summary.get(
+        "multi"))
+
+
+def assess(workdir, results, path) -> dict:
+    """The assessment of the windows' Kmeans subdivisions ({(von, bis):
+    {kind: labels}}) against the simulation's ground truth, each window
+    and chained; written to `path` as JSON and returned."""
     from .models import assessment
     sd = assessment.SimDataset.load(workdir)
     gt = sd.ground_truth_resolution()
@@ -307,10 +316,9 @@ def _run(args):
     print(f"[assess multi] tp={multi.truepositives} "
           f"fp={multi.falsepositives} of {len(np.unique(gt))}",
           flush=True)
-    with open(f["assessment"], "w") as fh:
+    with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
-    log_stage(workdir, "assess", time.perf_counter() - t0, summary.get(
-        "multi"))
+    return summary
 
 
 if __name__ == "__main__":

@@ -773,3 +773,103 @@ def test_serial_sweep_on_the_card_matches_host(dev, w, slack):
     assert ce.exact_fill.launches - f0 == ce.exact_walk.launches - g0 \
         == 2 * 23
     torch.cuda.synchronize()
+
+
+# ---- kernel H: relative_vars' pair pass (ops/cuda_resolver.py)
+
+PAIR_CLUSTERS = ((30, 40), (64, 25), (130, 60), (1, 3), (200, 0),
+                 (3000, 50))
+
+
+def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000):
+    """Random inputs of kernel H in ops/cuda_resolver's layout, as numpy
+    arrays: for each (size, selected rows) cluster, random memberships
+    of `size` rows packed 64 a word (bits past size clear), ascending
+    distinct group indices below `span` (so that some pairs lie 100
+    apart and some do not), the popcounts' table indices, a table of
+    random bits over the popcounts present, every other cluster in
+    counting mode. chip_smoke.py loads this generator by path."""
+    rng = np.random.default_rng(seed)
+    out = {k: [] for k in ("masks", "sel", "gidx", "rowk", "word_off",
+                           "words", "tab_off", "dims")}
+    row_off, ntab, nword = [0], 0, 0
+    for k, (size, n) in enumerate(clusters):
+        w = -(-size // 64)
+        bits = rng.random((n, w * 64)) < rng.uniform(0.05, 0.95)
+        bits[:, size:] = False
+        packed = np.packbits(bits, axis=1, bitorder="little")
+        out["masks"].append(packed.reshape(-1).view("<i8"))
+        out["sel"].append(np.sort(rng.choice(span, n, replace=False)))
+        gr = bits.sum(1)
+        vals = np.unique(gr) if n else np.zeros(0, np.int64)
+        d = len(vals)
+        out["gidx"].append(np.searchsorted(vals, gr))
+        out["rowk"].append(np.full(n, k))
+        out["word_off"].append(nword)
+        out["words"].append(w)
+        out["tab_off"].append(ntab)
+        out["dims"].append(d)
+        nword += n * w
+        ntab += -(-((int(vals.max()) + 1) * d * d if d else 0) // 32)
+        row_off.append(row_off[-1] + n)
+    arr = {k: np.concatenate([np.atleast_1d(np.asarray(x, np.int64))
+                              for x in v]) if v else np.zeros(0, np.int64)
+           for k, v in out.items()}
+    res = {k: v.astype(np.int64 if k == "masks" else np.int32)
+           for k, v in arr.items()}
+    res["row_off"] = np.array(row_off, np.int32)
+    res["kflag"] = (np.arange(len(clusters)) % 2).astype(np.int32)
+    # sparse hits: the AND of eight random words keeps a bit in 256
+    t = rng.integers(0, 2 ** 32, (8, max(ntab, 1)), dtype=np.uint64)
+    res["tables"] = np.bitwise_and.reduce(t).astype(np.uint32).view(
+        np.int32)
+    return res
+
+
+def pair_pass_on(arrays, dev):
+    """(PairPass, tables) of pair_pass_inputs' arrays on `dev`."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in arrays.items()}
+    tables = t.pop("tables")
+    return cv.PairPass(**t), tables
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_resolver_pairs_matches_plain(dev, seed):
+    """Kernel H against pair_pass_plain on the same CUDA tensors: the
+    marks of a lookup launch and the table bits of a counting launch
+    (its clusters only), bit for bit; one launch each."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    p, tables = pair_pass_on(pair_pass_inputs(seed), dev)
+    marks = []
+    for run in (cv.pair_pass, cv.pair_pass_plain):
+        m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+        n0 = cv.pair_pass.launches
+        run(p, tables, m)
+        assert cv.pair_pass.launches - n0 == (run is cv.pair_pass)
+        marks.append(m.cpu().numpy())
+    assert marks[0].any() and not marks[0].all()
+    np.testing.assert_array_equal(marks[0], marks[1])
+    occ = []
+    for run in (cv.pair_pass, cv.pair_pass_plain):
+        o = torch.zeros_like(tables)
+        run(p, o, torch.zeros(p.nrows, dtype=torch.uint8, device=dev),
+            count=True)
+        occ.append(o.cpu().numpy())
+    assert occ[0].any()
+    np.testing.assert_array_equal(occ[0], occ[1])
+    torch.cuda.synchronize()
+
+
+def test_resolver_pairs_rejects_bad_input(dev):
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    p, tables = pair_pass_on(pair_pass_inputs(3), dev)
+    m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="marked"):
+        cv.pair_pass(p, tables, m.to(torch.int32))
+    with pytest.raises(ValueError, match="gidx"):
+        cv.pair_pass(cv.PairPass(**{**vars(p), "gidx": p.gidx[:-1]}),
+                     tables, m)
+    with pytest.raises(ValueError, match="tables"):
+        cv.pair_pass(p, tables.cpu(), m)

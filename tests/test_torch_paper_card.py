@@ -4,9 +4,10 @@ the CPU, at test_torch_paper_run's configuration with --device cpu.
 `paper_card run --realign-limit-s` first: a stand-in on the steps'
 PYTHONPATH (a sitecustomize that only the realign step acts on) holds
 realign's third sweep, so the limit stops realign once two rounds have
-written a best MSA. The probe steps then run the MaxCorrs scan and the
-first window's resolve on that MSA into probe_* files, beside the host
-checks; the driver's own later files stay unwritten. The same work
+written a best MSA. The probe steps then run the MaxCorrs scan, every
+window's resolve (a record a window, with its split) and the assessment
+on that MSA into probe_* files, beside the host checks (the maxcorr
+check last); the driver's own later files stay unwritten. The same work
 directory, run again without the stand-in and the limit (a new --out
 that carries the first report's trajectory and tail lines, which skips
 those checks), resumes realign from its checkpoint and runs the later
@@ -79,9 +80,15 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
                            "--serial-rows", str(SERIAL_ROWS),
                            pythonpath=[str(hold)])
     assert "status: realign limit" in stdout
-    assert list(rep) == ["simulate", "cut", "align", "check:trajectory",
-                         "check:tail", "realign", "probe:maxcorr",
-                         "check:maxcorr", "probe:resolve", "check:resolve"]
+    steps = list(rep)
+    assert steps[:7] == ["simulate", "cut", "align", "check:trajectory",
+                         "check:tail", "realign", "probe:maxcorr"]
+    # probe:resolve's window records, its own line and the resolve check
+    # (side by side) in any order; then the assessment and the maxcorr
+    # check
+    assert sorted(steps[7:10]) == ["check:resolve", "probe:resolve",
+                                   "probe:resolve/window"]
+    assert steps[10:] == ["probe:assess", "check:maxcorr"]
     traj, tail = rep["check:trajectory"], rep["check:tail"]
     assert traj["equal"] and len(traj["resident_log"]) >= 3
     assert tail["equal"] and tail["block_rows"] == 4
@@ -98,10 +105,16 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
     assert 1 <= start <= 2
     for k in ("check:maxcorr", "check:resolve"):
         assert rep[k]["equal"] and rep[k]["files"] == "probe_*", rep[k]
+    windows = rep["probe:resolve"]["windows"]
+    assert len(windows) >= 2
+    assert rep["check:resolve"]["host"]["route"] == "host"
+    assess = rep["probe:assess"]
+    assert not assess["realign_converged"] and "multi" in assess["summary"]
     names = os.listdir(wd)
     probes = sorted(n for n in names if n.startswith("probe_"))
-    assert len(probes) == 4 and "probe_MaxCorrsOf_" + NAME + "_MSAreal" \
-        in probes
+    assert len(probes) == 2 + 3 * len(windows)
+    assert {"probe_MaxCorrsOf_" + NAME + "_MSAreal",
+            "probe_assessment.json"} <= set(probes)
     assert not any(n.startswith(("MaxCorrsOf_", "KmeansSubdivisionOf_"))
                    or n.endswith(".done") for n in names)
 
@@ -110,10 +123,17 @@ def test_card_run_with_a_realign_limit_then_resumed(tmp_path):
                                        + json.dumps(tail) + "\n")
     stdout, rep = card_run(wd, out2)
     assert "status: done" in stdout
-    assert list(rep) == ["check:trajectory", "check:tail", "realign",
-                         "maxcorr", "check:maxcorr", "resolve",
-                         "check:resolve", "assess"]
+    steps = list(rep)
+    assert steps[:4] == ["check:trajectory", "check:tail", "realign",
+                         "maxcorr"]
+    assert sorted(steps[4:6]) == ["check:resolve", "resolve"]
+    assert steps[6:] == ["assess", "check:maxcorr"]
     assert not rep["realign"]["stopped"]
+    records = rep["resolve"]["resolve_windows"]
+    kmeans = sorted(n for n in os.listdir(wd)
+                    if n.startswith("KmeansSubdivisionOf_"))
+    assert len(records) == len(kmeans) >= 2
+    assert all(r["route"] == "host" and r["s"] > 0 for r in records)
     for k in ("check:maxcorr", "check:resolve"):
         assert rep[k]["equal"] and rep[k]["files"] == "*", rep[k]
     # no value passes the cutoff at this size: the decisions agree
