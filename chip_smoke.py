@@ -198,15 +198,22 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      through the card route, with H's launch count set to 0 before, each
      window's three subdivision files byte-equal to the host route's
      (device "cpu"), H launched, the host route's candidate statistics
-     and relative_vars never called; a synthetic window at the paper
-     run's shape (3,000 rows of 100 copy groups over 17,733 columns,
-     MaxCorrs from the device scan) through the card route, timed with
-     its split; H against its plain version on every launch recorded
-     in both (bit-equal marks and table bits); the host route's
-     relative_vars on the synthetic window's clusters for
-     RELVARS_HOST_S seconds, the same var lists; H's time (the launch
-     alone, median of KERNEL_REPS) and its plain version's on the
-     synthetic window's lookup launch, beside its bound.
+     and relative_vars never called. A synthetic MSA at the paper run's
+     shape (about 3,000 rows of 100 copies, 26-34 rows a copy, over
+     17,733 columns, the copies from the simulator's Tree; MaxCorrs from
+     the device scan): its first RESOLVE_QUARTER columns through the
+     card route, timed with its split; then H at the paper-default
+     run's scale, relative_vars of every copy of the whole width at once
+     (`_relative_vars_card`; the significant groups cut at the group
+     index where a cluster selects PAPER_SEL_ROWS of them on average, as
+     in a paper-default window), its host seconds, the host route's
+     relative_vars on its clusters for RELVARS_HOST_S seconds (the same
+     var lists), and the same pass with every cluster's decisions in
+     the hash, as a paper-default window's are (the same var lists); H
+     against its plain version on every launch recorded (bit-equal
+     marks, the same hash keys); H's time (the launch alone, median of
+     KERNEL_REPS) and its plain version's on both paper-scale lookup
+     launches, beside their bound, and the counting launch's time.
 
 Every process a phase starts gets a time limit and is stopped when it
 passes it; a rank that fails or hangs fails the phase, and so does a
@@ -2888,39 +2895,51 @@ def paper_driver_phase(card, errs):
 
 
 RESOLVE_ROWS, RESOLVE_COPIES, RESOLVE_COLS = 3000, 100, 17733
-# seconds the host route's relative_vars gets on the synthetic window
-RELVARS_HOST_S = 60.0
+# columns of the synthetic MSA that the whole card route resolves (a
+# quarter: the paper width's window costs about a minute of host
+# significance, measured in the paper-default run instead)
+RESOLVE_QUARTER = RESOLVE_COLS // 4
+# selected groups a cluster in a paper-default window: 160,633-241,667
+# rows of kernel H over 43-64 clusters (the paper-default run on an H100,
+# PERF.md §5)
+PAPER_SEL_ROWS = 3750
+# seconds the host route's relative_vars gets on the paper-scale pass
+RELVARS_HOST_S = 30.0
 
 
 def resolve_window_msa(seed=0, rows=RESOLVE_ROWS, copies=RESOLVE_COPIES,
-                       cols=RESOLVE_COLS):
-    """A resolver window at the paper run's shape: `rows` rows of
-    `copies` copy groups (row i of copy i % copies) over `cols` columns,
-    every row covering the window. SNPs follow a random binary tree of
-    the copies: two columns an edge, the clade below carrying another
-    base; then 1% substitutions and 1% gaps as noise."""
+                       cols=RESOLVE_COLS, difference=0.01):
+    """(MSA, each row's copy): a resolver window at the paper run's
+    shape, about `rows` rows of `copies` copies (26-34 rows a copy, as
+    the paper run's coverage varies, in random order) over `cols`
+    columns, every row covering the window. The copies descend as the
+    simulator's Tree (models/simulator.tree_copies: a binary doubling
+    tree of log2(copies) + 1 generations, the first `copies` leaves
+    kept, each branch mutating difference / 2 of the columns). A
+    mutation is a substitution (a third) or the branch's clade carrying
+    a gap (an insertion or a deletion: in the alignment both split the
+    rows the same way); then 1% substitutions and 1% gaps as noise."""
     import numpy as np
     rng = np.random.default_rng(seed)
-    consensus = rng.integers(0, 4, cols).astype(np.int8)
-    clades = []
-
-    def split(ids):
-        clades.append(ids)
-        if len(ids) > 1:
-            cut = int(rng.integers(1, len(ids)))
-            split(ids[:cut])
-            split(ids[cut:])
-    split(rng.permutation(copies))
-    hap = np.tile(consensus, (copies, 1))
-    snp = rng.choice(cols, 2 * (len(clades) - 1), replace=False)
-    for j, col in enumerate(snp):
-        hap[clades[1 + j // 2], col] = (consensus[col] + 1
-                                        + rng.integers(0, 3)) % 4
-    msa = hap[np.arange(rows) % copies]
-    noise = rng.random((rows, cols))
+    hap = rng.integers(0, 4, (1, cols)).astype(np.int8)
+    per_branch = int(difference / 2.0 * cols)
+    for _ in range(int(np.log2(copies)) + 1):
+        hap = np.repeat(hap, 2, axis=0)
+        for child in hap:
+            at = rng.integers(0, cols, per_branch)
+            sub = rng.random(per_branch) < 1.0 / 3.0
+            base = child[at]
+            child[at] = np.where(
+                sub, np.where(base < 4, (base + rng.integers(1, 4, at.size))
+                              % 4, rng.integers(0, 4, at.size)), 4)
+    spread = rng.integers(-4, 5, copies)
+    copy_of = rng.permutation(np.repeat(np.arange(copies),
+                                        rows // copies + spread))
+    msa = hap[:copies][copy_of]
+    noise = rng.random(msa.shape)
     msa[noise < 0.01] = rng.integers(0, 4, int((noise < 0.01).sum()))
     msa[(noise >= 0.01) & (noise < 0.02)] = 4
-    return np.ascontiguousarray(msa.astype(np.int8))
+    return np.ascontiguousarray(msa.astype(np.int8)), copy_of
 
 
 def recording_pairs(rec):
@@ -2930,11 +2949,13 @@ def recording_pairs(rec):
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
 
-    def pair_pass(p, tables, marked, count=False):
+    def pair_pass(p, tables, h, marked, count=False):
         rec.append((cv.PairPass(**{k: v.clone() for k, v in
                                    vars(p).items()}),
-                    tables.clone(), count))
-        return cv.pair_pass(p, tables, marked, count)
+                    tables.clone(),
+                    cv.PairHash(h.keys.clone(), h.bits.clone(),
+                                h.state.clone()), count))
+        return cv.pair_pass(p, tables, h, marked, count)
 
     @contextlib.contextmanager
     def ctx():
@@ -2980,28 +3001,34 @@ def pair_pass_bound(p, sm_count, sm_hz):
 
 
 def replay_pairs(rec, label, dev):
-    """Kernel H against its plain version on recorded inputs; returns
-    the largest difference of a mark or a table word (0 or 1)."""
+    """Kernel H against its plain version on recorded inputs: a counting
+    launch's keys (as a set; racing inserts place them apart) and
+    overflow flag from an empty hash of the recorded size, a lookup
+    launch's marks on the recorded tables and hash. Returns the largest
+    difference of a mark or a key (0 or 1)."""
     import torch
 
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
-    worst = 0
-    for p, tables, count in rec:
+    for p, tables, h, count in rec:
         got = []
         for run in (cv.pair_pass, cv.pair_pass_plain):
-            t = torch.zeros_like(tables) if count else tables
             m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
-            run(p, t, m, count)
-            got.append((t if count else m).cpu())
-        diff = int((got[0] != got[1]).sum())
-        worst = max(worst, int(diff > 0))
-        if diff:
+            if count:
+                hh = cv.PairHash.empty(h.log2, dev)
+                run(p, tables, hh, m, True)
+                got.append((hh.overflowed(), None if hh.overflowed() else
+                            torch.sort(hh.keys[hh.keys != 0]).values.cpu()))
+            else:
+                run(p, tables, h, m)
+                got.append((False, m.cpu()))
+        same = got[0][0] == got[1][0] and (
+            got[0][1] is None or torch.equal(got[0][1], got[1][1]))
+        if not same:
             raise AssertionError(f"{label}: kernel H != pair_pass_plain "
-                                 f"({'count' if count else 'lookup'} mode, "
-                                 f"{diff} entries differ)")
+                                 f"({'count' if count else 'lookup'} mode)")
     print(f"{label}: kernel H bit-equal to pair_pass_plain on {len(rec)} "
-          f"recorded launches ({sum(c for *_, c in rec)} in counting mode)")
-    return worst
+          f"recorded launches ({sum(r[3] for r in rec)} in counting mode)")
+    return 0
 
 
 def print_resolve_records(label, records, card):
@@ -3018,17 +3045,12 @@ def print_resolve_records(label, records, card):
 
 def resolve_card_phase(card, dev, errs, sm_count, sm_hz):
     """Phase 14; returns (H's launches on phase 6's windows, on the
-    synthetic window), H's (ms, plain ms) and its bound."""
-    import numpy as np
+    synthetic MSA), H's (ms, plain ms) and its bound."""
     import torch
 
-    from repeatresolver_tpu_torch.config import (MaxCorrConfig,
-                                                 ResolverConfig,
-                                                 WindowConfig)
-    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.config import ResolverConfig, WindowConfig
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.models.window import window_boundaries
-    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     from repeatresolver_tpu_torch.utils import io as rio
 
     def host_calls():
@@ -3081,94 +3103,177 @@ def resolve_card_phase(card, dev, errs, sm_count, sm_hz):
     errs["resolver_pairs"] = max(errs["resolver_pairs"],
                                  replay_pairs(rec615, "pipeline-615", dev))
 
-    # the synthetic window at the paper's shape, MaxCorrs from the scan
+    synth_launches, h_times, bound = resolve_synthetic(card, dev, errs,
+                                                       sm_count, sm_hz)
+    return (win_launches, synth_launches, h_times, bound)
+
+
+def resolve_synthetic(card, dev, errs, sm_count, sm_hz):
+    """Phase 14's synthetic MSA: a quarter through the card route, H at
+    the paper-default scale (see the module docstring); returns (H's
+    launches in both, H's (ms, plain ms) and its bound)."""
+    import numpy as np
+    import torch
+
+    from repeatresolver_tpu_torch.config import MaxCorrConfig, ResolverConfig
+    from repeatresolver_tpu_torch.models import maxcorr as pmc
+    from repeatresolver_tpu_torch.models import resolver as pres
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    from repeatresolver_tpu_torch.ops import devmm
+
+    def host_calls():
+        return pres._cliques_host.calls + pres.relative_vars.calls
+
+    # the synthetic MSA at the paper's shape, MaxCorrs from the scan
     t0 = time.perf_counter()
-    msa = resolve_window_msa(rows=RESOLVE_ROWS, copies=RESOLVE_COPIES,
-                             cols=RESOLVE_COLS)
+    msa, copy_of = resolve_window_msa(rows=RESOLVE_ROWS,
+                                      copies=RESOLVE_COPIES,
+                                      cols=RESOLVE_COLS)
     mcs = pmc.compute_maxcorrs_device(msa, MaxCorrConfig(), device=dev)
     torch.cuda.synchronize()
-    print(f"synthetic window {msa.shape} ({RESOLVE_COPIES} copies): "
-          f"MaxCorrs device scan {time.perf_counter() - t0:.2f} s with the "
-          f"MSA's build, {int((mcs > 0).sum())} nonzero")
-    cfg = ResolverConfig(cov=RESOLVE_ROWS // RESOLVE_COPIES)
-    rec_paper: list = []
-    relv: dict = {}
-    card_fn = pres._relative_vars_card
+    print(f"synthetic MSA {msa.shape} ({RESOLVE_COPIES} copies): MaxCorrs "
+          f"device scan {time.perf_counter() - t0:.2f} s with the MSA's "
+          f"build, {int((mcs > 0).sum())} nonzero")
+    cfg = ResolverConfig(cov=msa.shape[0] // RESOLVE_COPIES)
 
-    def recording_relv(card_g, u, ks, maxcorrs, cutoff, mingroup, clock):
-        out = card_fn(card_g, u, ks, maxcorrs, cutoff, mingroup, clock)
-        relv.update(u=u.copy(), ks=list(ks), maxcorrs=maxcorrs.copy(),
-                    cutoff=cutoff, mingroup=mingroup, out=out)
-        return out
+    # its first quarter through the whole card route, with its split
+    rec_win: list = []
     pres.resolve_window.log = []
     reset_launches()
     calls0 = host_calls()
-    torch.cuda.reset_peak_memory_stats()
-    pres._relative_vars_card = recording_relv
     t0 = time.perf_counter()
-    try:
-        with recording_pairs(rec_paper):
-            res = pres.resolve_window(msa, mcs, 0, RESOLVE_COLS - 1, cfg,
-                                      dev)
-        torch.cuda.synchronize()
-    finally:
-        pres._relative_vars_card = card_fn
-    s_paper = time.perf_counter() - t0
-    paper_launches = launches_now()
+    with recording_pairs(rec_win):
+        res = pres.resolve_window(msa, mcs, 0, RESOLVE_QUARTER - 1, cfg,
+                                  dev)
+    torch.cuda.synchronize()
+    s_win = time.perf_counter() - t0
+    win_q_launches = launches_now()
     if host_calls() != calls0:
         raise AssertionError("the card route took a host route on the "
                              "synthetic window")
     print_resolve_records("synthetic", pres.resolve_window.log, card)
-    n_k = int(res["Kmeans"].max()) + 1
-    print(f"synthetic window: card route {s_paper:.2f} s, {n_k} Kmeans "
-          f"clusters, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if paper_launches["resolver_pairs"] <= 0 or not relv.get("ks"):
+    print(f"synthetic window 0-{RESOLVE_QUARTER - 1}: card route "
+          f"{s_win:.2f} s, {int(res['Kmeans'].max()) + 1} Kmeans clusters")
+    if win_q_launches["resolver_pairs"] <= 0:
         raise AssertionError("kernel H never launched on the synthetic "
                              "window")
     for kind, u in res.items():
-        if u.shape != (RESOLVE_ROWS,) or u.min() < 0:
+        if u.shape != copy_of.shape or u.min() < 0:
             raise AssertionError(f"synthetic window {kind}: labels "
                                  f"{u.shape}, min {u.min()}")
     errs["resolver_pairs"] = max(errs["resolver_pairs"],
-                                 replay_pairs(rec_paper, "synthetic", dev))
+                                 replay_pairs(rec_win, "synthetic", dev))
 
-    # relative_vars on the host route, cluster by cluster, for 60 s
-    gd = pres.GroupData.from_window(pres.extract_window(
-        msa, 0, RESOLVE_COLS - 1))
+    # H at the paper-default scale: every copy's relative_vars over the
+    # whole width, the significant groups cut where a cluster selects
+    # PAPER_SEL_ROWS of them on average
+    win = pres.extract_window(msa, 0, RESOLVE_COLS - 1)
+    gd = pres.GroupData.from_window(win)
+    card_g = pres.CardGroups(gd, dev)
+    mc = mcs.reshape(-1, 5)[:win.bis + 1].reshape(-1).astype(np.float64)
+    if mc.size != gd.groups.shape[0]:
+        raise AssertionError(f"{mc.size} MaxCorrs for "
+                             f"{gd.groups.shape[0]} groups")
+    cutoff, mingroup = cfg.resolved_cutoff(gd.covcount.size), cfg.mingroup
+    ks = [k for k in range(RESOLVE_COPIES)
+          if int((copy_of == k).sum()) > 2 * mingroup]
+    u_t = torch.from_numpy(copy_of.astype(np.int64)).to(dev)
+    onehot = (u_t[None, :] == torch.tensor(ks, device=dev)[:, None]).to(
+        torch.int8)
+    inter = devmm.int_matmul_t(card_g.groups, onehot)
+    picked = (torch.from_numpy(mc > cutoff).to(dev)[:, None]
+              & (inter >= mingroup))
+    mean_sel = picked.cumsum(0).double().mean(1)
+    g_cut = int(torch.searchsorted(mean_sel, float(PAPER_SEL_ROWS)))
+    mc[g_cut:] = 0.0
+    del inter, picked, onehot
+    rec_paper: list = []
+    clock = pres.SplitClock(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    with recording_pairs(rec_paper):
+        vars_card = pres._relative_vars_card(card_g, copy_of.copy(), ks, mc,
+                                             cutoff, mingroup, clock)
+    torch.cuda.synchronize()
+    s_relv = time.perf_counter() - t0
+    paper_launches = launches_now()
+    print(f"paper-scale pair pass: {len(ks)} clusters of "
+          f"{2 * mingroup + 1}+ rows, significant groups below {g_cut} of "
+          f"{mc.size}: {s_relv:.2f} s on {card}'s host; {clock.counts}")
+    if paper_launches["resolver_pairs"] <= 0:
+        raise AssertionError("kernel H never launched at paper scale")
+    errs["resolver_pairs"] = max(errs["resolver_pairs"],
+                                 replay_pairs(rec_paper, "paper-scale", dev))
     t0 = time.perf_counter()
     done = 0
-    for k in relv["ks"]:
+    for k in ks:
         if time.perf_counter() - t0 > RELVARS_HOST_S:
             break
-        host = pres.relative_vars(gd, relv["u"], k, relv["maxcorrs"],
-                                  relv["cutoff"], relv["mingroup"], "cpu")
-        if host != relv["out"][k]:
-            raise AssertionError(f"synthetic window cluster {k}: card "
-                                 f"route's vars != host route's")
+        host = pres.relative_vars(gd, copy_of, k, mc, cutoff, mingroup,
+                                  "cpu")
+        if host != vars_card[k]:
+            raise AssertionError(f"paper-scale cluster {k}: card route's "
+                                 "vars != host route's")
         done += 1
-    print(f"relative_vars: {done} of {len(relv['ks'])} clusters on the "
-          f"host route in {time.perf_counter() - t0:.1f} s, the same var "
-          "lists as the card route")
+    print(f"relative_vars: {done} of {len(ks)} clusters on the host route "
+          f"in {time.perf_counter() - t0:.1f} s, the same var lists as the "
+          "card route")
     if done == 0:
         raise AssertionError("no cluster's relative_vars checked on the "
                              "host route")
 
-    # H and its plain version on the synthetic window's lookup launch
-    p, tables, _ = next(r for r in rec_paper if not r[2])
-    marked = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
-    ms = launch_ms(lambda: cv.pair_pass(p, tables, marked),
-                   "resolver_pairs")
-    _, plain_ms = time_launches(
-        lambda: cv.pair_pass_plain(p, tables, marked), 1)
-    bound = pair_pass_bound(p, sm_count, sm_hz)
-    print(f"resolver_pairs on the synthetic window ({p.nrows} rows, "
-          f"{p.nclusters} clusters): kernel {ms:.3f} ms (median of "
-          f"{KERNEL_REPS} launches), plain {plain_ms:.3f} ms on {card}")
-    print(f"  bound {bound[0]:.4f} ms by {bound[1]} ({bound[0] / ms:.1%} "
-          f"of the kernel's time): {bound[2]}; library call: none (no "
-          "single PyTorch call computes the masked pair test)")
-    return (win_launches, paper_launches, (ms, plain_ms), bound)
+    # the same pass with every cluster's decisions in the hash, as in a
+    # paper-default window (whose clusters' popcounts spread past a
+    # dense table's FULL_TABLE_MAX entries): the same var lists
+    rec_hash: list = []
+    full = cv.FULL_TABLE_MAX
+    cv.FULL_TABLE_MAX = 0
+    reset_launches()
+    try:
+        with recording_pairs(rec_hash):
+            vars_hash = pres._relative_vars_card(
+                card_g, copy_of.copy(), ks, mc, cutoff, mingroup,
+                pres.SplitClock(dev))
+    finally:
+        cv.FULL_TABLE_MAX = full
+    torch.cuda.synchronize()
+    hash_launches = launches_now()
+    if vars_hash != vars_card:
+        raise AssertionError("paper-scale pair pass: the hashed decisions' "
+                             "var lists != the dense tables'")
+    errs["resolver_pairs"] = max(errs["resolver_pairs"], replay_pairs(
+        rec_hash, "paper-scale, every cluster hashed", dev))
+
+    # H and its plain version on both lookup launches, beside the bound
+    # (the same pairs); the counting launch
+    bound = pair_pass_bound(rec_paper[-1][0], sm_count, sm_hz)
+    marked = torch.zeros(rec_paper[-1][0].nrows, dtype=torch.uint8,
+                         device=dev)
+    for label, rec in (("dense tables", rec_paper),
+                       ("every cluster hashed", rec_hash)):
+        p, tables, h, _ = next(r for r in rec if not r[3])
+        ms = launch_ms(lambda: cv.pair_pass(p, tables, h, marked),
+                       "resolver_pairs")
+        _, plain_ms = time_launches(
+            lambda: cv.pair_pass_plain(p, tables, h, marked), 1)
+        print(f"resolver_pairs at paper scale, {label} ({p.nrows} rows, "
+              f"{p.nclusters} clusters, {int(p.kflag.sum())} hashed): "
+              f"kernel {ms:.3f} ms (median of {KERNEL_REPS} launches), "
+              f"plain {plain_ms:.3f} ms on {card}; bound {bound[0]:.4f} ms "
+              f"({bound[0] / ms:.1%} of the kernel's time)")
+    print(f"  bound {bound[0]:.4f} ms by {bound[1]}: {bound[2]}; library "
+          "call: none (no single PyTorch call computes the masked pair "
+          "test)")
+    pc, tc, hc, _ = next(r for r in rec_hash if r[3])
+    count_ms = launch_ms(lambda: cv.pair_pass(
+        pc, tc, cv.PairHash.empty(hc.log2, dev), marked, True),
+        "resolver_pairs")
+    keys = int((rec_hash[-1][2].keys != 0).sum())
+    print(f"  counting launch: {count_ms:.3f} ms (median of {KERNEL_REPS} "
+          f"launches) into {hc.keys.numel():,} slots, {keys:,} keys")
+    both = {k: v + paper_launches[k] + hash_launches[k]
+            for k, v in win_q_launches.items()}
+    return both, (ms, plain_ms), bound
 
 
 def main() -> int:
@@ -3640,7 +3745,7 @@ def main() -> int:
                       "cut_align_paper_width": cut_launches[name],
                       "paper_run_driver": driver_launches[name],
                       "resolve_615_windows": win_launches[name],
-                      "resolve_paper_window": rpaper_launches[name]}
+                      "resolve_synthetic": rpaper_launches[name]}
                for name in KERNELS}
     report = [dict(name=name, route="cuda", **KERNELS[name],
                    launches=by_path[name][MAIN_PATH[name]],

@@ -753,12 +753,13 @@ def _relative_dropoff_card(card: CardGroups, gd: GroupData,
 
 
 def _decision_entries(vals: np.ndarray, size: int, cutoff: float,
-                      entries: np.ndarray | None) -> tuple[np.ndarray, int]:
-    """The set entries of a pair table over the distinct popcounts
-    `vals` of clusters of `size` rows (cuda_resolver's layout), from
-    hg.cum_hyp_geo_log(s, gr_b, gr_a, size) > cutoff with the host's
-    argument types; at `entries` only, or (None) at every s <= min(gr_b,
-    gr_a). Returns (the set entries, the tuples evaluated)."""
+                      entries: np.ndarray | None
+                      ) -> tuple[np.ndarray, np.ndarray]:
+    """The decisions hg.cum_hyp_geo_log(s, gr_b, gr_a, size) > cutoff,
+    with the host's argument types, at the `entries` of a pair table
+    over the distinct popcounts `vals` of clusters of `size` rows
+    (cuda_resolver's layout), or (None) at every entry of the table
+    (every s <= min(gr_b, gr_a)). Returns (decisions, the entries)."""
     d = len(vals)
     if entries is None:
         ib, ia = np.divmod(np.arange(d * d, dtype=np.int64), d)
@@ -774,7 +775,7 @@ def _decision_entries(vals: np.ndarray, size: int, cutoff: float,
     z = hg.cum_hyp_geo_log(s.astype(np.int64), vals[ib].astype(np.int64),
                            vals[ia].astype(np.int64),
                            np.full(s.shape, size))
-    return entries[z > cutoff], int(s.size)
+    return z > cutoff, entries
 
 
 def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
@@ -782,9 +783,10 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
                         clock: SplitClock) -> dict[int, list[int]]:
     """relative_vars of every cluster in `ks` at once on card.dev: the
     clusters' intersections with every group as one exact product, the
-    selected groups' memberships packed, the decision tables from the
-    host's function, and kernel H over all pairs (its plain version on
-    CPU tensors)."""
+    selected groups' memberships packed, the decisions from the host's
+    function (dense tables for small cluster sizes, the entries that
+    occur for the rest), and kernel H over all pairs (its plain version
+    on CPU tensors)."""
     if not ks:
         return {}
     dev = card.dev
@@ -803,14 +805,17 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
     sizes_h = sizes.cpu().numpy()
     clock.lap("relvars_gather")
 
-    # one table a cluster size, over the popcounts of its clusters
+    # one table a cluster size, over the popcounts of its clusters: dense
+    # up to FULL_TABLE_MAX entries, else in the hash at hbase
     k_n = len(ks)
+    nsel = np.diff(off_h)
     gidx = np.zeros(len(gr_h), np.int32)
     tab_off = np.zeros(k_n, np.int32)
     dims = np.zeros(k_n, np.int32)
     kflag = np.zeros(k_n, np.int32)
-    tables_plan = []          # (size, vals, word offset, words, count?)
-    nwords = 0
+    hbase = np.zeros(k_n, np.int64)
+    dense, hashed = [], []    # (size, vals, word offset, words), (.., base)
+    nwords = nbase = pairs_hashed = 0
     for size in np.unique(sizes_h):
         kl = np.nonzero(sizes_h == size)[0]
         rows = np.concatenate([np.arange(off_h[k], off_h[k + 1])
@@ -818,70 +823,91 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
         vals = np.unique(gr_h[rows]).astype(np.int64)
         d = len(vals)
         n_entries = (int(vals.max()) + 1) * d * d if d else 0
-        if n_entries > cv.COUNT_TABLE_MAX:
-            raise ValueError(
-                f"relative_vars: clusters of {size} rows with {d} distinct "
-                f"popcounts need a table of {n_entries} entries, above "
-                f"COUNT_TABLE_MAX ({cv.COUNT_TABLE_MAX})")
-        count = n_entries > cv.FULL_TABLE_MAX
         gidx[rows] = np.searchsorted(vals, gr_h[rows])
-        tab_off[kl], dims[kl], kflag[kl] = nwords, d, int(count)
-        tables_plan.append((int(size), vals, nwords, -(-n_entries // 32),
-                            count))
-        nwords += tables_plan[-1][3]
-    if nwords >= 2 ** 31:
-        raise ValueError(f"relative_vars: {nwords} table words pass int32 "
-                         "offsets")
+        dims[kl] = d
+        if n_entries > cv.FULL_TABLE_MAX:
+            kflag[kl], hbase[kl] = 1, nbase
+            hashed.append((int(size), vals, nbase))
+            nbase += n_entries
+            pairs_hashed += int((nsel[kl] * (nsel[kl] - 1) // 2).sum())
+        else:
+            tab_off[kl] = nwords
+            dense.append((int(size), vals, nwords, -(-n_entries // 32)))
+            nwords += dense[-1][3]
+    if nwords >= 2 ** 31 or nbase >= 2 ** 62:
+        raise ValueError(f"relative_vars: {nwords} table words or "
+                         f"{nbase} hashed entries pass the pass's offsets")
 
     def dev32(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
     p = cv.PairPass(masks=masks, sel=gg.to(torch.int32), gidx=dev32(gidx),
                     rowk=kk.to(torch.int32), row_off=row_off,
                     word_off=word_off, words=words, tab_off=dev32(tab_off),
-                    dims=dev32(dims), kflag=dev32(kflag))
+                    dims=dev32(dims), kflag=dev32(kflag),
+                    hbase=torch.from_numpy(hbase).to(dev))
     tables = torch.zeros(max(nwords, 1), dtype=torch.int32, device=dev)
     marked = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
     timed = dev.type == "cuda"
-    if timed:
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ms = 0.0
     launches = int(p.nrows > 0)          # pair_pass launches no empty pass
-    if kflag.any():
-        occ = torch.zeros_like(tables)
+
+    def run(hsh, count):
+        nonlocal ms
         if timed:
-            ev[2].record()
-        cv.pair_pass(p, occ, marked, count=True)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        cv.pair_pass(p, tables, hsh, marked, count=count)
         if timed:
-            ev[3].record()
+            ev[1].record()
+            ev[1].synchronize()
+            ms += ev[0].elapsed_time(ev[1])
         clock.count("relvars_h_launches", launches)
-        clock.count("relvars_count_clusters", int(kflag.sum()))
+
+    # the hash: two slots a key for as many keys as the counted pairs or
+    # the hashed tables' entries allow, grown on overflow (each regrow
+    # one more counting launch)
+    log2 = 1
+    if hashed:
+        log2 = min(max(min(pairs_hashed, nbase), 1).bit_length() + 1,
+                   cv.HASH_LOG2_START)
+    hsh = cv.PairHash.empty(log2, dev)
     evaluated = 0
-    for size, vals, off, nw, count in tables_plan:
-        region = tables[off:off + nw]
-        at = (cv.set_entries(occ[off:off + nw]).cpu().numpy()
-              if count else None)
-        hits, n_eval = _decision_entries(vals, size, cutoff, at)
-        evaluated += n_eval
-        cv.or_bits(region, torch.from_numpy(hits).to(dev))
+    if hashed:
+        clock.count("relvars_count_clusters", int(kflag.sum()))
+        while True:
+            run(hsh, True)
+            if not hsh.overflowed():
+                break
+            clock.count("relvars_hash_regrows", 1)
+            hsh = cv.PairHash.empty(hsh.log2 + cv.HASH_LOG2_STEP, dev)
+        slots = torch.nonzero(hsh.keys).flatten()
+        keys = (hsh.keys[slots] - 1).cpu().numpy()
+        bases = np.array([b for *_, b in hashed], np.int64)
+        t_of = np.searchsorted(bases, keys, side="right") - 1
+        hit = np.zeros(keys.shape, bool)
+        for t, (size, vals, base) in enumerate(hashed):
+            at = np.nonzero(t_of == t)[0]
+            hit[at] = _decision_entries(vals, size, cutoff,
+                                        keys[at] - base)[0]
+        evaluated += keys.size
+        hsh.bits[slots[torch.from_numpy(hit).to(dev)]] = 1
+        clock.count("relvars_hash_keys", int(keys.size))
+    for size, vals, off, nw in dense:
+        dec, entries = _decision_entries(vals, size, cutoff, None)
+        evaluated += entries.size
+        cv.or_bits(tables[off:off + nw],
+                   torch.from_numpy(entries[dec]).to(dev))
     clock.count("relvars_tuples", evaluated)
-    if timed:
-        ev[0].record()
-    cv.pair_pass(p, tables, marked)
-    if timed:
-        ev[1].record()
-    clock.count("relvars_h_launches", launches)
+    run(hsh, False)
     marked_h = marked.cpu().numpy().astype(bool)
     gg_h = gg.cpu().numpy()
     if timed:
-        ms = ev[0].elapsed_time(ev[1]) + (ev[2].elapsed_time(ev[3])
-                                          if kflag.any() else 0.0)
         clock.count("relvars_h_ms", ms)
     clock.count("relvars_rows", p.nrows)
     clock.count("relvars_clusters", k_n)
     clock.lap("relvars_pairs")
     return {k: [int(v) for v in gg_h[off_h[i]:off_h[i + 1]][
         marked_h[off_h[i]:off_h[i + 1]]]] for i, k in enumerate(ks)}
-
-
 
 
 def group_refinement(gd: GroupData, maxcorrs: np.ndarray, cutoff: float,

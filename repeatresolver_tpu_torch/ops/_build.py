@@ -44,7 +44,7 @@ _SIGNATURES = {
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
     "exact_walk": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
-    "resolver_pairs": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+    "resolver_pairs": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
 }
 

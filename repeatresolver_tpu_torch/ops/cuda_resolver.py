@@ -18,25 +18,37 @@ cluster's rows is packed 64 rows a word (words[k] = ceil(size_k / 64)
 words a row, at masks[word_off[k] + (r - row_off[k]) * words[k]]); its
 cluster rowk[r], its group sel[r] and gidx[r], the index of its
 popcount among the distinct popcounts of its table. A table of
-dims[k] = D distinct values holds bit e = (s * D + gidx[b]) * D +
-gidx[a] at word tab_off[k] + e // 32, bit e % 32: the decision for
-schnitt s, gr[b], gr[a] (the host's argument order; the function is not
-symmetric in them). Clusters of equal size share a table.
+dims[k] = D distinct values has entry e = (s * D + gidx[b]) * D +
+gidx[a]: the decision for schnitt s, gr[b], gr[a] (the host's argument
+order; the function is not symmetric in them). Clusters of equal size
+share a table.
 
-A table of more than FULL_TABLE_MAX entries is not filled whole: a
-first launch in counting mode (kflag[k] set) ORs into a zeroed table
-the bit of every (s, gr_b, gr_a) that occurs; the host evaluates those
-entries only. Past COUNT_TABLE_MAX entries a table is refused.
+A table of at most FULL_TABLE_MAX entries is dense: bit e at word
+tab_off[k] + e // 32, bit e % 32 of `tables`, every entry filled by the
+host. A larger one (kflag[k] set) has as many entries as the cluster
+size cubed, so it lives in a hash (`PairHash`) of the entries that
+occur: key hbase[k] + e + 1 (hbase spaces the tables apart in 64 bits),
+open addressing with linear probing from `hash_slot`, its decision bit
+beside it. A first launch in counting mode inserts every key that
+occurs; the host evaluates those keys alone and sets their bits; the
+lookup launch then reads them. When the keys that occur pass half the
+slots, the counting launch sets the overflow flag (the kernel and the
+plain version alike, however the kernel's inserts race): the caller
+retries with a larger hash (`HASH_LOG2_START`, grown by
+`HASH_LOG2_STEP`). The hash holds at most as many keys as the counted
+clusters have pairs, so no table size is refused.
 
 `pair_pass` launches csrc/resolver_pairs.cu on CUDA tensors (a warp a
 row a, b from a binary search on the sorted sel, each pair's
-intersection by AND and popcount over the packed words, the table's
-bit, idempotent byte stores for the marks) and runs `pair_pass_plain`
-(the same function in torch ops, blocked over rows) on CPU tensors.
+intersection by AND and popcount over the packed words, the table's or
+the hash's bit, idempotent byte stores for the marks) and runs
+`pair_pass_plain` (the same function in torch ops, blocked over rows)
+on CPU tensors. Racing inserts leave the kernel's keys in other slots
+than the plain version's; both find a key wherever either put it.
 `pair_pass.launches` counts the kernel's launches. The kernel replaces
 no Pallas kernel: the JAX package ran this loop on the host. It is
-bound by its operations (words x pairs AND + popcount + add, and a table
-load a pair); the table of a cluster stays in L1.
+bound by its operations (words x pairs AND + popcount + add, and a
+table or hash load a pair); a dense table stays in L1, the hash in L2.
 """
 from __future__ import annotations
 
@@ -50,10 +62,12 @@ from . import _build
 # (RepeatResolver.c:2452: 20 columns of 5 groups)
 ROW_GAP = 100
 # a table of at most this many entries is filled whole by the host; a
-# larger one only at the entries the counting launch found
+# larger one only at the entries the counting launch found, in the hash
 FULL_TABLE_MAX = 1 << 12
-# the largest table (in entries, i.e. bits: 512 MiB) the pass builds
-COUNT_TABLE_MAX = 1 << 32
+# the hash's first size (log2 of its slots: 64 MiB of keys at most) and
+# its growth after an overflow
+HASH_LOG2_START = 23
+HASH_LOG2_STEP = 2
 # pair_pass_plain's block: rows a x rows b x words, elements
 PLAIN_BLOCK = 1 << 22
 
@@ -61,8 +75,8 @@ PLAIN_BLOCK = 1 << 22
 @dataclass
 class PairPass:
     """The packed inputs of one window's pair pass, on one device (see
-    the module's docstring). int64 masks (uint64 words) and int32 rest;
-    row_off has K + 1 entries, the other per-cluster arrays K."""
+    the module's docstring). int64 masks (uint64 words) and hbase, int32
+    rest; row_off has K + 1 entries, the other per-cluster arrays K."""
     masks: torch.Tensor
     sel: torch.Tensor
     gidx: torch.Tensor
@@ -73,6 +87,7 @@ class PairPass:
     tab_off: torch.Tensor
     dims: torch.Tensor
     kflag: torch.Tensor
+    hbase: torch.Tensor
 
     @property
     def nrows(self) -> int:
@@ -81,6 +96,81 @@ class PairPass:
     @property
     def nclusters(self) -> int:
         return self.words.shape[0]
+
+
+@dataclass
+class PairHash:
+    """The hash of a pass's counted entries: keys int64 [2^log2] (0 an
+    empty slot, else key hbase[k] + e + 1), bits uint8 [2^log2] (the
+    decision of the key in the same slot), state int64 [2] (keys put in,
+    overflow flag)."""
+    keys: torch.Tensor
+    bits: torch.Tensor
+    state: torch.Tensor
+
+    @classmethod
+    def empty(cls, log2: int, device) -> "PairHash":
+        n = 1 << log2
+        return cls(torch.zeros(n, dtype=torch.int64, device=device),
+                   torch.zeros(n, dtype=torch.uint8, device=device),
+                   torch.zeros(2, dtype=torch.int64, device=device))
+
+    @property
+    def log2(self) -> int:
+        return self.keys.shape[0].bit_length() - 1
+
+    def overflowed(self) -> bool:
+        return bool(self.state[1].item())
+
+
+def hash_slot(keys: torch.Tensor, log2: int) -> torch.Tensor:
+    """The kernel's hash_slot: int64 keys below 2^63, two products below
+    2^62 (no overflow), bits 24 up of their XOR."""
+    h = (((keys & 0x7FFFFFFF) * 0x6C8E9CF5)
+         ^ ((keys >> 31) * 0x165667B1))
+    return (h >> 24) & ((1 << log2) - 1)
+
+
+def hash_find(h: PairHash, keys: torch.Tensor) -> torch.Tensor:
+    """The slot of each key in h, or -1 where it is absent: probes from
+    hash_slot until the key or an empty slot."""
+    mask = (1 << h.log2) - 1
+    slot = torch.full_like(keys, -1)
+    pos = hash_slot(keys, h.log2)
+    live = torch.arange(keys.shape[0], device=keys.device)
+    while live.numel():
+        cur = h.keys[pos[live]]
+        hit = cur == keys[live]
+        slot[live[hit]] = pos[live[hit]]
+        live = live[~hit & (cur != 0)]
+        pos[live] = (pos[live] + 1) & mask
+    return slot
+
+
+def hash_insert_plain(h: PairHash, keys: torch.Tensor) -> None:
+    """Insert the keys into h as the kernel does, one round of probes at
+    a time (the first key in order takes a contested empty slot); if the
+    keys would pass half the slots, set the overflow flag instead."""
+    if keys.numel() == 0 or h.overflowed():
+        return
+    keys = torch.unique(keys)
+    keys = keys[hash_find(h, keys) < 0]
+    filled = int(h.state[0])
+    if filled + keys.numel() > (1 << h.log2) >> 1:
+        h.state[1] = 1
+        return
+    h.state[0] += keys.numel()
+    mask = (1 << h.log2) - 1
+    pos = hash_slot(keys, h.log2)
+    while keys.numel():
+        cand = torch.nonzero(h.keys[pos] == 0).flatten()
+        at, inv = torch.unique(pos[cand], return_inverse=True)
+        first = torch.full_like(at, keys.numel()).scatter_reduce_(
+            0, inv, cand, "amin")
+        won = torch.zeros_like(keys, dtype=torch.bool)
+        won[first] = True
+        h.keys[pos[won]] = keys[won]
+        keys, pos = keys[~won], (pos[~won] + 1) & mask
 
 
 def pack_members(groups: torch.Tensor, u: torch.Tensor, ks: torch.Tensor,
@@ -145,16 +235,6 @@ def or_bits(region: torch.Tensor, entries: torch.Tensor) -> None:
     region[:nw].bitwise_or_(acc.to(torch.int32))
 
 
-def set_entries(region: torch.Tensor) -> torch.Tensor:
-    """The indices (int64) of the set bits of an int32 table region."""
-    nz = torch.nonzero(region).flatten()
-    vals = region[nz]
-    bits = (vals[:, None] >> torch.arange(32, device=region.device,
-                                          dtype=torch.int32)) & 1
-    r, b = torch.nonzero(bits, as_tuple=True)
-    return nz[r].to(torch.int64) * 32 + b
-
-
 def popcount64(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each int64 (read as uint64): the SWAR count of each
     32-bit half, which stays non-negative and far from overflow."""
@@ -166,7 +246,7 @@ def popcount64(x: torch.Tensor) -> torch.Tensor:
     return half(x & 0xFFFFFFFF) + half((x >> 32) & 0xFFFFFFFF)
 
 
-def _check_pass(p: PairPass, tables, marked, dev):
+def _check_pass(p: PairPass, tables, h: PairHash, marked, dev):
     n, k_n = p.nrows, p.nclusters
     spec = [("masks", p.masks, torch.int64, None),
             ("sel", p.sel, torch.int32, n), ("gidx", p.gidx, torch.int32, n),
@@ -177,7 +257,11 @@ def _check_pass(p: PairPass, tables, marked, dev):
             ("tab_off", p.tab_off, torch.int32, k_n),
             ("dims", p.dims, torch.int32, k_n),
             ("kflag", p.kflag, torch.int32, k_n),
+            ("hbase", p.hbase, torch.int64, k_n),
             ("tables", tables, torch.int32, None),
+            ("hash keys", h.keys, torch.int64, None),
+            ("hash bits", h.bits, torch.uint8, h.keys.shape[0]),
+            ("hash state", h.state, torch.int64, 2),
             ("marked", marked, torch.uint8, n)]
     for name, x, dtype, size in spec:
         if not isinstance(x, torch.Tensor) or x.dtype != dtype \
@@ -189,20 +273,27 @@ def _check_pass(p: PairPass, tables, marked, dev):
         if x.device != dev:
             raise ValueError(f"pair_pass: {name} is on {x.device}, "
                              f"expected {dev}")
+    slots = h.keys.shape[0]
+    if slots < 2 or slots & (slots - 1) or slots > 1 << 31:
+        raise ValueError(f"pair_pass: the hash has {slots} slots, not a "
+                         "power of two in [2, 2^31]")
 
 
-def pair_pass(p: PairPass, tables: torch.Tensor, marked: torch.Tensor,
-              count: bool = False) -> None:
+def pair_pass(p: PairPass, tables: torch.Tensor, h: PairHash,
+              marked: torch.Tensor, count: bool = False) -> None:
     """Kernel H on CUDA tensors, pair_pass_plain on CPU tensors.
 
     count=False: for every pair of every cluster, a set bit of the
-    cluster's table marks both rows (marked[r] = 1; marked is zeroed by
-    the caller). count=True: for the clusters with kflag set, OR the bit
-    of every pair's entry into `tables` (zeroed there by the caller)."""
+    cluster's dense table, or of its key in h (kflag set), marks both
+    rows (marked[r] = 1; marked is zeroed by the caller). count=True:
+    for the clusters with kflag set, insert every pair's key into h
+    (empty, or holding earlier keys); h.overflowed() then says whether
+    it ran out of room, and the pass must be run again on a larger
+    hash."""
     dev = marked.device
-    _check_pass(p, tables, marked, dev)
+    _check_pass(p, tables, h, marked, dev)
     if dev.type == "cpu":
-        pair_pass_plain(p, tables, marked, count)
+        pair_pass_plain(p, tables, h, marked, count)
         return
     if dev.type != "cuda":
         raise ValueError(f"pair_pass: CUDA or CPU tensors, got {dev}")
@@ -216,8 +307,9 @@ def pair_pass(p: PairPass, tables: torch.Tensor, marked: torch.Tensor,
     err = lib.resolver_pairs_launch(
         ptr(p.masks), ptr(p.sel), ptr(p.gidx), ptr(p.rowk), ptr(p.row_off),
         ptr(p.word_off), ptr(p.words), ptr(p.tab_off), ptr(p.dims),
-        ptr(p.kflag), ptr(tables), ptr(marked), p.nrows, int(bool(count)),
-        ROW_GAP, _build.stream_ptr(dev))
+        ptr(p.kflag), ptr(p.hbase), ptr(tables), ptr(h.keys), ptr(h.bits),
+        ptr(h.state), ptr(marked), p.nrows, int(bool(count)), ROW_GAP,
+        h.log2, _build.stream_ptr(dev))
     if ev:
         ev[1].record()
     _build.check(lib, "resolver_pairs", err)
@@ -227,14 +319,15 @@ def pair_pass(p: PairPass, tables: torch.Tensor, marked: torch.Tensor,
 pair_pass.launches = 0
 
 
-def pair_pass_plain(p: PairPass, tables: torch.Tensor, marked: torch.Tensor,
-                    count: bool = False) -> None:
+def pair_pass_plain(p: PairPass, tables: torch.Tensor, h: PairHash,
+                    marked: torch.Tensor, count: bool = False) -> None:
     """Kernel H's function in torch ops: per cluster, blocks of rows a
     against all rows b; the same inputs and outputs as pair_pass."""
     row_off = p.row_off.tolist()
     word_off, words = p.word_off.tolist(), p.words.tolist()
     tab_off, dims, kflag = p.tab_off.tolist(), p.dims.tolist(), \
         p.kflag.tolist()
+    hbase = p.hbase.tolist()
     for k in range(p.nclusters):
         if count and not kflag[k]:
             continue
@@ -253,11 +346,15 @@ def pair_pass_plain(p: PairPass, tables: torch.Tensor, marked: torch.Tensor,
             pair = sel[None, :] >= sel[a0:a1, None] + ROW_GAP
             e = (s * d + gi[None, :]) * d + gi[a0:a1, None]
             if count:
-                region = tables[tab_off[k]:]
-                or_bits(region, torch.unique(e[pair]))
+                hash_insert_plain(h, e[pair] + (hbase[k] + 1))
                 continue
-            word = tables[tab_off[k] + (e >> 5)]
-            hit = (((word >> (e & 31).to(torch.int32)) & 1) == 1) & pair
+            if kflag[k]:
+                hit = torch.zeros_like(pair)
+                slot = hash_find(h, e[pair] + (hbase[k] + 1))
+                hit[pair] = (slot >= 0) & (h.bits[slot.clamp(min=0)] != 0)
+            else:
+                word = tables[tab_off[k] + (e >> 5)]
+                hit = (((word >> (e & 31).to(torch.int32)) & 1) == 1) & pair
             hit_b |= hit.any(0)
             marked[lo + a0:lo + a1] |= hit.any(1).to(torch.uint8)
         if not count:

@@ -60,11 +60,10 @@ window's resolve and the assessment then run through the stages' own
 functions on the best MSA realign had written, with their checks, into
 probe_* files (the driver's files stay unwritten; none, if realign had
 written no best MSA yet); the probe's assessment is of an MSA whose
-realign had not converged. --skip leaves a check or probe step out.
-Run again with the same --workdir and --out, it goes
-on where the files on disk say. The files' names and skip rules, the
-windows, the MaxCorrs scan and a window's resolve are paper_run's own
-functions.
+realign had not converged. Run again with the same --workdir and
+--out, it goes on where the files on disk say. The files' names and
+skip rules, the windows, the MaxCorrs scan and a window's resolve are
+paper_run's own functions.
 """
 from __future__ import annotations
 
@@ -531,7 +530,7 @@ def run(a, driver_args):
     while plan:
         group = plan.pop(0)
         steps = [s for s in group
-                 if s not in a.skip and not _step_done(s, f, report)]
+                 if not _step_done(s, f, report)]
         if not steps:
             continue
         if time.time() >= deadline:
@@ -576,10 +575,6 @@ def main(argv=None):
     ap.add_argument("--realign-limit-s", type=float, default=0.0,
                     help="stop realign after this long and measure the "
                     "later stages on its best MSA so far (0: no limit)")
-    ap.add_argument("--skip", action="append", default=[],
-                    choices=[s for s in STEPS
-                             if s.startswith(("check:", "probe:"))],
-                    help="leave this check or probe step out (repeatable)")
     ap.add_argument("--serial-rows", type=int, default=512,
                     help="rows of the block-1 sweep that the tail check "
                     "runs on both routes")

@@ -786,13 +786,13 @@ def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000):
     arrays: for each (size, selected rows) cluster, random memberships
     of `size` rows packed 64 a word (bits past size clear), ascending
     distinct group indices below `span` (so that some pairs lie 100
-    apart and some do not), the popcounts' table indices, a table of
-    random bits over the popcounts present, every other cluster in
-    counting mode. chip_smoke.py loads this generator by path."""
+    apart and some do not), the popcounts' table indices, a dense table
+    of random bits over the popcounts present, every other cluster
+    hashed (kflag, its entries spaced apart by hbase)."""
     rng = np.random.default_rng(seed)
     out = {k: [] for k in ("masks", "sel", "gidx", "rowk", "word_off",
-                           "words", "tab_off", "dims")}
-    row_off, ntab, nword = [0], 0, 0
+                           "words", "tab_off", "dims", "hbase")}
+    row_off, ntab, nword, nbase = [0], 0, 0, 0
     for k, (size, n) in enumerate(clusters):
         w = -(-size // 64)
         bits = rng.random((n, w * 64)) < rng.uniform(0.05, 0.95)
@@ -803,19 +803,22 @@ def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000):
         gr = bits.sum(1)
         vals = np.unique(gr) if n else np.zeros(0, np.int64)
         d = len(vals)
+        entries = (int(vals.max()) + 1) * d * d if d else 0
         out["gidx"].append(np.searchsorted(vals, gr))
         out["rowk"].append(np.full(n, k))
         out["word_off"].append(nword)
         out["words"].append(w)
         out["tab_off"].append(ntab)
         out["dims"].append(d)
+        out["hbase"].append(nbase)
         nword += n * w
-        ntab += -(-((int(vals.max()) + 1) * d * d if d else 0) // 32)
+        ntab += -(-entries // 32)
+        nbase += entries
         row_off.append(row_off[-1] + n)
     arr = {k: np.concatenate([np.atleast_1d(np.asarray(x, np.int64))
                               for x in v]) if v else np.zeros(0, np.int64)
            for k, v in out.items()}
-    res = {k: v.astype(np.int64 if k == "masks" else np.int32)
+    res = {k: v.astype(np.int64 if k in ("masks", "hbase") else np.int32)
            for k, v in arr.items()}
     res["row_off"] = np.array(row_off, np.int32)
     res["kflag"] = (np.arange(len(clusters)) % 2).astype(np.int32)
@@ -835,41 +838,112 @@ def pair_pass_on(arrays, dev):
     return cv.PairPass(**t), tables
 
 
+def _hash_decide(h):
+    """Set the decision bit of about one key in 251 of h, as a function
+    of the key alone, so that hashes built apart agree on it."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    keys = h.keys
+    h.bits.copy_(((keys != 0) & (cv.hash_slot(keys, 20) % 251 == 0))
+                 .to(torch.uint8))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_resolver_pairs_matches_plain(dev, seed):
     """Kernel H against pair_pass_plain on the same CUDA tensors: the
-    marks of a lookup launch and the table bits of a counting launch
-    (its clusters only), bit for bit; one launch each."""
+    keys a counting launch inserts into the hash (its clusters only) as
+    a set, and the marks of a lookup launch over the dense tables and
+    each one's own hash (the same decision a key), bit for bit; one
+    launch each."""
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     p, tables = pair_pass_on(pair_pass_inputs(seed), dev)
-    marks = []
+    hashes, keys = [], []
     for run in (cv.pair_pass, cv.pair_pass_plain):
-        m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+        h = cv.PairHash.empty(20, dev)
         n0 = cv.pair_pass.launches
-        run(p, tables, m)
+        run(p, tables, h, torch.zeros(p.nrows, dtype=torch.uint8,
+                                      device=dev), count=True)
         assert cv.pair_pass.launches - n0 == (run is cv.pair_pass)
+        assert not h.overflowed()
+        keys.append(torch.sort(h.keys[h.keys != 0]).values.cpu().numpy())
+        _hash_decide(h)
+        hashes.append(h)
+    assert keys[0].size > 1000
+    np.testing.assert_array_equal(keys[0], keys[1])
+    marks = []
+    for run, h in zip((cv.pair_pass, cv.pair_pass_plain), hashes):
+        m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+        run(p, tables, h, m)
         marks.append(m.cpu().numpy())
     assert marks[0].any() and not marks[0].all()
     np.testing.assert_array_equal(marks[0], marks[1])
-    occ = []
+    torch.cuda.synchronize()
+
+
+def test_resolver_pairs_hash_overflow(dev):
+    """A hash of 16 slots holds 8 keys: both versions flag the overflow
+    of a counting pass with more keys; the plain version stops at 8, and
+    the kernel ends even when racing inserts fill every slot."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    p, tables = pair_pass_on(pair_pass_inputs(4), dev)
     for run in (cv.pair_pass, cv.pair_pass_plain):
-        o = torch.zeros_like(tables)
-        run(p, o, torch.zeros(p.nrows, dtype=torch.uint8, device=dev),
-            count=True)
-        occ.append(o.cpu().numpy())
-    assert occ[0].any()
-    np.testing.assert_array_equal(occ[0], occ[1])
+        h = cv.PairHash.empty(4, dev)
+        run(p, tables, h, torch.zeros(p.nrows, dtype=torch.uint8,
+                                      device=dev), count=True)
+        assert h.overflowed()
+        filled = int((h.keys != 0).sum())
+        assert filled <= (16 if run is cv.pair_pass else 8)
+        assert int(h.state[0]) == filled
+    torch.cuda.synchronize()
+
+
+def test_resolver_pairs_hash_fits_its_keys(dev):
+    """Two million pairs of one cluster share a few thousand keys, in a
+    hash whose half holds them with little room to spare: many lanes
+    insert the same new key at once, and the counting launch must not
+    flag an overflow (it counts the keys put in, not the attempts); the
+    keys equal the plain version's, and so do the marks."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    p, tables = pair_pass_on(pair_pass_inputs(5, clusters=((64, 2000),),
+                                              span=400000), dev)
+    p = cv.PairPass(**{**vars(p), "kflag": torch.ones_like(p.kflag)})
+    full = cv.PairHash.empty(22, dev)
+    cv.pair_pass_plain(p, tables, full, torch.zeros(
+        p.nrows, dtype=torch.uint8, device=dev), count=True)
+    n = int(full.state[0])
+    log2 = (n - 1).bit_length() + 1       # the least half that holds n
+    assert n > 1000
+    hashes = []
+    for run in (cv.pair_pass, cv.pair_pass_plain):
+        h = cv.PairHash.empty(log2, dev)
+        run(p, tables, h, torch.zeros(p.nrows, dtype=torch.uint8,
+                                      device=dev), count=True)
+        assert not h.overflowed() and int(h.state[0]) == n
+        _hash_decide(h)
+        hashes.append(h)
+    keys = [torch.sort(h.keys[h.keys != 0]).values.cpu().numpy()
+            for h in hashes]
+    np.testing.assert_array_equal(keys[0], keys[1])
+    marks = []
+    for run, h in zip((cv.pair_pass, cv.pair_pass_plain), hashes):
+        m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+        run(p, tables, h, m)
+        marks.append(m.cpu().numpy())
+    np.testing.assert_array_equal(marks[0], marks[1])
     torch.cuda.synchronize()
 
 
 def test_resolver_pairs_rejects_bad_input(dev):
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     p, tables = pair_pass_on(pair_pass_inputs(3), dev)
+    h = cv.PairHash.empty(10, dev)
     m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="marked"):
-        cv.pair_pass(p, tables, m.to(torch.int32))
+        cv.pair_pass(p, tables, h, m.to(torch.int32))
     with pytest.raises(ValueError, match="gidx"):
         cv.pair_pass(cv.PairPass(**{**vars(p), "gidx": p.gidx[:-1]}),
-                     tables, m)
+                     tables, h, m)
     with pytest.raises(ValueError, match="tables"):
-        cv.pair_pass(p, tables.cpu(), m)
+        cv.pair_pass(p, tables.cpu(), h, m)
+    with pytest.raises(ValueError, match="power of two"):
+        cv.pair_pass(p, tables, cv.PairHash(h.keys[:-1], h.bits[:-1],
+                                            h.state), m)

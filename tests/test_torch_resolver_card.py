@@ -129,7 +129,10 @@ def test_fixture_reaches_both_table_modes_and_word_boundary(case):
     assert clock.counts["relvars_count_clusters"] >= 1
     assert clock.counts["relvars_count_clusters"] < len(case["ks"])
     assert clock.counts["relvars_h_launches"] == 2
-    assert cv.FULL_TABLE_MAX < cv.COUNT_TABLE_MAX
+    assert 0 < clock.counts["relvars_hash_keys"] < clock.counts[
+        "relvars_tuples"]
+    assert "relvars_hash_regrows" not in clock.counts
+    assert cv.HASH_LOG2_START > 1
 
 
 @pytest.mark.parametrize("batched", [False, True],
@@ -187,6 +190,64 @@ def test_relative_vars_before_kmeans_equal_sequential_loop(case):
     pres.kmeans_subdivision(gd, ref, u_card, cutoff, mingroup, "cpu",
                             card=card)
     np.testing.assert_array_equal(u_card, u_seq)
+
+
+def _large_cluster(seed, size=1100, n_sel=1050, families=4, w=600):
+    """One cluster of `size` rows (and 100 rows outside it) whose
+    `n_sel` selected groups all have distinct popcounts, so that a dense
+    pair table over (schnitt, gr_b, gr_a) would need size x n_sel^2
+    entries (1.2e9 at the defaults). Each of `families` takes a random
+    order of the rows and nests its groups along it (their pairs are
+    significant); the last family's groups are independent random
+    subsets. Returns
+    (GroupData, u, maxcorrs, cutoff, mingroup)."""
+    from repeatresolver_tpu_torch.models import resolver as pres
+    rng = np.random.default_rng(seed)
+    n, mingroup, cutoff = size + 100, 5, 4.0
+    groups = np.zeros((5 * w, n), bool)
+    sel = np.sort(rng.choice(5 * w, n_sel, replace=False))
+    pops = rng.permutation(np.arange(mingroup, mingroup + n_sel))
+    fam = rng.integers(0, families + 1, n_sel)
+    orders = [rng.permutation(size) for _ in range(families)]
+    for g, c, f in zip(sel, pops, fam):
+        rows = (orders[f][:c] if f < families
+                else rng.choice(size, c, replace=False))
+        groups[g, rows] = True
+    groups[:, size:] = rng.random((5 * w, 100)) < 0.5
+    maxcorrs = np.zeros(5 * w)
+    maxcorrs[sel] = cutoff + 1.0
+    coverage = np.ones((w, n), bool)
+    gd = pres.GroupData(groups, coverage, groups.sum(1).astype(np.int64),
+                        coverage.sum(1).astype(np.int64))
+    u = np.r_[np.zeros(size, np.int64), np.ones(100, np.int64)]
+    return gd, u, maxcorrs, cutoff, mingroup
+
+
+def test_pair_pass_large_cluster_matches_jax_relative_vars():
+    """A cluster of 1,100 rows with 1,050 distinct popcounts: the hashed
+    entries (half a million keys where a dense table would hold 1.2e9
+    entries), grown from a hash too small for them, against the JAX
+    package's relative_vars."""
+    from repeatresolver_tpu.models import resolver as jres
+    from repeatresolver_tpu_torch.models import resolver as pres
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    gd, u, mc, cutoff, mingroup = _large_cluster(5)
+    with _jax_host():
+        want = jres.relative_vars(gd, u, 0, mc, cutoff, mingroup)
+    clock = pres.SplitClock()
+    start = cv.HASH_LOG2_START
+    cv.HASH_LOG2_START = 12          # 2,048 keys before the first regrow
+    try:
+        got = pres._relative_vars_card(pres.CardGroups(gd, "cpu"), u, [0],
+                                       mc, cutoff, mingroup, clock)
+    finally:
+        cv.HASH_LOG2_START = start
+    assert got == {0: want}
+    assert 0 < len(want) < 1050
+    assert clock.counts["relvars_hash_regrows"] >= 1
+    assert clock.counts["relvars_hash_keys"] > 1 << 11
+    assert clock.counts["relvars_h_launches"] == 2 + clock.counts[
+        "relvars_hash_regrows"]
 
 
 RELDROP_STARTS = ("dropoff", "one_cluster", "copy_pairs", "copies")
