@@ -206,14 +206,17 @@ package repeatresolver_tpu was imported, so any failure exits non-zero):
      run's scale, relative_vars of every copy of the whole width at once
      (`_relative_vars_card`; the significant groups cut at the group
      index where a cluster selects PAPER_SEL_ROWS of them on average, as
-     in a paper-default window), its host seconds, the host route's
+     in a paper-default window), its tables in shared memory as a
+     paper-default window's are, its host seconds, the host route's
      relative_vars on its clusters for RELVARS_HOST_S seconds (the same
      var lists), and the same pass with every cluster's decisions in
-     the hash, as a paper-default window's are (the same var lists); H
-     against its plain version on every launch recorded (bit-equal
-     marks, the same hash keys); H's time (the launch alone, median of
-     KERNEL_REPS) and its plain version's on both paper-scale lookup
-     launches, beside their bound, and the counting launch's time.
+     the hash (the same var lists); H against its plain version on
+     every launch recorded (bit-equal marks and occurrence bits, the
+     same hash keys); H's time (the launch alone, median of
+     KERNEL_REPS) and its plain version's on the paper-scale counting
+     and lookup launches of both forms, beside their bound (the
+     popcount pipe's, the int32 pipes' and the bytes' times, the
+     largest named).
 
 Every process a phase starts gets a time limit and is stopped when it
 passes it; a rank that fails or hangs fails the phase, and so does a
@@ -2949,13 +2952,13 @@ def recording_pairs(rec):
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
 
-    def pair_pass(p, tables, h, marked, count=False):
+    def pair_pass(p, tables, occ, h, marked, count=False):
         rec.append((cv.PairPass(**{k: v.clone() for k, v in
                                    vars(p).items()}),
-                    tables.clone(),
+                    tables.clone(), occ.clone(),
                     cv.PairHash(h.keys.clone(), h.bits.clone(),
                                 h.state.clone()), count))
-        return cv.pair_pass(p, tables, h, marked, count)
+        return cv.pair_pass(p, tables, occ, h, marked, count)
 
     @contextlib.contextmanager
     def ctx():
@@ -2968,13 +2971,24 @@ def recording_pairs(rec):
     return ctx()
 
 
+# the card's peak rates for kernel H's bound, a clock of an SM: the
+# popcount pipe (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0: "population count", 16) and the
+# int32 pipes (AND, add, shift, multiply-add: 64)
+POPC_PER_SM_CLOCK = 16
+INT32_PER_SM_CLOCK = 64
+
+
 def pair_pass_bound(p, sm_count, sm_hz):
     """(ms, by, detail) of the least time for kernel H's work on p: the
     pairs its inputs hold (sel[b] >= sel[a] + ROW_GAP within a cluster),
-    each word of a pair an AND, a popcount and an add of 64 bits (two
-    int32 operations each but the add), each pair 8 more (its table
-    index, shift, load and test), over the card's int32 rate; the bytes
-    of its inputs and marks read and written once."""
+    each word of a pair a 64-bit popcount (two 32-bit popcounts, on the
+    popcount pipe) and an AND and an add of 64 bits (three int32
+    operations: two ANDs, the add of the halves' counts), each pair 4
+    more int32 operations (its entry's index, a multiply-add and an
+    add; its word, a shift; its bit, a shift and a test counted as
+    one), over each pipe's rate; the bytes of its inputs and marks read
+    and written once. The largest of the three; the detail names it."""
     import numpy as np
 
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
@@ -2987,47 +3001,58 @@ def pair_pass_bound(p, sm_count, sm_hz):
         n = int((s.size - np.searchsorted(s, s + cv.ROW_GAP)).sum())
         pairs += n
         word_pairs += n * int(words[k])
-    ops = word_pairs * 5 + pairs * 8
-    rate = sm_count * 64 * sm_hz
+    popc = word_pairs * 2
+    ints = word_pairs * 3 + pairs * 4
+    clocks = sm_count * sm_hz
+    ms_popc = popc / (clocks * POPC_PER_SM_CLOCK) * 1e3
+    ms_int = ints / (clocks * INT32_PER_SM_CLOCK) * 1e3
     nbytes = sum(int(x.numel()) * x.element_size() for x in vars(p).values()
-                 ) + int(p.nrows)
-    ms_ops, ms_bytes = ops / rate * 1e3, nbytes / 3.35e12 * 1e3
-    by = "operations" if ms_ops >= ms_bytes else "bytes"
-    return (max(ms_ops, ms_bytes), by,
-            f"{pairs:,} pairs, {word_pairs:,} pair-words, {ops:.4g} int32 "
-            f"operations over {sm_count} SMs x 64 lanes x "
-            f"{sm_hz / 1e6:.0f} MHz = {ms_ops:.4g} ms; {nbytes:,} bytes "
-            f"over 3.35 TB/s = {ms_bytes:.4g} ms")
+                 ) + (int(p.nrows) + 31) // 32 * 4
+    ms_bytes = nbytes / 3.35e12 * 1e3
+    ms, pipe = max((ms_popc, "the popcount pipe"),
+                   (ms_int, "the int32 pipes"), (ms_bytes, "bytes"))
+    return (ms, "bytes" if pipe == "bytes" else "operations",
+            f"set by {pipe}; {pairs:,} pairs, {word_pairs:,} pair-words: "
+            f"{popc:.4g} "
+            f"popcounts over {sm_count} SMs x {POPC_PER_SM_CLOCK} a clock x "
+            f"{sm_hz / 1e6:.0f} MHz = {ms_popc:.4g} ms; {ints:.4g} int32 "
+            f"operations at {INT32_PER_SM_CLOCK} a clock = {ms_int:.4g} ms; "
+            f"{nbytes:,} bytes over 3.35 TB/s = {ms_bytes:.4g} ms")
 
 
 def replay_pairs(rec, label, dev):
     """Kernel H against its plain version on recorded inputs: a counting
-    launch's keys (as a set; racing inserts place them apart) and
-    overflow flag from an empty hash of the recorded size, a lookup
-    launch's marks on the recorded tables and hash. Returns the largest
-    difference of a mark or a key (0 or 1)."""
+    launch's occurrence bitmap (bit for bit), hash keys (as a set;
+    racing inserts place them apart) and overflow flag from a zeroed
+    bitmap and an empty hash of the recorded size, a lookup launch's
+    packed marks on the recorded tables and hash. Returns the largest
+    difference of a mark, a bit or a key (0 or 1)."""
     import torch
 
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
-    for p, tables, h, count in rec:
+    for p, tables, occ, h, count in rec:
         got = []
         for run in (cv.pair_pass, cv.pair_pass_plain):
-            m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+            m = torch.zeros((p.nrows + 31) // 32, dtype=torch.int32,
+                            device=dev)
             if count:
                 hh = cv.PairHash.empty(h.log2, dev)
-                run(p, tables, hh, m, True)
-                got.append((hh.overflowed(), None if hh.overflowed() else
+                oo = torch.zeros_like(occ)
+                run(p, tables, oo, hh, m, True)
+                got.append((hh.overflowed(), oo.cpu(), None
+                            if hh.overflowed() else
                             torch.sort(hh.keys[hh.keys != 0]).values.cpu()))
             else:
-                run(p, tables, h, m)
-                got.append((False, m.cpu()))
-        same = got[0][0] == got[1][0] and (
-            got[0][1] is None or torch.equal(got[0][1], got[1][1]))
+                run(p, tables, occ, h, m)
+                got.append((False, m.cpu(), None))
+        (f0, a0, k0), (f1, a1, k1) = got
+        same = f0 == f1 and torch.equal(a0, a1) and (
+            k0 is None or torch.equal(k0, k1))
         if not same:
             raise AssertionError(f"{label}: kernel H != pair_pass_plain "
                                  f"({'count' if count else 'lookup'} mode)")
     print(f"{label}: kernel H bit-equal to pair_pass_plain on {len(rec)} "
-          f"recorded launches ({sum(r[3] for r in rec)} in counting mode)")
+          f"recorded launches ({sum(r[4] for r in rec)} in counting mode)")
     return 0
 
 
@@ -3222,12 +3247,12 @@ def resolve_synthetic(card, dev, errs, sm_count, sm_hz):
         raise AssertionError("no cluster's relative_vars checked on the "
                              "host route")
 
-    # the same pass with every cluster's decisions in the hash, as in a
-    # paper-default window (whose clusters' popcounts spread past a
-    # dense table's FULL_TABLE_MAX entries): the same var lists
+    # the same pass with every cluster's decisions in the hash (the
+    # switch at 0; a paper window's tables fit in shared memory): the
+    # same var lists
     rec_hash: list = []
-    full = cv.FULL_TABLE_MAX
-    cv.FULL_TABLE_MAX = 0
+    smem = cv.SMEM_TABLE_BYTES
+    cv.SMEM_TABLE_BYTES = 0
     reset_launches()
     try:
         with recording_pairs(rec_hash):
@@ -3235,45 +3260,53 @@ def resolve_synthetic(card, dev, errs, sm_count, sm_hz):
                 card_g, copy_of.copy(), ks, mc, cutoff, mingroup,
                 pres.SplitClock(dev))
     finally:
-        cv.FULL_TABLE_MAX = full
+        cv.SMEM_TABLE_BYTES = smem
     torch.cuda.synchronize()
     hash_launches = launches_now()
     if vars_hash != vars_card:
         raise AssertionError("paper-scale pair pass: the hashed decisions' "
-                             "var lists != the dense tables'")
+                             "var lists != the shared-memory tables'")
     errs["resolver_pairs"] = max(errs["resolver_pairs"], replay_pairs(
         rec_hash, "paper-scale, every cluster hashed", dev))
 
-    # H and its plain version on both lookup launches, beside the bound
-    # (the same pairs); the counting launch
+    # H and its plain version on both forms' lookup and counting
+    # launches, beside the bound (the same pairs)
     bound = pair_pass_bound(rec_paper[-1][0], sm_count, sm_hz)
-    marked = torch.zeros(rec_paper[-1][0].nrows, dtype=torch.uint8,
-                         device=dev)
-    for label, rec in (("dense tables", rec_paper),
+    n_words = (rec_paper[-1][0].nrows + 31) // 32
+    times = {}
+    for label, rec in (("shared-memory tables", rec_paper),
                        ("every cluster hashed", rec_hash)):
-        p, tables, h, _ = next(r for r in rec if not r[3])
-        ms = launch_ms(lambda: cv.pair_pass(p, tables, h, marked),
-                       "resolver_pairs")
-        _, plain_ms = time_launches(
-            lambda: cv.pair_pass_plain(p, tables, h, marked), 1)
-        print(f"resolver_pairs at paper scale, {label} ({p.nrows} rows, "
-              f"{p.nclusters} clusters, {int(p.kflag.sum())} hashed): "
-              f"kernel {ms:.3f} ms (median of {KERNEL_REPS} launches), "
-              f"plain {plain_ms:.3f} ms on {card}; bound {bound[0]:.4f} ms "
-              f"({bound[0] / ms:.1%} of the kernel's time)")
+        for count in (False, True):
+            p, tables, occ, h, _ = next(r for r in rec if r[4] == count)
+            marked = torch.zeros(n_words, dtype=torch.int32, device=dev)
+            if count:
+                def fresh(fn, p=p, tables=tables, occ=occ, h=h):
+                    return lambda: fn(p, tables, torch.zeros_like(occ),
+                                      cv.PairHash.empty(h.log2, dev),
+                                      marked, True)
+            else:
+                def fresh(fn, p=p, tables=tables, occ=occ, h=h):
+                    return lambda: fn(p, tables, occ, h, marked)
+            ms = launch_ms(fresh(cv.pair_pass), "resolver_pairs")
+            _, plain_ms = time_launches(fresh(cv.pair_pass_plain), 1)
+            times[label, count] = (ms, plain_ms)
+            keys = int((h.keys != 0).sum()) if not count else int(
+                (rec[-1][3].keys != 0).sum())
+            print(f"resolver_pairs at paper scale, {label}, "
+                  f"{'counting' if count else 'lookup'} launch "
+                  f"({p.nrows} rows, {p.nclusters} clusters, "
+                  f"{int((p.kflag != cv.BITMAP).sum())} hashed, "
+                  f"{p.tiles.shape[0]} tiles, {h.keys.numel():,} hash "
+                  f"slots, {keys:,} keys): kernel {ms:.4f} ms (median of "
+                  f"{KERNEL_REPS} launches), plain {plain_ms:.3f} ms on "
+                  f"{card}; bound {bound[0]:.4f} ms ({bound[0] / ms:.1%} "
+                  "of the kernel's time)")
     print(f"  bound {bound[0]:.4f} ms by {bound[1]}: {bound[2]}; library "
           "call: none (no single PyTorch call computes the masked pair "
           "test)")
-    pc, tc, hc, _ = next(r for r in rec_hash if r[3])
-    count_ms = launch_ms(lambda: cv.pair_pass(
-        pc, tc, cv.PairHash.empty(hc.log2, dev), marked, True),
-        "resolver_pairs")
-    keys = int((rec_hash[-1][2].keys != 0).sum())
-    print(f"  counting launch: {count_ms:.3f} ms (median of {KERNEL_REPS} "
-          f"launches) into {hc.keys.numel():,} slots, {keys:,} keys")
     both = {k: v + paper_launches[k] + hash_launches[k]
             for k, v in win_q_launches.items()}
-    return both, (ms, plain_ms), bound
+    return both, times["shared-memory tables", False], bound
 
 
 def main() -> int:

@@ -752,30 +752,16 @@ def _relative_dropoff_card(card: CardGroups, gd: GroupData,
     komprimierung(u)
 
 
-def _decision_entries(vals: np.ndarray, size: int, cutoff: float,
-                      entries: np.ndarray | None
-                      ) -> tuple[np.ndarray, np.ndarray]:
+def _decisions(vals: np.ndarray, size: int, cutoff: float, s: np.ndarray,
+               ib: np.ndarray, ia: np.ndarray) -> np.ndarray:
     """The decisions hg.cum_hyp_geo_log(s, gr_b, gr_a, size) > cutoff,
-    with the host's argument types, at the `entries` of a pair table
-    over the distinct popcounts `vals` of clusters of `size` rows
-    (cuda_resolver's layout), or (None) at every entry of the table
-    (every s <= min(gr_b, gr_a)). Returns (decisions, the entries)."""
-    d = len(vals)
-    if entries is None:
-        ib, ia = np.divmod(np.arange(d * d, dtype=np.int64), d)
-        top = np.minimum(vals[ib], vals[ia])
-        reps = top + 1
-        pair = np.repeat(np.arange(d * d), reps)
-        s = np.arange(reps.sum()) - np.repeat(np.cumsum(reps) - reps, reps)
-        ib, ia = ib[pair], ia[pair]
-        entries = (s * d + ib) * d + ia
-    else:
-        s, rest = np.divmod(entries, d * d)
-        ib, ia = np.divmod(rest, d)
+    with the host's argument types, at the entries (s, ib, ia) of a pair
+    table over the distinct popcounts `vals` of clusters of `size` rows
+    (cuda_resolver's layout: gr_b = vals[ib], gr_a = vals[ia])."""
     z = hg.cum_hyp_geo_log(s.astype(np.int64), vals[ib].astype(np.int64),
                            vals[ia].astype(np.int64),
                            np.full(s.shape, size))
-    return z > cutoff, entries
+    return z > cutoff
 
 
 def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
@@ -783,10 +769,11 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
                         clock: SplitClock) -> dict[int, list[int]]:
     """relative_vars of every cluster in `ks` at once on card.dev: the
     clusters' intersections with every group as one exact product, the
-    selected groups' memberships packed, the decisions from the host's
-    function (dense tables for small cluster sizes, the entries that
-    occur for the rest), and kernel H over all pairs (its plain version
-    on CPU tensors)."""
+    selected groups' memberships packed, and kernel H over all pairs (its
+    plain version on CPU tensors) twice: a counting launch finds the
+    entries that occur (bits of a table in shared memory up to
+    cv.SMEM_TABLE_BYTES, keys in a hash past it), the host evaluates
+    those alone, and a lookup launch marks the rows."""
     if not ks:
         return {}
     dev = card.dev
@@ -805,16 +792,18 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
     sizes_h = sizes.cpu().numpy()
     clock.lap("relvars_gather")
 
-    # one table a cluster size, over the popcounts of its clusters: dense
-    # up to FULL_TABLE_MAX entries, else in the hash at hbase
+    # one table a cluster size, over the popcounts of its clusters: its
+    # bits in shared memory up to cv.SMEM_TABLE_BYTES, else in the hash
+    # at hbase
     k_n = len(ks)
     nsel = np.diff(off_h)
     gidx = np.zeros(len(gr_h), np.int32)
     tab_off = np.zeros(k_n, np.int32)
+    tab_words = np.zeros(k_n, np.int32)
     dims = np.zeros(k_n, np.int32)
     kflag = np.zeros(k_n, np.int32)
     hbase = np.zeros(k_n, np.int64)
-    dense, hashed = [], []    # (size, vals, word offset, words), (.., base)
+    bitmap, hashed = [], []   # (size, vals, word offset, words), (.., base)
     nwords = nbase = pairs_hashed = 0
     for size in np.unique(sizes_h):
         kl = np.nonzero(sizes_h == size)[0]
@@ -822,41 +811,50 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
                                for k in kl])
         vals = np.unique(gr_h[rows]).astype(np.int64)
         d = len(vals)
-        n_entries = (int(vals.max()) + 1) * d * d if d else 0
+        if d == 0:
+            continue
         gidx[rows] = np.searchsorted(vals, gr_h[rows])
         dims[kl] = d
-        if n_entries > cv.FULL_TABLE_MAX:
-            kflag[kl], hbase[kl] = 1, nbase
+        tw = cv.bitmap_words(d, int(vals.max()))
+        if tw * 4 <= cv.SMEM_TABLE_BYTES:
+            kflag[kl], tab_off[kl], tab_words[kl] = cv.BITMAP, nwords, tw
+            bitmap.append((int(size), vals, nwords, tw))
+            nwords += tw
+        else:
+            n_entries = (int(vals.max()) + 1) * d * d
+            kflag[kl] = cv.HASHED if n_entries < 2 ** 32 else cv.HASHED_WIDE
+            hbase[kl] = nbase
             hashed.append((int(size), vals, nbase))
             nbase += n_entries
             pairs_hashed += int((nsel[kl] * (nsel[kl] - 1) // 2).sum())
-        else:
-            tab_off[kl] = nwords
-            dense.append((int(size), vals, nwords, -(-n_entries // 32)))
-            nwords += dense[-1][3]
     if nwords >= 2 ** 31 or nbase >= 2 ** 62:
         raise ValueError(f"relative_vars: {nwords} table words or "
                          f"{nbase} hashed entries pass the pass's offsets")
 
     def dev32(x):
         return torch.from_numpy(np.ascontiguousarray(x, np.int32)).to(dev)
-    p = cv.PairPass(masks=masks, sel=gg.to(torch.int32), gidx=dev32(gidx),
-                    rowk=kk.to(torch.int32), row_off=row_off,
-                    word_off=word_off, words=words, tab_off=dev32(tab_off),
+    sel_t, rowk_t = gg.to(torch.int32), kk.to(torch.int32)
+    p = cv.PairPass(masks=masks, sel=sel_t, gidx=dev32(gidx), rowk=rowk_t,
+                    row_off=row_off, word_off=word_off, words=words,
+                    tab_off=dev32(tab_off), tab_words=dev32(tab_words),
                     dims=dev32(dims), kflag=dev32(kflag),
-                    hbase=torch.from_numpy(hbase).to(dev))
-    tables = torch.zeros(max(nwords, 1), dtype=torch.int32, device=dev)
-    marked = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+                    hbase=torch.from_numpy(hbase).to(dev),
+                    tiles=cv.pair_tiles(sel_t, rowk_t, row_off))
+    tables = torch.zeros(max(nwords, 4), dtype=torch.int32, device=dev)
+    occ = torch.zeros_like(tables)
+    marked = torch.zeros((p.nrows + 31) // 32, dtype=torch.int32,
+                         device=dev)
     timed = dev.type == "cuda"
     ms = 0.0
-    launches = int(p.nrows > 0)          # pair_pass launches no empty pass
+    # pair_pass launches no pass without tiles
+    launches = int(p.tiles.shape[0] > 0)
 
     def run(hsh, count):
         nonlocal ms
         if timed:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-        cv.pair_pass(p, tables, hsh, marked, count=count)
+        cv.pair_pass(p, tables, occ, hsh, marked, count=count)
         if timed:
             ev[1].record()
             ev[1].synchronize()
@@ -871,40 +869,65 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
         log2 = min(max(min(pairs_hashed, nbase), 1).bit_length() + 1,
                    cv.HASH_LOG2_START)
     hsh = cv.PairHash.empty(log2, dev)
+    clock.count("relvars_hashed_clusters", int((kflag != cv.BITMAP).sum()))
+    while True:
+        run(hsh, True)
+        if not hsh.overflowed():
+            break
+        clock.count("relvars_hash_regrows", 1)
+        hsh = cv.PairHash.empty(hsh.log2 + cv.HASH_LOG2_STEP, dev)
     evaluated = 0
+    if bitmap:
+        # the occurrence bits, read back as (word, bit) and decoded
+        at = torch.nonzero(occ).flatten()
+        w_h = at.cpu().numpy().astype(np.int64)
+        v_h = occ[at].cpu().numpy().astype("<i4")
+        bits = np.unpackbits(v_h.view(np.uint8).reshape(-1, 4), axis=1,
+                             bitorder="little").astype(bool)
+        word = np.repeat(w_h, bits.sum(1))
+        bit = np.nonzero(bits)[1].astype(np.int64)
+        offs = np.array([off for _, _, off, _ in bitmap], np.int64)
+        t_of = np.searchsorted(offs, word, side="right") - 1
+        hit = np.zeros(word.shape, bool)
+        for t, (size, vals, off, _) in enumerate(bitmap):
+            at_t = np.nonzero(t_of == t)[0]
+            rr, ss = cv.table_geometry(len(vals))
+            s, rest = np.divmod(word[at_t] - off, ss)
+            ib, iw = np.divmod(rest, rr)
+            ia = iw * 32 + bit[at_t]
+            if ((ib >= len(vals)) | (ia >= len(vals))
+                    | (s > vals.max())).any():
+                raise AssertionError("relative_vars: an occurrence bit "
+                                     "outside its table's entries")
+            hit[at_t] = _decisions(vals, size, cutoff, s, ib, ia)
+        evaluated += word.size
+        clock.count("relvars_bitmap_entries", int(word.size))
+        cv.or_words(tables, torch.from_numpy(word[hit]).to(dev),
+                    torch.from_numpy(bit[hit]).to(dev))
     if hashed:
-        clock.count("relvars_count_clusters", int(kflag.sum()))
-        while True:
-            run(hsh, True)
-            if not hsh.overflowed():
-                break
-            clock.count("relvars_hash_regrows", 1)
-            hsh = cv.PairHash.empty(hsh.log2 + cv.HASH_LOG2_STEP, dev)
         slots = torch.nonzero(hsh.keys).flatten()
         keys = (hsh.keys[slots] - 1).cpu().numpy()
         bases = np.array([b for *_, b in hashed], np.int64)
         t_of = np.searchsorted(bases, keys, side="right") - 1
         hit = np.zeros(keys.shape, bool)
         for t, (size, vals, base) in enumerate(hashed):
-            at = np.nonzero(t_of == t)[0]
-            hit[at] = _decision_entries(vals, size, cutoff,
-                                        keys[at] - base)[0]
+            at_t = np.nonzero(t_of == t)[0]
+            d = len(vals)
+            s, rest = np.divmod(keys[at_t] - base, d * d)
+            ib, ia = np.divmod(rest, d)
+            hit[at_t] = _decisions(vals, size, cutoff, s, ib, ia)
         evaluated += keys.size
         hsh.bits[slots[torch.from_numpy(hit).to(dev)]] = 1
         clock.count("relvars_hash_keys", int(keys.size))
-    for size, vals, off, nw in dense:
-        dec, entries = _decision_entries(vals, size, cutoff, None)
-        evaluated += entries.size
-        cv.or_bits(tables[off:off + nw],
-                   torch.from_numpy(entries[dec]).to(dev))
     clock.count("relvars_tuples", evaluated)
     run(hsh, False)
-    marked_h = marked.cpu().numpy().astype(bool)
+    marked_h = cv.unpack_marks(marked, p.nrows)
     gg_h = gg.cpu().numpy()
     if timed:
         clock.count("relvars_h_ms", ms)
     clock.count("relvars_rows", p.nrows)
     clock.count("relvars_clusters", k_n)
+    clock.count("relvars_tiles", int(p.tiles.shape[0]))
     clock.lap("relvars_pairs")
     return {k: [int(v) for v in gg_h[off_h[i]:off_h[i + 1]][
         marked_h[off_h[i]:off_h[i + 1]]]] for i, k in enumerate(ks)}

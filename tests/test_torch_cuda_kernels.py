@@ -778,20 +778,25 @@ def test_serial_sweep_on_the_card_matches_host(dev, w, slack):
 # ---- kernel H: relative_vars' pair pass (ops/cuda_resolver.py)
 
 PAIR_CLUSTERS = ((30, 40), (64, 25), (130, 60), (1, 3), (200, 0),
-                 (3000, 50))
+                 (3000, 50), (48, 700), (64, 1300), (20, 300), (150, 200))
 
 
-def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000):
+def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000,
+                     forms=None):
     """Random inputs of kernel H in ops/cuda_resolver's layout, as numpy
     arrays: for each (size, selected rows) cluster, random memberships
     of `size` rows packed 64 a word (bits past size clear), ascending
     distinct group indices below `span` (so that some pairs lie 100
-    apart and some do not), the popcounts' table indices, a dense table
-    of random bits over the popcounts present, every other cluster
-    hashed (kflag, its entries spaced apart by hbase)."""
+    apart and some do not; span grows with the selected rows), the
+    popcounts' table indices, and the table's form: `forms` (one a
+    cluster) or BITMAP, HASHED and HASHED_WIDE in turn, each BITMAP
+    table's decisions random bits over its words, the hashed tables'
+    entries spaced apart by hbase."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     rng = np.random.default_rng(seed)
     out = {k: [] for k in ("masks", "sel", "gidx", "rowk", "word_off",
-                           "words", "tab_off", "dims", "hbase")}
+                           "words", "tab_off", "tab_words", "dims",
+                           "hbase", "kflag")}
     row_off, ntab, nword, nbase = [0], 0, 0, 0
     for k, (size, n) in enumerate(clusters):
         w = -(-size // 64)
@@ -799,21 +804,28 @@ def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000):
         bits[:, size:] = False
         packed = np.packbits(bits, axis=1, bitorder="little")
         out["masks"].append(packed.reshape(-1).view("<i8"))
-        out["sel"].append(np.sort(rng.choice(span, n, replace=False)))
+        out["sel"].append(np.sort(rng.choice(max(span, 30 * n), n,
+                                             replace=False)))
         gr = bits.sum(1)
         vals = np.unique(gr) if n else np.zeros(0, np.int64)
         d = len(vals)
-        entries = (int(vals.max()) + 1) * d * d if d else 0
+        form = forms[k] if forms is not None else k % 3
+        tw = cv.bitmap_words(d, int(vals.max())) if d else 0
+        if form != cv.BITMAP or tw * 4 > cv.SMEM_TABLE_BYTES:
+            form = cv.HASHED if form == cv.BITMAP else form
+            tw = 0
         out["gidx"].append(np.searchsorted(vals, gr))
         out["rowk"].append(np.full(n, k))
         out["word_off"].append(nword)
         out["words"].append(w)
         out["tab_off"].append(ntab)
+        out["tab_words"].append(tw)
         out["dims"].append(d)
         out["hbase"].append(nbase)
+        out["kflag"].append(form)
         nword += n * w
-        ntab += -(-entries // 32)
-        nbase += entries
+        ntab += tw
+        nbase += (int(vals.max()) + 1) * d * d if d else 0
         row_off.append(row_off[-1] + n)
     arr = {k: np.concatenate([np.atleast_1d(np.asarray(x, np.int64))
                               for x in v]) if v else np.zeros(0, np.int64)
@@ -821,61 +833,109 @@ def pair_pass_inputs(seed, clusters=PAIR_CLUSTERS, span=8000):
     res = {k: v.astype(np.int64 if k in ("masks", "hbase") else np.int32)
            for k, v in arr.items()}
     res["row_off"] = np.array(row_off, np.int32)
-    res["kflag"] = (np.arange(len(clusters)) % 2).astype(np.int32)
-    # sparse hits: the AND of eight random words keeps a bit in 256
-    t = rng.integers(0, 2 ** 32, (8, max(ntab, 1)), dtype=np.uint64)
+    # sparse hits: the AND of six random words keeps a bit in 64
+    t = rng.integers(0, 2 ** 32, (6, max(ntab, 4)), dtype=np.uint64)
     res["tables"] = np.bitwise_and.reduce(t).astype(np.uint32).view(
         np.int32)
     return res
 
 
-def pair_pass_on(arrays, dev):
-    """(PairPass, tables) of pair_pass_inputs' arrays on `dev`."""
+def pair_pass_on(arrays, dev, tiles=None):
+    """(PairPass, tables) of pair_pass_inputs' arrays on `dev`, with
+    pair_tiles' tiles or the given [T, 4] numpy tiles."""
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
          for k, v in arrays.items()}
     tables = t.pop("tables")
+    t["tiles"] = (cv.pair_tiles(t["sel"], t["rowk"], t["row_off"])
+                  if tiles is None else torch.from_numpy(
+                      np.ascontiguousarray(tiles, np.int32)).to(dev))
     return cv.PairPass(**t), tables
 
 
+def pair_pass_both(p, tables, dev, runs, log2=20, count_only=False):
+    """Each of `runs` (pair_pass, pair_pass_plain) through a counting
+    launch into a zeroed occurrence bitmap and an empty hash of 2^log2
+    slots, then (unless count_only) a lookup launch on the given BITMAP
+    decisions and the hash's decisions from _hash_decide. Returns a list
+    of (occ, sorted keys, hash, marks) as numpy arrays (hash: PairHash)."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    out = []
+    for run in runs:
+        occ = torch.zeros_like(tables)
+        h = cv.PairHash.empty(log2, dev)
+        marked = torch.zeros((p.nrows + 31) // 32, dtype=torch.int32,
+                             device=dev)
+        n0 = cv.pair_pass.launches
+        run(p, tables, occ, h, marked, count=True)
+        assert cv.pair_pass.launches - n0 == (
+            run is cv.pair_pass and p.tiles.shape[0] > 0
+            and torch.device(dev).type == "cuda")
+        keys = torch.sort(h.keys[h.keys != 0]).values.cpu().numpy()
+        marks = None
+        if not count_only:
+            assert not h.overflowed()
+            _hash_decide(h)
+            run(p, tables, occ, h, marked)
+            marks = marked.cpu().numpy()
+        out.append((occ.cpu().numpy(), keys, h, marks))
+    return out
+
+
 def _hash_decide(h):
-    """Set the decision bit of about one key in 251 of h, as a function
+    """Set the decision bit of about one key in 61 of h, as a function
     of the key alone, so that hashes built apart agree on it."""
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     keys = h.keys
-    h.bits.copy_(((keys != 0) & (cv.hash_slot(keys, 20) % 251 == 0))
+    h.bits.copy_(((keys != 0) & (cv.hash_slot(keys, 30) % 61 == 0))
                  .to(torch.uint8))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_resolver_pairs_matches_plain(dev, seed):
-    """Kernel H against pair_pass_plain on the same CUDA tensors: the
-    keys a counting launch inserts into the hash (its clusters only) as
-    a set, and the marks of a lookup launch over the dense tables and
-    each one's own hash (the same decision a key), bit for bit; one
-    launch each."""
+    """Kernel H against pair_pass_plain on the same CUDA tensors, every
+    table form (BITMAP, HASHED, HASHED_WIDE; one-word and many-word
+    clusters; full and partial a-tiles): the counting launch's
+    occurrence bitmap bit for bit and its hash keys as a set, then the
+    lookup launch's packed marks bit for bit; one launch each."""
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     p, tables = pair_pass_on(pair_pass_inputs(seed), dev)
-    hashes, keys = [], []
-    for run in (cv.pair_pass, cv.pair_pass_plain):
-        h = cv.PairHash.empty(20, dev)
-        n0 = cv.pair_pass.launches
-        run(p, tables, h, torch.zeros(p.nrows, dtype=torch.uint8,
-                                      device=dev), count=True)
-        assert cv.pair_pass.launches - n0 == (run is cv.pair_pass)
-        assert not h.overflowed()
-        keys.append(torch.sort(h.keys[h.keys != 0]).values.cpu().numpy())
-        _hash_decide(h)
-        hashes.append(h)
-    assert keys[0].size > 1000
-    np.testing.assert_array_equal(keys[0], keys[1])
-    marks = []
-    for run, h in zip((cv.pair_pass, cv.pair_pass_plain), hashes):
-        m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
-        run(p, tables, h, m)
-        marks.append(m.cpu().numpy())
-    assert marks[0].any() and not marks[0].all()
-    np.testing.assert_array_equal(marks[0], marks[1])
+    (occ_k, keys_k, _, marks_k), (occ_p, keys_p, _, marks_p) = \
+        pair_pass_both(p, tables, dev, (cv.pair_pass, cv.pair_pass_plain))
+    assert occ_k.any() and keys_k.size > 1000
+    np.testing.assert_array_equal(occ_k, occ_p)
+    np.testing.assert_array_equal(keys_k, keys_p)
+    assert marks_k.any()
+    np.testing.assert_array_equal(marks_k, marks_p)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("cut", ["whole", "fine"])
+def test_resolver_pairs_any_tiling(dev, cut):
+    """The same pass cut into other tiles, one a-tile against its whole
+    b-range (past the kernel's staged NB rows) or against chunks of 37
+    b-rows, and the tiles in reverse order: the kernel's occurrence
+    bits, keys and marks equal the plain version's on pair_tiles."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    arrays = pair_pass_inputs(7, clusters=((60, 2600), (40, 900),
+                                           (100, 400)), span=60000)
+    p0, tables = pair_pass_on(arrays, dev)
+    want = pair_pass_both(p0, tables, dev, (cv.pair_pass_plain,))[0]
+    t = p0.tiles.cpu().numpy()
+    firsts = np.unique(t[:, :2], axis=0, return_index=True)[1]
+    rows = []
+    for i in firsts:
+        k, a0, b0 = t[i, :3]
+        end = int(arrays["row_off"][k + 1])
+        step = end - b0 if cut == "whole" else 37
+        rows += [(k, a0, c, min(c + step, end)) for c in range(b0, end,
+                                                                step)]
+    assert cut == "fine" or max(r[3] - r[2] for r in rows) > 1024
+    p, _ = pair_pass_on(arrays, dev, np.array(rows[::-1]))
+    got = pair_pass_both(p, tables, dev, (cv.pair_pass,))[0]
+    for a, b in zip(got, want):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
     torch.cuda.synchronize()
 
 
@@ -886,9 +946,8 @@ def test_resolver_pairs_hash_overflow(dev):
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     p, tables = pair_pass_on(pair_pass_inputs(4), dev)
     for run in (cv.pair_pass, cv.pair_pass_plain):
-        h = cv.PairHash.empty(4, dev)
-        run(p, tables, h, torch.zeros(p.nrows, dtype=torch.uint8,
-                                      device=dev), count=True)
+        *_, h, _ = pair_pass_both(p, tables, dev, (run,), log2=4,
+                                  count_only=True)[0]
         assert h.overflowed()
         filled = int((h.keys != 0).sum())
         assert filled <= (16 if run is cv.pair_pass else 8)
@@ -903,32 +962,19 @@ def test_resolver_pairs_hash_fits_its_keys(dev):
     flag an overflow (it counts the keys put in, not the attempts); the
     keys equal the plain version's, and so do the marks."""
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
-    p, tables = pair_pass_on(pair_pass_inputs(5, clusters=((64, 2000),),
-                                              span=400000), dev)
-    p = cv.PairPass(**{**vars(p), "kflag": torch.ones_like(p.kflag)})
-    full = cv.PairHash.empty(22, dev)
-    cv.pair_pass_plain(p, tables, full, torch.zeros(
-        p.nrows, dtype=torch.uint8, device=dev), count=True)
-    n = int(full.state[0])
+    p, tables = pair_pass_on(pair_pass_inputs(
+        5, clusters=((64, 2000),), span=400000, forms=(cv.HASHED,)), dev)
+    n = pair_pass_both(p, tables, dev, (cv.pair_pass_plain,), log2=22,
+                       count_only=True)[0][1].size
     log2 = (n - 1).bit_length() + 1       # the least half that holds n
     assert n > 1000
-    hashes = []
-    for run in (cv.pair_pass, cv.pair_pass_plain):
-        h = cv.PairHash.empty(log2, dev)
-        run(p, tables, h, torch.zeros(p.nrows, dtype=torch.uint8,
-                                      device=dev), count=True)
-        assert not h.overflowed() and int(h.state[0]) == n
-        _hash_decide(h)
-        hashes.append(h)
-    keys = [torch.sort(h.keys[h.keys != 0]).values.cpu().numpy()
-            for h in hashes]
-    np.testing.assert_array_equal(keys[0], keys[1])
-    marks = []
-    for run, h in zip((cv.pair_pass, cv.pair_pass_plain), hashes):
-        m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
-        run(p, tables, h, m)
-        marks.append(m.cpu().numpy())
-    np.testing.assert_array_equal(marks[0], marks[1])
+    got = pair_pass_both(p, tables, dev, (cv.pair_pass, cv.pair_pass_plain),
+                         log2=log2)
+    for _, keys, h, _ in got:
+        assert not h.overflowed() and int(h.state[0]) == n == keys.size
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+    assert got[0][3].any()
+    np.testing.assert_array_equal(got[0][3], got[1][3])
     torch.cuda.synchronize()
 
 
@@ -936,14 +982,25 @@ def test_resolver_pairs_rejects_bad_input(dev):
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     p, tables = pair_pass_on(pair_pass_inputs(3), dev)
     h = cv.PairHash.empty(10, dev)
-    m = torch.zeros(p.nrows, dtype=torch.uint8, device=dev)
+    m = torch.zeros((p.nrows + 31) // 32, dtype=torch.int32, device=dev)
+    occ = torch.zeros_like(tables)
     with pytest.raises(ValueError, match="marked"):
-        cv.pair_pass(p, tables, h, m.to(torch.int32))
+        cv.pair_pass(p, tables, occ, h, m.to(torch.uint8))
     with pytest.raises(ValueError, match="gidx"):
         cv.pair_pass(cv.PairPass(**{**vars(p), "gidx": p.gidx[:-1]}),
-                     tables, h, m)
+                     tables, occ, h, m)
     with pytest.raises(ValueError, match="tables"):
-        cv.pair_pass(p, tables.cpu(), h, m)
+        cv.pair_pass(p, tables.cpu(), occ, h, m)
+    with pytest.raises(ValueError, match="occ"):
+        cv.pair_pass(p, tables, occ[:-1], h, m)
+    with pytest.raises(ValueError, match="tiles"):
+        cv.pair_pass(cv.PairPass(**{**vars(p), "tiles": p.tiles[:, :3]}),
+                     tables, occ, h, m)
     with pytest.raises(ValueError, match="power of two"):
-        cv.pair_pass(p, tables, cv.PairHash(h.keys[:-1], h.bits[:-1],
-                                            h.state), m)
+        cv.pair_pass(p, tables, occ, cv.PairHash(h.keys[:-1], h.bits[:-1],
+                                                 h.state), m)
+    bad = p.tab_off.clone()
+    bad[0] += 1
+    with pytest.raises(ValueError, match="BITMAP"):
+        cv.pair_pass(cv.PairPass(**{**vars(p), "tab_off": bad}), tables,
+                     occ, h, m)

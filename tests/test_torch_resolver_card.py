@@ -10,13 +10,22 @@ ops/cuda_resolver.pair_pass_plain on CPU tensors, as here). The
 windows: 10 planted copies of about 30 rows over 300 columns, 3% noise,
 made from a numpy seed; the "tree" layout leaves RelDrop clusters of
 55-160 rows (past the 64-row word), the "merged" one a cluster of six
-copies (166-192 rows). Both reach the pair pass's counting mode
-(tables above FULL_TABLE_MAX) and its full tables. Every result is
-integer labels or lists, held with tolerance 0; the significance
-values bit for bit.
+copies (166-192 rows). The pair pass runs with its tables in every
+form: all in shared-memory bitmaps (the default switch,
+cuda_resolver.SMEM_TABLE_BYTES), all hashed (the switch at 0, a small
+first hash that must regrow), and mixed (the switch between the
+window's table sizes). Every result is integer labels or lists, held
+with tolerance 0; the significance values bit for bit. Kernel H's
+plain version is also held to a brute-force count of its occurrence
+bits, keys and marks on random inputs (tests/test_torch_cuda_kernels.
+pair_pass_inputs, which the card's tests feed to the kernel), under
+any tiling.
 """
 import contextlib
 import copy
+import importlib.util
+import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -116,31 +125,84 @@ def _card(case):
     return gd, pres.CardGroups(gd, "cpu")
 
 
+def _bitmap_table_bytes(case):
+    """The bytes of each cluster size's table as a BITMAP, from a pass
+    with every table in shared memory."""
+    from repeatresolver_tpu_torch.models import resolver as pres
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    _, card = _card(case)
+    seen = []
+    real = cv.pair_pass
+
+    def spy(p, *args, **kw):
+        seen.append(p)
+        return real(p, *args, **kw)
+    with mock.patch.object(cv, "SMEM_TABLE_BYTES", 1 << 30), \
+            mock.patch.object(cv, "pair_pass", spy):
+        pres._relative_vars_card(card, case["u"].copy(), case["ks"],
+                                 case["ref"].maxcorrs, case["cutoff"],
+                                 case["cfg"].mingroup, pres.SplitClock())
+    p = seen[0]
+    used = p.row_off[1:] > p.row_off[:-1]
+    return sorted(set((p.tab_words[used] * 4).tolist()))
+
+
+@contextlib.contextmanager
+def _table_form(case, form):
+    """The pair pass's switch for `form`: "bitmap" the default (every
+    table of these windows fits), "hashed" 0 with a first hash of 16
+    slots (it must regrow), "mixed" the smallest table's bytes (it alone
+    stays a bitmap)."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    if form == "bitmap":
+        assert _bitmap_table_bytes(case)[-1] <= cv.SMEM_TABLE_BYTES
+        patches = []
+    elif form == "hashed":
+        patches = [mock.patch.object(cv, "SMEM_TABLE_BYTES", 0),
+                   mock.patch.object(cv, "HASH_LOG2_START", 4)]
+    else:
+        patches = [mock.patch.object(cv, "SMEM_TABLE_BYTES",
+                                     _bitmap_table_bytes(case)[0])]
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        yield
+
+
 def test_fixture_reaches_both_table_modes_and_word_boundary(case):
+    """With the switch between its tables' sizes, the window's pass
+    holds BITMAP and hashed tables at once and clusters past a 64-row
+    word, and the host evaluates only the entries that occur."""
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
     _, card = _card(case)
     clock = pres.SplitClock()
-    pres._relative_vars_card(card, case["u"].copy(), case["ks"],
-                             case["ref"].maxcorrs, case["cutoff"],
-                             case["cfg"].mingroup, clock)
+    assert len(_bitmap_table_bytes(case)) >= 2
+    with _table_form(case, "mixed"):
+        pres._relative_vars_card(card, case["u"].copy(), case["ks"],
+                                 case["ref"].maxcorrs, case["cutoff"],
+                                 case["cfg"].mingroup, clock)
     sizes = [int((case["u"] == k).sum()) for k in case["ks"]]
+    c = clock.counts
     assert max(sizes) > 64
-    assert clock.counts["relvars_count_clusters"] >= 1
-    assert clock.counts["relvars_count_clusters"] < len(case["ks"])
-    assert clock.counts["relvars_h_launches"] == 2
-    assert 0 < clock.counts["relvars_hash_keys"] < clock.counts[
-        "relvars_tuples"]
-    assert "relvars_hash_regrows" not in clock.counts
+    assert 1 <= c["relvars_hashed_clusters"] < len(case["ks"])
+    assert c["relvars_h_launches"] == 2
+    assert c["relvars_hash_keys"] > 0 and c["relvars_bitmap_entries"] > 0
+    assert c["relvars_tuples"] == c["relvars_hash_keys"] \
+        + c["relvars_bitmap_entries"]
+    assert c["relvars_tiles"] >= len(case["ks"])
+    assert "relvars_hash_regrows" not in c
     assert cv.HASH_LOG2_START > 1
 
 
+@pytest.mark.parametrize("form", ["bitmap", "hashed", "mixed"])
 @pytest.mark.parametrize("batched", [False, True],
                          ids=["each_cluster", "all_clusters"])
-def test_pair_pass_plain_matches_jax_relative_vars(case, batched):
+def test_pair_pass_plain_matches_jax_relative_vars(case, batched, form):
     """The pair pass's plain version (through _relative_vars_card on CPU
-    tensors), one cluster at a time and all at once, against the JAX
-    package's relative_vars on every cluster."""
+    tensors), one cluster at a time and all at once, with its tables in
+    each form, against the JAX package's relative_vars on every
+    cluster."""
     from repeatresolver_tpu.models import resolver as jres
     from repeatresolver_tpu_torch.models import resolver as pres
     from repeatresolver_tpu_torch.ops import cuda_resolver as cv
@@ -151,18 +213,158 @@ def test_pair_pass_plain_matches_jax_relative_vars(case, batched):
         want = {k: jres.relative_vars(case["gd"], u, k, mcr, cutoff,
                                       mingroup) for k in ks}
     calls = cv.pair_pass.launches
-    if batched:
-        got = pres._relative_vars_card(card, u.copy(), ks, mcr, cutoff,
-                                       mingroup, pres.SplitClock())
-    else:
-        got = {}
-        for k in ks:
-            got.update(pres._relative_vars_card(
-                card, u.copy(), [k], mcr, cutoff, mingroup,
-                pres.SplitClock()))
+    clocks = []
+    with _table_form(case, form):
+        if batched:
+            clocks.append(pres.SplitClock())
+            got = pres._relative_vars_card(card, u.copy(), ks, mcr, cutoff,
+                                           mingroup, clocks[-1])
+        else:
+            got = {}
+            for k in ks:
+                clocks.append(pres.SplitClock())
+                got.update(pres._relative_vars_card(
+                    card, u.copy(), [k], mcr, cutoff, mingroup, clocks[-1]))
     assert cv.pair_pass.launches == calls     # CPU tensors: no kernel
     assert got == want
     assert any(want.values())
+    hashed = sum(c.counts["relvars_hashed_clusters"] for c in clocks)
+    assert (hashed == 0) == (form == "bitmap")
+    if form == "hashed":
+        assert all(c.counts.get("relvars_hash_regrows", 0) >= 1
+                   for c in clocks)
+
+
+def _kernel_tests():
+    """tests/test_torch_cuda_kernels.py, loaded by path, for kernel H's
+    random inputs (pair_pass_inputs, pair_pass_on, pair_pass_both)."""
+    path = os.path.join(os.path.dirname(__file__),
+                        "test_torch_cuda_kernels.py")
+    spec = importlib.util.spec_from_file_location("_cuda_kernel_tests",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pair_tiles_cover_every_pair_once(seed):
+    """pair_tiles on random clusters (empty ones, one row, past TILE_A
+    rows and past TILE_B b-rows): every pair (sel[b] >= sel[a] +
+    ROW_GAP within a cluster) in exactly one tile, TILE_A a-rows and at
+    most TILE_B b-rows a tile, an a-tile's chunks within one row of each
+    other's length."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    rng = np.random.default_rng(seed)
+    nsel = [0, 1, 5, 127, 128, 129, 700, 2600, 40]
+    sel, rowk = [], []
+    for k, n in enumerate(nsel):
+        sel.append(np.sort(rng.choice(n * int(rng.integers(2, 60)) + 1, n,
+                                      replace=False)))
+        rowk.append(np.full(n, k))
+    sel_t = torch.from_numpy(np.concatenate(sel).astype(np.int32))
+    rowk_t = torch.from_numpy(np.concatenate(rowk).astype(np.int32))
+    row_off = torch.from_numpy(np.r_[0, np.cumsum(nsel)].astype(np.int32))
+    tiles = cv.pair_tiles(sel_t, rowk_t, row_off).numpy()
+    assert tiles.dtype == np.int32 and tiles.shape[1] == 4
+    s = sel_t.numpy().astype(np.int64)
+    seen = np.zeros((len(s), len(s)), np.int32)
+    for k, a0, b0, b1 in tiles:
+        hi = row_off[k + 1].item()
+        assert row_off[k].item() <= a0 < hi and a0 < b1 <= hi
+        assert 0 < b1 - b0 <= cv.TILE_B
+        a1 = min(a0 + cv.TILE_A, hi)
+        seen[a0:a1, b0:b1] += (s[None, b0:b1] >= s[a0:a1, None]
+                               + cv.ROW_GAP)
+    want = np.zeros_like(seen)
+    for k in range(len(nsel)):
+        lo, hi = row_off[k].item(), row_off[k + 1].item()
+        want[lo:hi, lo:hi] = s[None, lo:hi] >= s[lo:hi, None] + cv.ROW_GAP
+    np.testing.assert_array_equal(seen, want)
+    assert want.sum() > 1000000
+    for a in np.unique(tiles[:, 1]):
+        lens = np.diff(tiles[tiles[:, 1] == a][:, 2:], axis=1)
+        assert lens.max() - lens.min() <= 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pair_pass_plain_counts_what_occurs(seed):
+    """pair_pass_plain on random inputs in every table form (BITMAP,
+    HASHED, HASHED_WIDE; one-word and many-word clusters) against a
+    brute force over every pair in numpy: the occurrence bits are the
+    BITMAP entries that occur, the hash keys the hashed ones, and the
+    marks the rows of every pair whose decision bit is set."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    kt = _kernel_tests()
+    arrays = kt.pair_pass_inputs(seed)
+    p, tables = kt.pair_pass_on(arrays, "cpu")
+    occ, keys, h, marks = kt.pair_pass_both(p, tables, "cpu",
+                                            (cv.pair_pass,))[0]
+    a = {k: v.astype(np.int64) for k, v in arrays.items()}
+    tab = a["tables"].astype(np.uint32)
+    want_occ = np.zeros(len(tab), np.uint32)
+    want_keys, hit_keys, hits = [], [], np.zeros(len(a["sel"]), bool)
+    hkeys = h.keys.numpy()
+    decided = set(hkeys[h.bits.numpy() != 0].tolist())
+    for k in range(len(a["words"])):
+        lo, hi = a["row_off"][k], a["row_off"][k + 1]
+        n, w, d = hi - lo, a["words"][k], a["dims"][k]
+        if n == 0:
+            continue
+        m = a["masks"][a["word_off"][k]:a["word_off"][k] + n * w]
+        bits = np.unpackbits(m.view(np.uint8).reshape(n, -1), axis=1,
+                             bitorder="little").astype(np.int64)
+        s = bits @ bits.T                                 # [a, b]
+        ia, ib = np.nonzero(a["sel"][None, lo:hi]
+                            >= a["sel"][lo:hi, None] + cv.ROW_GAP)
+        ss = s[ia, ib]
+        ga, gb = a["gidx"][lo + ia], a["gidx"][lo + ib]
+        if a["kflag"][k] == cv.BITMAP:
+            rr, sw = cv.table_geometry(int(d))
+            word = a["tab_off"][k] + ss * sw + gb * rr + (ga >> 5)
+            np.bitwise_or.at(want_occ, word,
+                             (np.uint32(1) << (ga & 31).astype(np.uint32)))
+            hit = (tab[word] >> (ga & 31).astype(np.uint32)) & 1 == 1
+        else:
+            key = (ss * d + gb) * d + ga + a["hbase"][k] + 1
+            want_keys.append(np.unique(key))
+            hit = np.array([x in decided for x in key.tolist()], bool)
+        hits[lo + ia[hit]] = True
+        hits[lo + ib[hit]] = True
+    np.testing.assert_array_equal(occ.view(np.uint32), want_occ)
+    np.testing.assert_array_equal(keys, np.unique(np.concatenate(
+        want_keys)))
+    got = np.unpackbits(marks.view(np.uint8), bitorder="little")
+    np.testing.assert_array_equal(got[:len(hits)].astype(bool), hits)
+    assert not got[len(hits):].any() and hits.any() and not hits.all()
+
+
+@pytest.mark.parametrize("cut", ["whole", "fine"])
+def test_pair_pass_plain_any_tiling(cut):
+    """The plain version on other tiles than pair_tiles' (an a-tile's
+    whole b-range in one tile, or chunks of 37 b-rows, in reverse order)
+    gives the same occurrence bits, keys and marks."""
+    from repeatresolver_tpu_torch.ops import cuda_resolver as cv
+    kt = _kernel_tests()
+    arrays = kt.pair_pass_inputs(7, clusters=((60, 1300), (40, 300),
+                                              (100, 200)), span=30000)
+    p0, tables = kt.pair_pass_on(arrays, "cpu")
+    want = kt.pair_pass_both(p0, tables, "cpu", (cv.pair_pass_plain,))[0]
+    t = p0.tiles.numpy()
+    rows = []
+    for i in np.unique(t[:, :2], axis=0, return_index=True)[1]:
+        k, a0, b0 = t[i, :3]
+        end = int(arrays["row_off"][k + 1])
+        step = end - b0 if cut == "whole" else 37
+        rows += [(k, a0, c, min(c + step, end))
+                 for c in range(b0, end, step)]
+    assert cut == "fine" or max(r[3] - r[2] for r in rows) > cv.TILE_B
+    p, _ = kt.pair_pass_on(arrays, "cpu", np.array(rows[::-1]))
+    got = kt.pair_pass_both(p, tables, "cpu", (cv.pair_pass_plain,))[0]
+    for x, y in zip(got, want):
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+    assert want[3].any()
 
 
 def test_relative_vars_before_kmeans_equal_sequential_loop(case):
