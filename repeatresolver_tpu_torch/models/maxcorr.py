@@ -40,6 +40,7 @@ from ..ops.devmm import int_matmul_t
 from ..ops.hypergeom_device import log_factorial_table
 from ..utils import io as rio
 from ..utils import native as nat
+from ..utils import trace
 from ..utils.checkpoint import _atomic_write
 
 __all__ = ["MaxCorrConfig", "MaxCorrScan", "compute_maxcorrs",
@@ -432,7 +433,8 @@ class MaxCorrScan:
         tiles = [int(k) for k in i_tiles if int(k) < nt]
         if not tiles:
             return self.acc
-        has_seed = self.seed_ok.view(nt, t * 5).any(dim=1).cpu()
+        with trace.span("maxcorr.wait"):
+            has_seed = self.seed_ok.view(nt, t * 5).any(dim=1).cpu()
         self.host_reads += 1
         for k in tiles:
             if not has_seed[k]:
@@ -443,10 +445,12 @@ class MaxCorrScan:
             j = k
             while j < nt:
                 m = min(self.group, nt - j)
-                out = torch.empty((m, t), dtype=torch.bool,
-                                  device=alive.device)
-                self.group_step(alive, out, i0, j * t)
-                left = out.any(dim=1).tolist()
+                with trace.span("maxcorr.group"):
+                    out = torch.empty((m, t), dtype=torch.bool,
+                                      device=alive.device)
+                    self.group_step(alive, out, i0, j * t)
+                    with trace.span("maxcorr.wait"):
+                        left = out.any(dim=1).tolist()
                 self.host_reads += 1
                 self.tile_pairs_needed += 1 + sum(left[:-1])
                 if not left[-1]:
@@ -480,14 +484,17 @@ def compute_maxcorrs_device(msa: np.ndarray, cfg: MaxCorrConfig,
     single scan's (a max is exact)."""
     msa = np.asarray(msa)
     t0 = time.perf_counter()
-    if mesh is None:
-        sc = MaxCorrScan(msa, cfg, tile, resolve_device(device))
-        acc = sc.scan(range(sc.nt))
-    else:
-        sc = MaxCorrScan(msa, cfg, tile, mesh.device)
-        acc = mesh.all_reduce(
-            sc.scan(range(mesh.rank, sc.nt, mesh.size)), "max")
-    out = acc[:msa.shape[1] * 5].cpu().numpy().astype(np.float64)
+    with trace.span("maxcorr.call"):
+        with trace.span("maxcorr.setup"):
+            sc = MaxCorrScan(msa, cfg, tile, mesh.device if mesh is not None
+                             else resolve_device(device))
+        if mesh is None:
+            acc = sc.scan(range(sc.nt))
+        else:
+            acc = mesh.all_reduce(
+                sc.scan(range(mesh.rank, sc.nt, mesh.size)), "max")
+        with trace.span("maxcorr.download"):
+            out = acc[:msa.shape[1] * 5].cpu().numpy().astype(np.float64)
     compute_maxcorrs_device.calls += 1
     compute_maxcorrs_device.last_stats = dict(
         sc.stats(), seconds=time.perf_counter() - t0)

@@ -58,6 +58,7 @@ from ..ops import staircase_realign as sr
 from ..utils import checkpoint as ckpt
 from ..utils import io as rio
 from ..utils import native as nat
+from ..utils import trace
 from ..utils.hostmem import tune_allocator
 
 __all__ = ["BatchedRealigner", "RealignEngine", "realign",
@@ -829,11 +830,12 @@ class BatchedRealigner:
     def _flush_timed(self, flush, *args) -> None:
         """A splice or an empty-column drop between blocks, its seconds
         in the card tail's split."""
-        tf = time.perf_counter()
+        tf = time.perf_counter_ns()
         flush(*args)
         if self._card_tail():
-            BatchedRealigner.card_tail_split["flush_s"] += \
-                time.perf_counter() - tf
+            t = time.perf_counter_ns()
+            BatchedRealigner.card_tail_split["flush_s"] += (t - tf) / 1e9
+            trace.record("tail.flush", tf, t)
 
     def _flush_pending(self) -> None:
         pend = self._pending
@@ -961,7 +963,7 @@ class BatchedRealigner:
         codes fit it (checked when the engine is made). slack: the
         store's spare columns (the host sweep's max(4096, C // 8) by
         default; a test hook for the regrow). rows: `sweep`'s hook."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         dev = self.device
         cuda = dev.type == "cuda"
         r, c = self.msa.shape
@@ -988,7 +990,8 @@ class BatchedRealigner:
         l2p = ar(c)
         if cuda:
             torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
+        trace.record("serial.upload", t0, t1)
         events = _build.kernel_events
         marks = {k: len(events.get(k, ())) for k in _FG} \
             if events is not None else None
@@ -1039,7 +1042,9 @@ class BatchedRealigner:
             # only this row's changed columns can have emptied; the
             # inserted ones hold its bases
             keep = cphys.index_select(0, l2p)[:, 0:4].any(dim=1)
-            n, ne = torch.stack([inn[0].to(i64), (~keep).sum()]).tolist()
+            with trace.span("serial.wait"):
+                n, ne = torch.stack([inn[0].to(i64),
+                                     (~keep).sum()]).tolist()
             reads += 1
             if not n:
                 continue
@@ -1084,15 +1089,20 @@ class BatchedRealigner:
             cc += n
             splices += n
         if cuda:
-            torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
+            with trace.span("serial.wait"):
+                torch.cuda.synchronize(dev)
+        t2 = time.perf_counter_ns()
+        trace.record("serial.rows", t1, t2)
+        trace.count("serial.rows", n_rows)
         self.msa = phys.index_select(1, l2p).cpu().numpy()
         self.counts = cphys.index_select(0, l2p).cpu().numpy()
-        t3 = time.perf_counter()
+        t3 = time.perf_counter_ns()
+        trace.record("serial.download", t2, t3)
         split = BatchedRealigner.card_serial_split
-        for key, v in (("sweeps", 1), ("rows", n_rows), ("s", t3 - t0),
-                       ("upload_s", t1 - t0), ("rows_s", t2 - t1),
-                       ("download_s", t3 - t2), ("host_reads", reads),
+        for key, v in (("sweeps", 1), ("rows", n_rows),
+                       ("s", (t3 - t0) / 1e9), ("upload_s", (t1 - t0) / 1e9),
+                       ("rows_s", (t2 - t1) / 1e9),
+                       ("download_s", (t3 - t2) / 1e9), ("host_reads", reads),
                        ("splices", splices), ("drops", drops),
                        ("regrows", regrows)):
             split[key] += v
@@ -1102,7 +1112,7 @@ class BatchedRealigner:
                 for a, b in events.get(k, [])[marks[k]:]) / 1e3
 
     def _realign_block(self, rows: list[int]) -> None:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         c = self.msa.shape[1]
         bs = len(rows)
         rows_old = self.msa[rows]                     # [B, C] snapshot
@@ -1168,10 +1178,10 @@ class BatchedRealigner:
         anf_full, entry_bound = band_starts(ways, lengths, self.bandwidth,
                                             self.chunk, use_stair)
         dev = self.device
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         args = [torch.from_numpy(a).to(dev) for a in (
             counts_p, rows_p, seqs, ways, lengths, anf_full, entry_bound)]
-        t2 = time.perf_counter()
+        t2 = time.perf_counter_ns()
         events = _build.kernel_events
         marks = {k: len(events.get(k, ())) for k in _FG} if card_tail \
             and events is not None else None
@@ -1183,22 +1193,24 @@ class BatchedRealigner:
             out = block_dp(*args, c, bandwidth=self.bandwidth,
                            chunk=self.chunk, widen=widen,
                            staircase=use_stair, kernel=self.kernel)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        new_rows, iy, ib, inn = (t.cpu().numpy() for t in (
-            out[0][:, :c], out[2], out[3], out[4]))
-        t4 = time.perf_counter()
+        with trace.span("tail.wait"):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t3 = time.perf_counter_ns()
+            new_rows, iy, ib, inn = (t.cpu().numpy() for t in (
+                out[0][:, :c], out[2], out[3], out[4]))
+            t4 = time.perf_counter_ns()
         _check_inserts(inn, iy.shape[1])
         self._apply_block(rows, new_rows, iy, ib, inn)
         if card_tail:
-            t5 = time.perf_counter()
+            t5 = time.perf_counter_ns()
+            trace.record("tail.block", t0, t5)
             split = BatchedRealigner.card_tail_split
             split["blocks"] += 1
-            split["s"] += t5 - t0
-            split["host_s"] += (t1 - t0) + (t5 - t4)
-            split["transfer_s"] += (t2 - t1) + (t4 - t3)
-            split["device_s"] += t3 - t2
+            split["s"] += (t5 - t0) / 1e9
+            split["host_s"] += ((t1 - t0) + (t5 - t4)) / 1e9
+            split["transfer_s"] += ((t2 - t1) + (t4 - t3)) / 1e9
+            split["device_s"] += (t3 - t2) / 1e9
             if marks is not None:
                 split["kernel_s"] += sum(
                     a.elapsed_time(b) for k in _FG
@@ -1418,134 +1430,151 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
                   "torch")
     resident = (kernel == "cuda" and mode == "staircase" and mesh is None
                 and bs > 1 and os.environ.get("RR_RESIDENT", "1") != "0")
-    if resident:
-        eng = DeviceResidentRealigner(msa, bandwidth=cfg.bandwidth,
-                                      block_rows=bs, device=device,
-                                      widen_state=ck_widen_state)
-    else:
-        eng = BatchedRealigner(msa, bandwidth=cfg.bandwidth, block_rows=bs,
-                               mode=mode, kernel=kernel, mesh=mesh,
-                               device=device)
-    # on a mesh every rank runs the loop; rank 0 alone writes files
-    writes = mesh is None or mesh.rank == 0
-    eng.ent_al_gapper()
-    best_msa = None
-    rounds = start_round
-    # row base counts are realignment-invariant: the DP cells of a sweep
-    bases = int((np.asarray(msa) < 4).sum())
-    cells = 0
-    t0 = time.perf_counter()
-    writer: list = [None]         # in-flight best-MSA write thread
+    engine = "resident" if resident else f"{mode}-{kernel}"
+    with trace.span("realign.call", {"engine": engine, "block_rows": bs}):
+        with trace.span("realign.setup"):
+            if resident:
+                eng = DeviceResidentRealigner(msa, bandwidth=cfg.bandwidth,
+                                              block_rows=bs, device=device,
+                                              widen_state=ck_widen_state)
+            else:
+                eng = BatchedRealigner(msa, bandwidth=cfg.bandwidth,
+                                       block_rows=bs, mode=mode,
+                                       kernel=kernel, mesh=mesh,
+                                       device=device)
+            # row base counts are realignment-invariant: the DP cells of
+            # a sweep
+            bases = int((np.asarray(msa) < 4).sum())
+        # on a mesh every rank runs the loop; rank 0 alone writes files
+        writes = mesh is None or mesh.rank == 0
+        with trace.span("realign.ent_al_gapper"):
+            eng.ent_al_gapper()
+        best_msa = None
+        rounds = start_round
+        cells = 0
+        t0 = time.perf_counter()
+        writer: list = [None]         # in-flight best-MSA write thread
 
-    # an engine whose snapshots are costly (the resident engine: each
-    # write downloads and encodes the whole MSA) writes at most once
-    # every RR_BEST_WRITE_S seconds, the JAX package's variable and
-    # default; the files are crash recovery, and the final state is
-    # always written on return. Re-read a write: the anneal hands the
-    # tail to a host engine, whose snapshots are cheap
-    def _write_interval():
-        return (float(os.environ.get("RR_BEST_WRITE_S", "600"))
-                if getattr(eng, "SNAPSHOT_COSTLY", False) else 0.0)
+        # an engine whose snapshots are costly (the resident engine: each
+        # write downloads and encodes the whole MSA) writes at most once
+        # every RR_BEST_WRITE_S seconds, the JAX package's variable and
+        # default; the files are crash recovery, and the final state is
+        # always written on return. Re-read a write: the anneal hands the
+        # tail to a host engine, whose snapshots are cheap
+        def _write_interval():
+            return (float(os.environ.get("RR_BEST_WRITE_S", "600"))
+                    if getattr(eng, "SNAPSHOT_COSTLY", False) else 0.0)
 
-    last_write = [-float("inf")]
-    write_stale = [False]         # best_msa newer than the last write
+        last_write = [-float("inf")]
+        write_stale = [False]         # best_msa newer than the last write
 
-    def _eng_state():
-        """The checkpoint's engine state: the block size (anneal
-        position) and the resident engine's learned drift ladder."""
-        return (int(eng.block_rows), eng.widen_state())
+        def _eng_state():
+            """The checkpoint's engine state: the block size (anneal
+            position) and the resident engine's learned drift ladder."""
+            return (int(eng.block_rows), eng.widen_state())
 
-    def _write_best(snapshot, pair, rnd, state):
-        if not writes:
-            return
-        tw = time.perf_counter()
-        if out_path is not None:
-            rio.write_msa(out_path, snapshot, upper=True)
-        if checkpoint_path is not None:
-            e_bs, ws = state
-            ckpt.RealignCheckpoint(
-                msa=snapshot, round=rnd, best_mille=pair[0],
-                best_uno=pair[1], bandwidth=cfg.bandwidth,
-                block_rows=e_bs,
-                widen_bs=ws[0] if ws else 0,
-                widen=ws[1] if ws else None,
-                exact_blocks=np.asarray(ws[2], np.int64) if ws
-                else None).save(checkpoint_path)
-        realign_batched.write_s.append(time.perf_counter() - tw)
+        def _write_best(snapshot, pair, rnd, state):
+            if not writes:
+                return
+            tw = time.perf_counter()
+            if out_path is not None:
+                rio.write_msa(out_path, snapshot, upper=True)
+            if checkpoint_path is not None:
+                e_bs, ws = state
+                ckpt.RealignCheckpoint(
+                    msa=snapshot, round=rnd, best_mille=pair[0],
+                    best_uno=pair[1], bandwidth=cfg.bandwidth,
+                    block_rows=e_bs,
+                    widen_bs=ws[0] if ws else 0,
+                    widen=ws[1] if ws else None,
+                    exact_blocks=np.asarray(ws[2], np.int64) if ws
+                    else None).save(checkpoint_path)
+            realign_batched.write_s.append(time.perf_counter() - tw)
 
-    def _join_writer():
-        if writer[0] is not None:
-            tj = time.perf_counter()
-            writer[0].join()
-            realign_batched.write_wait_s += time.perf_counter() - tj
+        def _join_writer():
+            if writer[0] is not None:
+                tj = time.perf_counter_ns()
+                writer[0].join()
+                t = time.perf_counter_ns()
+                realign_batched.write_wait_s += (t - tj) / 1e9
+                trace.record("realign.write_wait", tj, t)
 
-    def check_improved(write=True):
-        nonlocal best, best_msa
-        pair = eng.overall_pair()
-        if score_log is not None:
-            score_log.append(pair)
-        if score_log_path is not None and writes:
-            with open(score_log_path, "a") as f:
-                f.write(f"{rounds} {pair[0]}{pair[1]:06d} "
-                        f"{eng.width()}\n")
-        if pair < best:
-            best = pair
-            best_msa = eng.best_snapshot()
-            write_stale[0] = True
-            if write and (out_path is not None
-                          or checkpoint_path is not None):
-                if time.perf_counter() - last_write[0] \
-                        < _write_interval():
+        def check_improved(write=True):
+            nonlocal best, best_msa
+            with trace.span("realign.score"):
+                pair = eng.overall_pair()
+                if score_log is not None:
+                    score_log.append(pair)
+                if score_log_path is not None and writes:
+                    with open(score_log_path, "a") as f:
+                        f.write(f"{rounds} {pair[0]}{pair[1]:06d} "
+                                f"{eng.width()}\n")
+                if pair < best:
+                    best = pair
+                    best_msa = eng.best_snapshot()
+                    write_stale[0] = True
+                    if write and (out_path is not None
+                                  or checkpoint_path is not None):
+                        if time.perf_counter() - last_write[0] \
+                                < _write_interval():
+                            return True
+                        # overlap the best-MSA write with the next sweep;
+                        # at most one write is in flight
+                        _join_writer()
+                        last_write[0] = time.perf_counter()
+                        write_stale[0] = False
+                        writer[0] = threading.Thread(
+                            target=_write_best,
+                            args=(best_msa, best, rounds, _eng_state()),
+                            daemon=True)
+                        writer[0].start()
                     return True
-                # overlap the best-MSA write with the next sweep; at
-                # most one write is in flight
-                _join_writer()
-                last_write[0] = time.perf_counter()
-                write_stale[0] = False
-                writer[0] = threading.Thread(
-                    target=_write_best,
-                    args=(best_msa, best, rounds, _eng_state()),
-                    daemon=True)
-                writer[0].start()
-            return True
-        return False
+                return False
 
-    check_improved(write=False)
-    if checkpoint_path is not None and start_round == 0 and writes:
-        # round-0 checkpoint right after EntAlGapper
-        ckpt.RealignCheckpoint(
-            msa=eng.msa, round=0, best_mille=best[0], best_uno=best[1],
-            bandwidth=cfg.bandwidth).save(checkpoint_path)
-    while rounds < cfg.max_rounds:
-        cells += bases * cfg.bandwidth
-        eng.sweep()
-        rounds += 1
-        if validate:
-            eng.validate()
-        if not check_improved():
-            if anneal and eng.block_rows > 1:
-                nb = max(1, eng.block_rows // 4)
-                if best_msa is not None and eng.overall_pair() > best:
-                    # the stalled Jacobi round left the MSA worse than
-                    # the best: polish from the best
-                    eng = eng.respawn(np.asarray(best_msa).copy(), nb)
-                else:
-                    eng = eng.shrink(nb)
-                continue
-            break
-    eng.ent_al_gapper()
-    check_improved()
-    _join_writer()                # files must be complete on return
-    if write_stale[0] and best_msa is not None \
-            and (out_path is not None or checkpoint_path is not None):
-        # a throttled (or the initial) best was never written: write it
-        _write_best(best_msa, best, rounds, _eng_state())
-    if stats is not None:
-        dt = time.perf_counter() - t0
-        stats.update(rounds=rounds, wall_s=dt, dp_cells=cells,
-                     cells_per_s=cells / dt if dt > 0 else 0.0)
-    return (np.asarray(best_msa) if best_msa is not None
-            else eng.msa)
+        check_improved(write=False)
+        if checkpoint_path is not None and start_round == 0 and writes:
+            # round-0 checkpoint right after EntAlGapper
+            with trace.span("realign.write"):
+                ckpt.RealignCheckpoint(
+                    msa=eng.msa, round=0, best_mille=best[0],
+                    best_uno=best[1],
+                    bandwidth=cfg.bandwidth).save(checkpoint_path)
+        while rounds < cfg.max_rounds:
+            cells += bases * cfg.bandwidth
+            with trace.span("realign.sweep"):
+                eng.sweep()
+            rounds += 1
+            if validate:
+                eng.validate()
+            if not check_improved():
+                if anneal and eng.block_rows > 1:
+                    with trace.span("realign.respawn"):
+                        nb = max(1, eng.block_rows // 4)
+                        if best_msa is not None \
+                                and eng.overall_pair() > best:
+                            # the stalled Jacobi round left the MSA worse
+                            # than the best: polish from the best
+                            eng = eng.respawn(np.asarray(best_msa).copy(),
+                                              nb)
+                        else:
+                            eng = eng.shrink(nb)
+                    continue
+                break
+        with trace.span("realign.ent_al_gapper"):
+            eng.ent_al_gapper()
+        check_improved()
+        _join_writer()                # files must be complete on return
+        if write_stale[0] and best_msa is not None \
+                and (out_path is not None or checkpoint_path is not None):
+            # a throttled (or the initial) best was never written: write it
+            with trace.span("realign.write"):
+                _write_best(best_msa, best, rounds, _eng_state())
+        if stats is not None:
+            dt = time.perf_counter() - t0
+            stats.update(rounds=rounds, wall_s=dt, dp_cells=cells,
+                         cells_per_s=cells / dt if dt > 0 else 0.0)
+        return (np.asarray(best_msa) if best_msa is not None
+                else eng.msa)
 
 
 # seconds of each best-MSA write (MSA text and checkpoint, on the writer

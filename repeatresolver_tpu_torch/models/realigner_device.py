@@ -50,6 +50,7 @@ from ..ops import cuda_backtrack as cb
 from ..ops import cuda_exact as ce
 from ..ops import cuda_realign as cr
 from ..ops import staircase_realign as sr
+from ..utils import trace
 from ..utils.native import NativeBuildError
 from .realigner import (BatchedRealigner, _bucket, _check_inserts,
                         _native, band_starts, block_dp, compact_rows,
@@ -357,19 +358,26 @@ class DeviceResidentRealigner(BatchedRealigner):
     # ------------------------------------------------------- the sweep
 
     def sweep(self) -> None:
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         cls = DeviceResidentRealigner
         n0, s0 = dict(cls.exact_blocks_run), dict(cls.exact_block_s)
         if self._msa_d is None:
-            self._upload()
+            with trace.span("resident.upload"):
+                self._upload()
         extra_exact: set = set()   # this sweep only: overflow redos
-        for _ in range(8):
+        for attempt in range(8):
             snap_m = self._msa_d.clone()  # sweep-start snapshot for
             snap_c = self._counts_d.clone()   # the redo
             snap_n = self._ncols
-            violations = self._try_sweep(extra_exact)
+            if attempt:
+                with trace.span("resident.redo"):
+                    violations = self._try_sweep(extra_exact)
+            else:
+                violations = self._try_sweep(extra_exact)
             if not violations:
-                secs = time.perf_counter() - t0
+                t1 = time.perf_counter_ns()
+                trace.record("resident.sweep", t0, t1)
+                secs = (t1 - t0) / 1e9
                 cls.resident_sweep_s += secs
                 cls.sweep_log.append({
                     "s": secs,
@@ -413,11 +421,13 @@ class DeviceResidentRealigner(BatchedRealigner):
             if bid in self._exact_blocks or bid in extra_exact:
                 self._exact_block(rows, pending)
             else:
-                out = block_step(
-                    self._msa_d, self._counts_d, self._order_d[sl],
-                    self._len_d[sl], self._ncols,
-                    bandwidth=self.bandwidth, chunk=self.chunk, widen=wd,
-                    lpad=_bucket(max(1, int(bl.max()))), maxf=self._maxf)
+                with trace.span("resident.block"):
+                    out = block_step(
+                        self._msa_d, self._counts_d, self._order_d[sl],
+                        self._len_d[sl], self._ncols,
+                        bandwidth=self.bandwidth, chunk=self.chunk,
+                        widen=wd, lpad=_bucket(max(1, int(bl.max()))),
+                        maxf=self._maxf)
                 fetches.append((bid, rows, out, wd))
             # read results three blocks behind the dispatch: the cap
             # check below then sees a pending count at most 3 blocks
@@ -433,13 +443,15 @@ class DeviceResidentRealigner(BatchedRealigner):
                     continue
                 # mid-sweep flushes drop empty columns too (bounds the
                 # transient width of insert-heavy early sweeps)
-                self._flush_device(pending, drop_empty=True)
+                with trace.span("resident.flush"):
+                    self._flush_device(pending, drop_empty=True)
                 pending = []
         while fetches:
             self._drain(fetches.pop(0), pending, violations)
         if violations:
             return violations
-        self._flush_device(pending, drop_empty=True)
+        with trace.span("resident.flush"):
+            self._flush_device(pending, drop_empty=True)
         return violations
 
     def _drain(self, item, pending, violations: dict) -> None:
@@ -449,7 +461,8 @@ class DeviceResidentRealigner(BatchedRealigner):
         within kernel A's widest window (a drift beyond it sends the
         block exact, in `sweep`'s redo set)."""
         bid, rows, out, wd = item
-        out = out.cpu().numpy()
+        with trace.span("resident.wait"):
+            out = out.cpu().numpy()
         bqn = len(rows)
         dv = int(out[-1])
         t = self.chunk
@@ -489,7 +502,7 @@ class DeviceResidentRealigner(BatchedRealigner):
         or, when the host library cannot be built, the torch exact band
         (same math, both the reference recurrence; the first such block
         warns). Counted and timed by route."""
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         if self.device.type == "cuda":
             route = "cuda"
             iy, ib, inn = self._exact_block_device(rows)
@@ -500,7 +513,9 @@ class DeviceResidentRealigner(BatchedRealigner):
                 pending.append((int(iy[b, o]), int(k), o, int(ib[b, o])))
         cls = DeviceResidentRealigner
         cls.exact_blocks_run[route] += 1
-        cls.exact_block_s[route] += time.perf_counter() - t0
+        t1 = time.perf_counter_ns()
+        cls.exact_block_s[route] += (t1 - t0) / 1e9
+        trace.record("resident.exact_block", t0, t1, {"route": route})
 
     def _exact_block_device(self, rows):
         """Kernels F and G on the block's resident rows (compacted on the
@@ -509,8 +524,10 @@ class DeviceResidentRealigner(BatchedRealigner):
         host, each row's lists as long as its count."""
         dev = self.device
         lengths = self._lengths_all[np.asarray(rows)]
-        rows_d = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
-        len_d = torch.from_numpy(lengths).to(dev)
+        # an upload from pageable memory waits for the queued blocks
+        with trace.span("resident.wait"):
+            rows_d = torch.from_numpy(np.asarray(rows, np.int64)).to(dev)
+            len_d = torch.from_numpy(lengths).to(dev)
         rows_old = self._msa_d.index_select(0, rows_d)
         seqs, ways, last_way = compact_block(
             rows_old, len_d, max(1, int(lengths.max())))
@@ -521,9 +538,10 @@ class DeviceResidentRealigner(BatchedRealigner):
             self._ncols, bandwidth=self.bandwidth,
             budget=device_memory_budget(dev))
         apply_rows(self._msa_d, self._counts_d, rows_d, rows_old, new_rows)
-        inn = inn.cpu().numpy()
-        k = max(1, int(inn.max()))
-        return iy[:, :k].cpu().numpy(), ib[:, :k].cpu().numpy(), inn
+        with trace.span("resident.wait"):
+            inn = inn.cpu().numpy()
+            k = max(1, int(inn.max()))
+            return iy[:, :k].cpu().numpy(), ib[:, :k].cpu().numpy(), inn
 
     def _exact_block_host(self, rows):
         """The block of an engine on the CPU: the native engine (or the
@@ -591,7 +609,8 @@ class DeviceResidentRealigner(BatchedRealigner):
     def _flush_device(self, pending, drop_empty: bool) -> None:
         """Sweep-end (or cap-triggered) splice plus optional empty-column
         drop, as one device gather; host mirrors updated."""
-        counts_now = self._fetch_counts_host()
+        with trace.span("resident.wait"):
+            counts_now = self._fetch_counts_host()
         c = self._ncols
         n = len(pending)
         keep = None
@@ -660,4 +679,5 @@ class DeviceResidentRealigner(BatchedRealigner):
             counts2.index_copy_(0, newpos_d, _hist(col))
         self._msa_d, self._counts_d = msa2, counts2
         self._ncols = c_new
-        self.counts = self._fetch_counts_host()
+        with trace.span("resident.wait"):
+            self.counts = self._fetch_counts_host()

@@ -32,11 +32,13 @@ import torch
 
 from ..config import ResolverConfig
 from ..device import resolve_device
+from ..ops import _build
 from ..ops import cuda_resolver as cv
 from ..ops import devmm
 from ..ops import hypergeom as hg
 from ..utils import io as rio
 from ..utils import native
+from ..utils import trace
 
 __all__ = ["group_refinement", "kmeans", "kmeans_subdivision",
            "relative_vars", "resolve_window", "run"]
@@ -51,23 +53,26 @@ SPLIT_PARTS = ("extract", "refine_products", "refine_candidates",
 
 class SplitClock:
     """Host seconds of a window's parts (SPLIT_PARTS). `lap(part)` books
-    the time since the previous lap to `part`; on a CUDA device each lap
-    first synchronises it, so a part holds its own device work.
-    `counts` holds the card route's tallies (candidates, tuples
-    evaluated on the host, pairs, launches)."""
+    the time since the previous lap to `part`, and records it as the
+    span `resolve.<part>` (utils/trace); on a CUDA device each lap first
+    synchronises it, so a part holds its own device work. `counts`
+    holds the card route's tallies (candidates, tuples evaluated on the
+    host, pairs, launches, and kernel H's ms while ops/_build.
+    kernel_events times launches)."""
 
     def __init__(self, device="cpu"):
         self.s = dict.fromkeys(SPLIT_PARTS, 0.0)
         self.counts: dict[str, int] = {}
         dev = torch.device(device)
         self._sync = dev if dev.type == "cuda" else None
-        self._t = time.perf_counter()
+        self._t = time.perf_counter_ns()
 
     def lap(self, part: str) -> None:
         if self._sync is not None:
             torch.cuda.synchronize(self._sync)
-        t = time.perf_counter()
-        self.s[part] += t - self._t
+        t = time.perf_counter_ns()
+        self.s[part] += (t - self._t) / 1e9
+        trace.record("resolve." + part, self._t, t)
         self._t = t
 
     def count(self, key: str, n) -> None:
@@ -844,21 +849,16 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
     occ = torch.zeros_like(tables)
     marked = torch.zeros((p.nrows + 31) // 32, dtype=torch.int32,
                          device=dev)
-    timed = dev.type == "cuda"
-    ms = 0.0
+    # kernel H's own CUDA events, while ops/_build.kernel_events times
+    # launches
+    events = _build.kernel_events
+    mark = len(events.get("resolver_pairs", ())) \
+        if events is not None else None
     # pair_pass launches no pass without tiles
     launches = int(p.tiles.shape[0] > 0)
 
     def run(hsh, count):
-        nonlocal ms
-        if timed:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
         cv.pair_pass(p, tables, occ, hsh, marked, count=count)
-        if timed:
-            ev[1].record()
-            ev[1].synchronize()
-            ms += ev[0].elapsed_time(ev[1])
         clock.count("relvars_h_launches", launches)
 
     # the hash: two slots a key for as many keys as the counted pairs or
@@ -923,8 +923,11 @@ def _relative_vars_card(card: CardGroups, u: np.ndarray, ks: list[int],
     run(hsh, False)
     marked_h = cv.unpack_marks(marked, p.nrows)
     gg_h = gg.cpu().numpy()
-    if timed:
-        clock.count("relvars_h_ms", ms)
+    if mark is not None:
+        h = events.get("resolver_pairs", [])[mark:]
+        if h:
+            h[-1][1].synchronize()
+        clock.count("relvars_h_ms", sum(a.elapsed_time(b) for a, b in h))
     clock.count("relvars_rows", p.nrows)
     clock.count("relvars_clusters", k_n)
     clock.count("relvars_tiles", int(p.tiles.shape[0]))

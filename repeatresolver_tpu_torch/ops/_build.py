@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+from ..utils import trace
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -82,13 +84,13 @@ def _start_build(name: str):
     (process or None, temporary output, library, start time)."""
     src, so = _paths(name)
     if os.path.exists(so):
-        return None, None, so, 0.0
+        return None, None, so, 0
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
     proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return proc, tmp, so, time.perf_counter()
+    return proc, tmp, so, time.perf_counter_ns()
 
 
 def _finish_build(name: str, proc, tmp, so, t0) -> str:
@@ -97,17 +99,30 @@ def _finish_build(name: str, proc, tmp, so, t0) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{out}")
         os.replace(tmp, so)
-        build_info[name] = (time.perf_counter() - t0, out.strip())
+        t1 = time.perf_counter_ns()
+        build_info[name] = ((t1 - t0) / 1e9, out.strip())
     return so
+
+
+def _builds(started) -> None:
+    """Wait for the builds `_start_build` started together, each
+    (name, process or None, temporary output, library, start time); the
+    span `kernel.build` covers those that ran nvcc, from the first start
+    to the last end."""
+    ran = [b for b in started if b[1] is not None]
+    for b in started:
+        _finish_build(*b)
+    if ran:
+        trace.record("kernel.build", min(b[4] for b in ran),
+                     time.perf_counter_ns(), {"kernels": [b[0] for b in ran]})
+        trace.count("kernel.builds", len(ran))
 
 
 def prebuild(names) -> None:
     """Compile several kernels at once: one nvcc per source, all started
     together."""
     with _lock:
-        started = [(n, *_start_build(n)) for n in names if n not in _libs]
-        for n, proc, tmp, so, t0 in started:
-            _finish_build(n, proc, tmp, so, t0)
+        _builds([(n, *_start_build(n)) for n in names if n not in _libs])
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -116,8 +131,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        so = _finish_build(name, *_start_build(name))
-        lib = ctypes.CDLL(so)
+        started = (name, *_start_build(name))
+        _builds([started])
+        lib = ctypes.CDLL(started[3])
         launch = getattr(lib, name + "_launch")
         launch.argtypes = _SIGNATURES[name]
         launch.restype = ctypes.c_int

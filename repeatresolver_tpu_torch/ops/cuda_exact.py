@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import _build
 from . import banded_realign as br
 from .cuda_backtrack import moves_to_outputs
@@ -334,7 +335,8 @@ def entry_and_backtrack(codes, final_band, final_anf, seqs, anf_full,
     if nw * 16 != seqs.shape[1]:
         seqs = torch.nn.functional.pad(seqs, (0, nw * 16 - seqs.shape[1]))
     if ins_cap is None:
-        most = int(_insert_counts(moves, lengths).max()) if b else 0
+        with trace.span("exact.wait"):
+            most = int(_insert_counts(moves, lengths).max()) if b else 0
         ins_cap = max(br.MAX_INSERTS, most)
     return moves_to_outputs(moves, seqs, lengths, best, cpad=cpad,
                             ins_cap=ins_cap)

@@ -19,7 +19,10 @@ and seconds by route (kernels F and G: "cuda"; the host native engine:
 work, transfers, device, inside F and G, flushes) and of its serial
 sweeps at block 1 on the card (upload, download, row steps, inside F
 and G, host reads, splices, drops, regrows), the best-MSA writes and
-the waits for them, and the scorelog's line count over time.
+the waits for them, and the scorelog's line count over time; and the
+port's spans and counters over the step (`trace`: utils/trace's totals,
+the recorder on for the step), which split every stage by layer and
+name each kernel build inside a stage's clock (`kernel.build`).
 Between the stages it runs four checks on the run's own files:
 
   trajectory  after align: 2 rounds at the run's band and block of the
@@ -161,10 +164,11 @@ def _stop(signum, frame):
 
 
 def _measured(fn, dev_type):
-    """Run fn() with every counter at 0 and the kernels' launches timed;
-    returns (fn's value, the record)."""
+    """Run fn() with every counter at 0, the kernels' launches timed and
+    the span recorder on; returns (fn's value, the record)."""
     import torch
     from .ops import _build
+    from .utils import trace
     launch, c = _counters()
     for f in launch.values():
         f.launches = 0
@@ -188,6 +192,8 @@ def _measured(fn, dev_type):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
         _build.kernel_events = {}
+    trace.reset()
+    trace.enable()
     t0 = time.perf_counter()
     value, stopped = None, False
     try:
@@ -198,6 +204,7 @@ def _measured(fn, dev_type):
         if cuda:
             torch.cuda.synchronize()
         events, _build.kernel_events = _build.kernel_events, None
+        trace.disable()
     rec = {"s": time.perf_counter() - t0, "stopped": stopped,
            "kernels": {k: {"launches": f.launches,
                            "s": sum(a.elapsed_time(b) for a, b in
@@ -217,7 +224,8 @@ def _measured(fn, dev_type):
            "resident_sweeps": list(c["dev"].sweep_log),
            "best_write_s": list(c["rb"].write_s),
            "best_write_wait_s": c["rb"].write_wait_s,
-           "resolve_windows": list(c["resolve"].log)}
+           "resolve_windows": list(c["resolve"].log),
+           "trace": trace.totals()}
     if cuda:
         rec["peak_device_bytes"] = torch.cuda.max_memory_allocated()
         rec["peak_device_reserved"] = torch.cuda.max_memory_reserved()

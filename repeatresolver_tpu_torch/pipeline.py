@@ -18,7 +18,6 @@ No stage falls back to the host when its device route fails.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -43,32 +42,9 @@ class PipelineResult:
     quality: dict = field(default_factory=dict)
 
 
-@contextlib.contextmanager
-def trace(profile_dir: str | None, dev, filename: str):
-    """A torch.profiler trace (CPU, and CUDA on a CUDA device) of the
-    block, written to profile_dir/filename in Chrome trace format; no
-    profiler when profile_dir is None."""
-    if not profile_dir:
-        yield
-        return
-    import torch.profiler as tp
-    acts = [tp.ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(tp.ProfilerActivity.CUDA)
-    with tp.profile(activities=acts) as prof:
-        yield
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, filename))
-
-
 def run_pipeline(cfg: PipelineConfig, workdir: str, progress=print,
-                 profile_dir: str | None = None,
                  device="cuda") -> PipelineResult:
-    """profile_dir: when set, a torch.profiler trace of the realign
-    phase is written there as realign_trace.json (Chrome trace
-    format).
-
-    cfg.realigner.mesh_devices > 1 (with block_rows > 1) shards the
+    """cfg.realigner.mesh_devices > 1 (with block_rows > 1) shards the
     realign blocks over the process group this process has joined
     (parallel/sharded.make_mesh, which raises unless the group has that
     many ranks). Every rank runs the whole pipeline: rank 0 in workdir,
@@ -116,13 +92,12 @@ def run_pipeline(cfg: PipelineConfig, workdir: str, progress=print,
     msareal_path = os.path.join(workdir, name + "_MSAreal")
     log: list = []
     rstats: dict = {}
-    with trace(profile_dir, dev, "realign_trace.json"):
-        best = realigner.realign_batched(
-            msa, cfg.realigner, out_path=msareal_path, score_log=log,
-            checkpoint_path=os.path.join(workdir, name + "_realign.ckpt"),
-            stats=rstats, mode=cfg.realigner.mode,
-            kernel=cfg.realigner.kernel, mesh=mesh,
-            device=dev)
+    best = realigner.realign_batched(
+        msa, cfg.realigner, out_path=msareal_path, score_log=log,
+        checkpoint_path=os.path.join(workdir, name + "_realign.ckpt"),
+        stats=rstats, mode=cfg.realigner.mode,
+        kernel=cfg.realigner.kernel, mesh=mesh,
+        device=dev)
     if mesh is not None and mesh.rank:
         rio.write_msa(msareal_path, best, upper=True)
     paths["msareal"] = msareal_path

@@ -64,15 +64,6 @@ def test_pipeline_matches_jax(tmp_path):
                                           out[kind])
 
 
-def test_trace_writes_chrome_trace(tmp_path):
-    from repeatresolver_tpu_torch.pipeline import trace
-    with trace(str(tmp_path / "prof"), torch.device("cpu"), "t.json"):
-        torch.ones(8).cumsum(0)
-    assert (tmp_path / "prof" / "t.json").read_text().lstrip()[0] == "{"
-    with trace(None, torch.device("cpu"), "t.json"):
-        pass
-
-
 def test_realign_stats_match_jax():
     from repeatresolver_tpu.models import realigner as jr
     from repeatresolver_tpu_torch.models import realigner as pr
