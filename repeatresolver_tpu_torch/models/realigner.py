@@ -85,6 +85,7 @@ def symbol_counts(msa: np.ndarray) -> np.ndarray:
     Chunked over rows: full-MSA boolean temporaries are multi-GB at
     paper scale; small reused temporaries avoid faulting them in
     (utils/hostmem.py)."""
+    trace.count("realign.host_msa_passes")
     r, c = msa.shape
     counts = np.zeros((c, 6), np.int64)
     step = max(1, (1 << 24) // max(c, 1))
@@ -141,6 +142,7 @@ class RealignEngine:
         Chunked over rows: the boolean temporaries are multi-GB at
         paper scale; small reused temporaries avoid faulting them in
         (utils/hostmem.py)."""
+        trace.count("realign.host_msa_passes")
         msa = self.msa
         r, c = msa.shape
         cols = np.arange(c)[None, :]
@@ -419,6 +421,7 @@ def tail_kernel(block_rows: int, device) -> str:
 def row_lengths(msa: np.ndarray) -> np.ndarray:
     """int32 [R]: the bases of each row (realignment-invariant), chunked
     over rows as symbol_counts is."""
+    trace.count("realign.host_msa_passes")
     step = max(1, (1 << 24) // max(msa.shape[1], 1))
     return np.concatenate([(msa[k0:k0 + step] < 4).sum(axis=1)
                            for k0 in range(0, msa.shape[0], step)]
@@ -665,6 +668,24 @@ class BatchedRealigner:
                  block_rows: int = 8, mode: str = "exact",
                  chunk: int = 256, kernel: str = "native", mesh=None,
                  device: str | torch.device = "cuda"):
+        self._configure(bandwidth=bandwidth, block_rows=block_rows,
+                        mode=mode, chunk=chunk, kernel=kernel, mesh=mesh,
+                        device=device)
+        self.msa = np.ascontiguousarray(msa, dtype=np.int8)
+        self.counts = symbol_counts(self.msa)
+        if isinstance(self.device, torch.device) \
+                and self.device.type == "cuda":
+            # every exact-band block there runs on kernels F and G, the
+            # longest row at its length bucket: refuse a band whose one
+            # row's codes do not fit the memory budget
+            ce.rows_within(self._memory_budget(),
+                           _bucket(max(1, int(row_lengths(self.msa).max()))),
+                           bandwidth)
+
+    def _configure(self, *, bandwidth, block_rows, mode, chunk, kernel,
+                   mesh, device) -> None:
+        """The engine's settings, before any pass over its MSA (the
+        resident engine makes its own passes on its device)."""
         tune_allocator()   # big-MSA splices need warm-page reuse
         if mode not in ("exact", "staircase"):
             raise ValueError(f"unsupported mode {mode!r}")
@@ -672,8 +693,6 @@ class BatchedRealigner:
             raise ValueError(f"unsupported kernel {kernel!r}")
         self.mesh = mesh
         self._mesh_cache: dict = {}
-        self.msa = np.ascontiguousarray(msa, dtype=np.int8)
-        self.counts = symbol_counts(self.msa)
         self.bandwidth = bandwidth
         self.block_rows = block_rows
         self.mode = mode
@@ -697,14 +716,12 @@ class BatchedRealigner:
         self._flush_cap = int(os.environ.get("RR_FLUSH_CAP", FLUSH_CAP))
         self._budget = None                 # bytes, read at first use
         self._len_order = None
-        if isinstance(self.device, torch.device) \
-                and self.device.type == "cuda":
-            # every exact-band block there runs on kernels F and G, the
-            # longest row at its length bucket: refuse a band whose one
-            # row's codes do not fit the memory budget
-            ce.rows_within(self._memory_budget(),
-                           _bucket(max(1, int(row_lengths(self.msa).max()))),
-                           bandwidth)
+
+    def bases(self) -> int:
+        """The MSA's bases (realignment-invariant): a sweep's DP cells
+        over the band."""
+        trace.count("realign.host_msa_passes")
+        return int((self.msa < 4).sum())
 
     def ent_al_gapper(self):
         eng = RealignEngine.__new__(RealignEngine)
@@ -1442,9 +1459,7 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
                                        block_rows=bs, mode=mode,
                                        kernel=kernel, mesh=mesh,
                                        device=device)
-            # row base counts are realignment-invariant: the DP cells of
-            # a sweep
-            bases = int((np.asarray(msa) < 4).sum())
+            bases = eng.bases()
         # on a mesh every rank runs the loop; rank 0 alone writes files
         writes = mesh is None or mesh.rank == 0
         with trace.span("realign.ent_al_gapper"):
@@ -1536,7 +1551,8 @@ def realign_batched(msa: np.ndarray, cfg: RealignerConfig,
             # round-0 checkpoint right after EntAlGapper
             with trace.span("realign.write"):
                 ckpt.RealignCheckpoint(
-                    msa=eng.msa, round=0, best_mille=best[0],
+                    msa=best_msa if best_msa is not None
+                    else eng.best_snapshot(), round=0, best_mille=best[0],
                     best_uno=best[1],
                     bandwidth=cfg.bandwidth).save(checkpoint_path)
         while rounds < cfg.max_rounds:

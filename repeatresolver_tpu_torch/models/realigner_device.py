@@ -15,6 +15,13 @@ that grows in place when a splice needs it. A sweep runs one
     (the reference's Columns_Downdater / Column_Updater,
     PW_ReAligner.c:1172-1243).
 
+The engine uploads the MSA when it is made and makes the call's
+whole-MSA passes on that copy: the histogram and the row lengths as
+each row chunk lands (`upload_msa`), then both EntAlGapper calls
+(`ent_al_gapper_device`, the drop as one column gather); the host gets
+the [C, 6] counts and the R row lengths, and the MSA itself only from
+`best_snapshot` (and `shrink`, the hand-off to the anneal's tail).
+
 Each step returns one small int32 buffer (insert codes, insert counts,
 drift) that the host reads three blocks behind the dispatch; at sweep
 end the host builds the splice-and-drop plan (Column_Adder / W_Con,
@@ -56,19 +63,79 @@ from .realigner import (BatchedRealigner, _bucket, _check_inserts,
                         _native, band_starts, block_dp, compact_rows,
                         device_memory_budget, exact_block_dp,
                         overall_score_pair, realign_block_native,
-                        row_lengths, tail_kernel, validate_counts)
+                        tail_kernel, validate_counts)
 
 # insert slots fetched per row and block (a row inserts ~0-5 columns per
 # sweep; a row overflowing it reroutes its block, see _drain)
 MAX_INSERTS_FETCH = 512
 # the slack every block starts at, before its drift is measured
 DEFAULT_WIDEN = 12
+# bytes a cell of a whole-MSA pass may take in temporaries (EntAlGapper's
+# masks and int32 column indices): a pass takes as many rows at once as
+# keep them within device_memory_budget
+PASS_BYTES_PER_CELL = 16
 
 
 def _hist(rows: torch.Tensor) -> torch.Tensor:
     """int32 [C, 6] symbol histogram of int8 rows [B, C]."""
     return torch.stack([(rows == s).sum(dim=0, dtype=torch.int32)
                         for s in range(6)], dim=1)
+
+
+def pass_rows(device: torch.device, cols: int) -> int:
+    """Rows a whole-MSA pass over `cols` columns takes at once on
+    `device`."""
+    return max(1, device_memory_budget(device)
+               // (PASS_BYTES_PER_CELL * max(cols, 1)))
+
+
+def upload_msa(msa: np.ndarray, device: torch.device):
+    """(msa_d int8 [R, C], counts_d int32 [C, 6], lengths_d int32 [R]):
+    the MSA on `device`, uploaded a row chunk at a time, with its symbol
+    histogram (`symbol_counts`'s) and each row's bases (`row_lengths`')
+    counted there as each chunk lands."""
+    r, c = msa.shape
+    msa_d = torch.empty((r, c), dtype=torch.int8, device=device)
+    counts_d = torch.zeros((c, 6), dtype=torch.int32, device=device)
+    lengths_d = torch.empty(r, dtype=torch.int32, device=device)
+    step = pass_rows(device, c)
+    for k0 in range(0, r, step):
+        m = msa_d[k0:k0 + step]
+        m.copy_(torch.from_numpy(msa[k0:k0 + step]))
+        counts_d += _hist(m)
+        lengths_d[k0:k0 + step] = (m < 4).sum(dim=1, dtype=torch.int32)
+    return msa_d, counts_d, lengths_d
+
+
+def ent_al_gapper_device(msa_d: torch.Tensor, counts_d: torch.Tensor,
+                         ncols: int) -> int:
+    """EntAlGapper's conversion in place on the device: in each row,
+    every '-' (4) before its first base or after its last becomes ' '
+    (5), and the histogram's counts move from symbol 4 to 5. A row
+    without bases has first = ncols and last = -1, as on the host
+    (`RealignEngine.ent_al_gapper`, before its drop). msa_d int8
+    [R, >= ncols], counts_d int32 [>= ncols, 6]. Returns the cells
+    converted."""
+    dev = msa_d.device
+    cols = torch.arange(ncols, dtype=torch.int32, device=dev)[None, :]
+    conv_cols = torch.zeros(ncols, dtype=torch.int32, device=dev)
+    step = pass_rows(dev, ncols)
+    for k0 in range(0, msa_d.shape[0], step):
+        m = msa_d[k0:k0 + step, :ncols]
+        base = m < 4
+        first = torch.where(base, cols, ncols).amin(dim=1, keepdim=True)
+        last = torch.where(base, cols, -1).amax(dim=1, keepdim=True)
+        conv = ((cols < first) | (cols > last)) & (m == 4)
+        m.masked_fill_(conv, 5)
+        conv_cols += conv.sum(dim=0, dtype=torch.int32)
+    counts_d[:ncols, 4] -= conv_cols
+    counts_d[:ncols, 5] += conv_cols
+    return int(conv_cols.sum(dtype=torch.int64))
+
+
+def kept_columns(counts_d: torch.Tensor, ncols: int) -> torch.Tensor:
+    """int64 ids of the columns that hold a base, on the device."""
+    return torch.nonzero(counts_d[:ncols, :4].sum(dim=1) > 0).squeeze(1)
 
 
 def apply_rows(msa_d, counts_d, rows, rows_old, new_rows) -> None:
@@ -175,16 +242,29 @@ class DeviceResidentRealigner(BatchedRealigner):
                  device: str | torch.device = "cuda", widen_state=None):
         if block_rows < 2:
             raise ValueError("the resident engine needs block_rows > 1")
-        super().__init__(msa, bandwidth=bandwidth, block_rows=block_rows)
+        self._configure(bandwidth=bandwidth, block_rows=block_rows,
+                        mode="exact", chunk=chunk, kernel="native",
+                        mesh=None, device=device)
         # wide bands run at chunk 128 (the JAX engine's choice; any
         # chunk whose slack covers the drift gives the same result)
         self.chunk = min(chunk, 128) if bandwidth >= 768 else chunk
         self.device = resolve_device(device)
+        msa = np.ascontiguousarray(msa, dtype=np.int8)
+        self._nrows, self._ncols = msa.shape
+        # the set-up's upload, [R, C]; EntAlGapper's drop (or the first
+        # sweep) lays it out in the [R, CPAD] buffer
+        with trace.span("resident.upload"):
+            self._msa_d, self._counts_d, lengths_d = upload_msa(
+                msa, self.device)
+            self._lengths_all = lengths_d.cpu().numpy()
+            self.counts = self._fetch_counts_host()
+        self._cpad = None
+        self._len_order = np.argsort(-self._lengths_all, kind="stable")
         if self.device.type == "cuda":
             # its exact blocks run on kernels F and G: refuse a band
             # whose longest row's codes do not fit the memory budget
             ce.rows_within(device_memory_budget(self.device),
-                           max(1, int(row_lengths(self.msa).max())),
+                           max(1, int(self._lengths_all.max())),
                            bandwidth)
         self._widen = DEFAULT_WIDEN
         # the widest ladder rung whose window fits kernel A (0: none)
@@ -200,35 +280,51 @@ class DeviceResidentRealigner(BatchedRealigner):
         #                                   from a checkpoint/respawn,
         #                                   adopted at the first layout
         self._ord_bs = None
-        self._msa_d = None                # [R, CPAD] int8
-        self._counts_d = None             # [CPAD, 6] int32
-        self._ncols = None
-        self._cpad = None
-        self._lengths_all = None
         self._exact_blocks: set = set()   # block ids on the exact path
 
     # ------------------------------------------------ device lifecycle
 
-    def _upload(self):
-        r, c = self.msa.shape
-        # early sweeps insert many columns before the sweep-end drop
-        # reclaims them: size the capacity for that, with in-place
-        # growth (_flush_device) as the backstop
-        slack = max(32768, c // 3)
-        cpad = -(-(c + slack) // 1024) * 1024
+    @property
+    def msa(self) -> np.ndarray:
+        """The MSA, downloaded from the device (a whole-MSA copy)."""
+        return self._fetch_msa_host()
+
+    def bases(self) -> int:
+        return int(self._lengths_all.sum(dtype=np.int64))
+
+    def _lay_out(self, keep: torch.Tensor | None = None) -> None:
+        """Keep the columns `keep` (int64 ids on the device; None: every
+        column) of the resident MSA and histogram, as one gather a row
+        chunk. From the set-up's upload into the [R, CPAD] buffer sized
+        from the width kept; once laid out, in place. Columns past the
+        width hold ' ' and zero counts."""
+        c, r = self._ncols, self._nrows
         dev = self.device
-        self._msa_d = torch.full((r, cpad), 5, dtype=torch.int8, device=dev)
-        self._msa_d[:, :c] = torch.from_numpy(self.msa).to(dev)
-        self._counts_d = torch.zeros((cpad, 6), dtype=torch.int32,
-                                     device=dev)
-        self._counts_d[:c] = torch.from_numpy(
-            self.counts.astype(np.int32)).to(dev)
-        self._ncols = c
-        self._cpad = cpad
-        self._lengths_all = row_lengths(self.msa)
-        if self._len_order is None:
-            self._len_order = np.argsort(-self._lengths_all, kind="stable")
-        self._ord_bs = None               # block layout rebuilt lazily
+        if self._cpad is None:
+            if keep is None:
+                keep = torch.arange(c, device=dev)
+            n = len(keep)
+            # early sweeps insert many columns before the sweep-end drop
+            # reclaims them: size the capacity for that, with in-place
+            # growth (_flush_device) as the backstop
+            cpad = -(-(n + max(32768, n // 3)) // 1024) * 1024
+            msa_d = torch.full((r, cpad), 5, dtype=torch.int8, device=dev)
+            counts_d = torch.zeros((cpad, 6), dtype=torch.int32, device=dev)
+        elif keep is None or len(keep) == c:
+            return
+        else:
+            n, cpad = len(keep), self._cpad
+            msa_d, counts_d = self._msa_d, self._counts_d
+        step = pass_rows(dev, c)
+        for k0 in range(0, r, step):
+            part = self._msa_d[k0:k0 + step].index_select(1, keep)
+            msa_d[k0:k0 + step, :n] = part
+            msa_d[k0:k0 + step, n:c] = 5
+        kept = self._counts_d.index_select(0, keep)
+        counts_d[:n] = kept
+        counts_d[n:c] = 0
+        self._msa_d, self._counts_d = msa_d, counts_d
+        self._ncols, self._cpad = n, cpad
 
     def _ensure_order(self):
         """Block layout (each block's row ids and lengths, on host and
@@ -239,7 +335,7 @@ class DeviceResidentRealigner(BatchedRealigner):
         bs = self.block_rows
         if self._ord_bs == bs:
             return
-        r = self.msa.shape[0]
+        r = self._nrows
         nb = -(-r // bs)
         if self._block_widen is None:
             if self._widen_state is not None:
@@ -288,37 +384,26 @@ class DeviceResidentRealigner(BatchedRealigner):
     def _fetch_counts_host(self) -> np.ndarray:
         return self._counts_d[:self._ncols].cpu().numpy().astype(np.int64)
 
-    def _sync_host(self):
-        """Bring the device state back into the host mirrors and drop
-        the device copies."""
-        if self._msa_d is None:
-            return
-        self.msa = self._fetch_msa_host()
+    def ent_al_gapper(self) -> int:
+        """EntAlGapper on the resident MSA (`ent_al_gapper_device`), its
+        drop of the columns without bases as `_lay_out`'s gather.
+        Returns the cells converted."""
+        total = ent_al_gapper_device(self._msa_d, self._counts_d,
+                                     self._ncols)
+        self._lay_out(kept_columns(self._counts_d, self._ncols))
         self.counts = self._fetch_counts_host()
-        self._msa_d = self._counts_d = None
-
-    def ent_al_gapper(self):
-        self._sync_host()
-        super().ent_al_gapper()
+        return total
 
     def overall_pair(self):
-        if self._msa_d is None:
-            return super().overall_pair()
         return overall_score_pair(self.counts)
 
     def best_snapshot(self) -> np.ndarray:
-        if self._msa_d is None:
-            return self.msa.copy()
         return self._fetch_msa_host()
 
     def width(self) -> int:
-        return self._ncols if self._msa_d is not None \
-            else self.msa.shape[1]
+        return self._ncols
 
     def validate(self):
-        if self._msa_d is None:
-            validate_counts(self.msa, self.counts)
-            return
         validate_counts(self._fetch_msa_host(), self._fetch_counts_host())
 
     def widen_state(self):
@@ -341,10 +426,14 @@ class DeviceResidentRealigner(BatchedRealigner):
 
     def respawn(self, msa, block_rows):
         if block_rows >= max(2, self.RESIDENT_MIN_BS):
+            # this engine is done: free its device copy before the next
+            # one uploads its own
+            widen_state = self.widen_state()
+            self._msa_d = self._counts_d = None
             return DeviceResidentRealigner(
                 msa, bandwidth=self.bandwidth, block_rows=block_rows,
                 chunk=self.chunk, device=self.device,
-                widen_state=self.widen_state())
+                widen_state=widen_state)
         # the anneal's tail (small blocks down to the serial block 1)
         return self._tail_engine(msa, block_rows)
 
@@ -352,8 +441,10 @@ class DeviceResidentRealigner(BatchedRealigner):
         if block_rows >= max(2, self.RESIDENT_MIN_BS):
             self.block_rows = block_rows
             return self
-        self._sync_host()
-        return self._tail_engine(self.msa, block_rows)
+        # the tail's engine takes the MSA on the host; this one is done
+        msa = self._fetch_msa_host()
+        self._msa_d = self._counts_d = None
+        return self._tail_engine(msa, block_rows)
 
     # ------------------------------------------------------- the sweep
 
@@ -361,9 +452,8 @@ class DeviceResidentRealigner(BatchedRealigner):
         t0 = time.perf_counter_ns()
         cls = DeviceResidentRealigner
         n0, s0 = dict(cls.exact_blocks_run), dict(cls.exact_block_s)
-        if self._msa_d is None:
-            with trace.span("resident.upload"):
-                self._upload()
+        if self._cpad is None:            # no EntAlGapper ran (a respawn)
+            self._lay_out()
         extra_exact: set = set()   # this sweep only: overflow redos
         for attempt in range(8):
             snap_m = self._msa_d.clone()  # sweep-start snapshot for
@@ -404,7 +494,7 @@ class DeviceResidentRealigner(BatchedRealigner):
         """One sweep; returns {block id: drift} for blocks that violated
         their slack, or -1 for an insert-list overflow (empty when the
         sweep is good)."""
-        r = self.msa.shape[0]
+        r = self._nrows
         bs = self.block_rows
         pending: list = []
         fetches: list = []

@@ -13,7 +13,8 @@ recorder on. It prints, and writes to FILE as JSON:
 
   * the units' seconds with the recorder off and on (its cost);
   * the recorder's totals over the units run with it on, a unit;
-  * the layer metrics derived from them (`derive`);
+  * the layer metrics derived from them (`derive`), and the whole-MSA
+    passes on the host a unit (the counter `realign.host_msa_passes`);
   * the profiled unit's busy time and its longest idle gaps, each
     labelled by the innermost span the host was in: the program's,
     where one was open, else the benchmark's own; each gap's seconds
@@ -243,13 +244,15 @@ def main(argv=None) -> int:
            "recorder_cost": statistics.median(on) / statistics.median(off)
            - 1,
            "derived": derive(tot, prefix, len(on), sum(on)),
+           "host_msa_passes": tot["counts"].get("realign.host_msa_passes",
+                                                0) / len(on),
            "per_unit": per_unit(tot, len(on)),
            "last_stats": stats, "profile": red,
            "gap_parts": gap_parts(iv, lo, hi, timeline),
            "busy_in_spans": busy_in_spans(iv, timeline)}
     print(json.dumps({k: res[k] for k in (
         "cell", "seed", "device", "power_limit_w", "setup_s", "unit_s_off",
-        "unit_s_on", "recorder_cost", "derived")}))
+        "unit_s_on", "recorder_cost", "derived", "host_msa_passes")}))
     print(json.dumps(red.get("idle_gaps")))
     print(json.dumps(res["gap_parts"][:4]))
     print(json.dumps({k: [round(h, 4), round(b, 4)] for k, (h, b) in

@@ -192,8 +192,7 @@ def test_exact_block_torch_degrade_route(monkeypatch):
         for _ in range(3):
             eng.sweep()
             log.append(eng.overall_pair())
-        eng._sync_host()
-        return log, eng.msa.copy(), eng
+        return log, eng.best_snapshot(), eng
 
     cls = prd.DeviceResidentRealigner
     n0, t0 = cls.exact_blocks_run["native"], cls.exact_blocks_run["torch"]

@@ -253,7 +253,6 @@ def _resident(device="cpu"):
         make_msa(3, rows=16, tlen=240), bandwidth=96, block_rows=8,
         chunk=32, device=device)
     eng.ent_al_gapper()
-    eng._upload()
     eng._ensure_order()
     return eng
 
@@ -443,7 +442,6 @@ def _resident_on_card(w):
                                       bandwidth=w, block_rows=8, chunk=32,
                                       device="cpu")
     eng.ent_al_gapper()
-    eng._upload()
     eng._ensure_order()
     eng._msa_d = eng._msa_d.as_subclass(_CardTyped)
     eng._counts_d = eng._counts_d.as_subclass(_CardTyped)
@@ -495,7 +493,6 @@ def test_resident_card_route_by_band(fake_card, monkeypatch):
     cls.exact_blocks_run["cuda"] = 0
     eng = cls(msa, bandwidth=w, block_rows=8, chunk=32, device="cpu")
     eng.ent_al_gapper()
-    eng._upload()
     eng._ensure_order()
     rows = eng._ord_host[:8]
     c = eng._ncols

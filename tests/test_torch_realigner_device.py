@@ -74,8 +74,7 @@ def _port_run(msa, sweeps, bs, *, widen=None, ins_fetch=None,
         if validate:
             eng.validate()
         log.append(eng.overall_pair())
-    eng._sync_host()
-    return log, eng.msa.copy(), eng
+    return log, eng.best_snapshot(), eng
 
 
 @pytest.fixture(scope="module")
@@ -170,11 +169,9 @@ def test_widen_state_adopted_and_converted():
     ws = eng.widen_state()
     assert ws is not None and ws[0] == bs
     b = _port_engine(msa, bs, widen_state=ws)
-    b._upload()
     b._ensure_order()
     np.testing.assert_array_equal(b._block_widen, ws[1])
     b2 = _port_engine(msa, bs // 2, widen_state=ws)
-    b2._upload()
     b2._ensure_order()
     per_row = np.repeat(ws[1], bs)[:msa.shape[0]]
     expect = [per_row[i:i + bs // 2].max()
@@ -184,7 +181,7 @@ def test_widen_state_adopted_and_converted():
     DeviceResidentRealigner.RESIDENT_MIN_BS = 2
     try:
         b3 = eng.respawn(msa.copy(), bs // 2)
-        b3._upload()
+        assert eng._msa_d is None         # freed before b3 uploads
         b3._ensure_order()
         np.testing.assert_array_equal(b3._block_widen, expect)
     finally:
@@ -201,8 +198,8 @@ def test_block_step_counts_and_rows_consistent():
     msa = make_msa(2, rows=6, tlen=200)
     eng = _port_engine(msa, 6)
     eng.ent_al_gapper()
-    eng._upload()
     eng._ensure_order()
+    before = eng.msa                     # the block's input, on the host
     lengths = eng._len_d
     out = rd.block_step(eng._msa_d, eng._counts_d, eng._order_d, lengths,
                         eng._ncols, bandwidth=BAND, chunk=CHUNK, widen=12,
@@ -211,7 +208,138 @@ def test_block_step_counts_and_rows_consistent():
     hist = rd._hist(eng._msa_d)
     assert torch.equal(hist[:c], eng._counts_d[:c])
     assert not hist[c:, :5].any() and not eng._counts_d[c:].any()
-    ways = [np.flatnonzero(r < 4) for r in eng.msa[eng._ord_host]]
+    ways = [np.flatnonzero(r < 4) for r in before[eng._ord_host]]
     drift = max(int(w[min(s + CHUNK - 1, len(w) - 1)] - w[s])
                 for w in ways for s in range(0, len(w), CHUNK))
     assert int(out[-1]) == drift
+
+
+def _crafted_msa(case):
+    """make_msa's rows (' ' outside a row's span, '-' inside it) with the
+    case's features; "every" holds all of them."""
+    msa = make_msa(4, rows=12, tlen=160)
+    every = case == "every"
+    if case in ("row_without_bases", "every"):
+        msa[5] = 4                        # '-' only: every one converted
+        msa[6] = 5
+    if case in ("gaps_outside_the_bases", "every"):
+        b = np.flatnonzero(msa[2] < 4)
+        msa[2, :b[0]] = 4                 # only '-' before the bases
+        b = np.flatnonzero(msa[3] < 4)
+        msa[3, b[-1] + 1:] = 4            # only '-' after them
+    if case in ("columns_the_conversion_empties", "every"):
+        msa[:, 150:] = 5                  # '-' outside each row's bases
+        msa[0:4, 150:] = 4
+    if case in ("columns_already_empty", "every"):
+        msa[:, 70:73] = 5
+        msa[8, 71] = 4                    # '-' inside a row's span
+    assert every or (msa != make_msa(4, rows=12, tlen=160)).any()
+    return msa
+
+
+@pytest.mark.parametrize("case,chunk_rows,laid_out", [
+    ("row_without_bases", None, False),
+    ("gaps_outside_the_bases", None, False),
+    ("columns_the_conversion_empties", None, False),
+    ("columns_already_empty", None, False),
+    ("every", 5, False),                  # row chunks of 5, 5 and 2
+    ("every", 1, False),
+    ("every", 5, True),                   # a respawn's layout, in place
+])
+def test_device_msa_passes_equal_the_host(case, chunk_rows, laid_out,
+                                          monkeypatch):
+    """The resident engine's whole-MSA passes on its device, bit for bit
+    against the host's: the set-up's histogram and row lengths against
+    `symbol_counts` and `row_lengths`; EntAlGapper's conversion, its
+    count, the columns it keeps, the MSA and the histogram against
+    `RealignEngine.ent_al_gapper`, both from the set-up's upload (the
+    gather into the [R, CPAD] buffer sized from the width kept) and in
+    place on a laid-out buffer; a second call converts nothing."""
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.models import realigner_device as rd
+    if chunk_rows:                        # row chunks of this many rows
+        monkeypatch.setattr(rd, "pass_rows", lambda dev, cols: chunk_rows)
+    msa = _crafted_msa(case)
+    cpu = torch.device("cpu")
+    msa_d, counts_d, lengths_d = rd.upload_msa(msa, cpu)
+    np.testing.assert_array_equal(msa_d.numpy(), msa)
+    np.testing.assert_array_equal(counts_d.numpy(), prt.symbol_counts(msa))
+    np.testing.assert_array_equal(lengths_d.numpy(), prt.row_lengths(msa))
+    ref = prt.RealignEngine(msa.copy(), BAND)
+    keep = np.flatnonzero(ref.counts[:, :4].sum(axis=1) > 0)
+    converted = ref.ent_al_gapper()
+    assert converted > 0 and ref.msa.shape[1] < msa.shape[1]
+    c = msa.shape[1]
+    assert rd.ent_al_gapper_device(msa_d, counts_d, c) == converted
+    np.testing.assert_array_equal(
+        rd.kept_columns(counts_d, c).numpy(), keep)
+    np.testing.assert_array_equal(msa_d.numpy()[:, keep], ref.msa)
+    np.testing.assert_array_equal(counts_d.numpy()[keep], ref.counts)
+
+    eng = _port_engine(msa, 4)
+    np.testing.assert_array_equal(eng.counts, prt.symbol_counts(msa))
+    np.testing.assert_array_equal(eng._lengths_all, prt.row_lengths(msa))
+    if laid_out:
+        eng._lay_out()
+    cpad = eng._cpad
+    assert eng.ent_al_gapper() == converted
+    n = len(keep)
+    assert eng.width() == n
+    assert eng._cpad == (cpad if laid_out
+                         else -(-(n + 32768) // 1024) * 1024)
+    np.testing.assert_array_equal(eng.msa, ref.msa)
+    np.testing.assert_array_equal(eng.counts, ref.counts)
+    assert (eng._msa_d[:, n:] == 5).all() and not eng._counts_d[n:].any()
+    eng.validate()
+    assert eng.ent_al_gapper() == 0 and eng.width() == n
+    np.testing.assert_array_equal(eng.msa, ref.msa)
+
+
+def test_resident_call_makes_no_host_msa_pass():
+    """A resident `realign_batched` call with the recorder on: no
+    whole-MSA pass on the host between its entry and its return
+    (`realign.host_msa_passes`, which the host engine's call counts),
+    the set-up's upload inside `realign.setup`, and the score log and
+    MSA of the JAX package's resident engine."""
+    from repeatresolver_tpu.config import RealignerConfig as JCfg
+    from repeatresolver_tpu.models import realigner as jr
+    from repeatresolver_tpu_torch.config import RealignerConfig
+    from repeatresolver_tpu_torch.models import realigner as prt
+    from repeatresolver_tpu_torch.utils import trace
+    msa = make_msa(6, rows=24, tlen=240)
+    msa[3, :40] = 4                       # '-' before a row's bases
+    log_j: list = []
+    out_j = jr.realign_batched(msa.copy(), JCfg(bandwidth=BAND,
+                                                max_rounds=3),
+                               block_rows=8, mode="staircase",
+                               kernel="pallas", score_log=log_j,
+                               anneal=False)
+    trace.reset()
+    trace.enable()
+    try:
+        log_p: list = []
+        out_p = prt.realign_batched(
+            msa.copy(), RealignerConfig(bandwidth=BAND, block_rows=8,
+                                        max_rounds=3),
+            score_log=log_p, anneal=False, device="cpu")
+        passes = trace.totals()["counts"].get("realign.host_msa_passes", 0)
+        tree = {i: (n, p) for n, i, p, *_ in trace.timeline()}
+        trace.reset()
+        prt.realign_batched(msa.copy(), RealignerConfig(bandwidth=BAND,
+                                                        block_rows=8,
+                                                        max_rounds=3),
+                            anneal=False, mode="exact", kernel="native",
+                            device="cpu")
+        host_passes = trace.totals()["counts"]["realign.host_msa_passes"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert passes == 0
+    # symbol_counts, the bases, EntAlGapper twice
+    assert host_passes >= 4
+    uploads = [p for n, p in tree.values() if n == "resident.upload"]
+    assert len(uploads) == 1
+    assert tree[uploads[0]][0] == "realign.setup"
+    assert tree[tree[uploads[0]][1]][0] == "realign.call"
+    assert log_p == log_j and len(log_p) > 2
+    np.testing.assert_array_equal(out_p, out_j)
